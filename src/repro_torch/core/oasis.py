@@ -1,0 +1,114 @@
+"""Alg. 1 — OASiS online admission + scheduling loop, on PyTorch.
+
+Every decision goes through the whole-horizon decision core
+(``core/schedule_torch.py``), which reads dual prices from the
+device-resident ``PriceState`` (``core/pricing.py``); ``commit`` keeps
+the residency fresh with in-place slot-window adds.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+import torch
+
+from .pricing import PriceParams, PriceState
+from .schedule_torch import best_schedule_fused
+from .types import ClusterSpec, Job, Schedule
+
+
+class OASiS:
+    """Online scheduler: admit iff the best schedule has positive payoff.
+
+    Example — one Alg. 1 pass over a tiny trace::
+
+        >>> from repro_torch.core.oasis import OASiS
+        >>> from repro_torch.core.pricing import price_params_from_jobs
+        >>> from repro_torch.sim.workload import make_cluster, make_jobs
+        >>> cluster = make_cluster(T=20, H=3, K=3)
+        >>> jobs = make_jobs(4, T=20, seed=0, small=True)
+        >>> sched = OASiS(cluster, price_params_from_jobs(jobs, cluster),
+        ...               device="cpu")
+        >>> plans = sched.on_arrivals(jobs)
+        >>> [p is not None for p in plans]     # admission decisions
+        [True, True, True, True]
+        >>> sorted(sched.accepted)
+        [0, 1, 2, 3]
+    """
+
+    def __init__(self, cluster: ClusterSpec, params: PriceParams,
+                 track_duality: bool = False,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.cluster = cluster
+        self.state = PriceState(cluster, params, device=device)
+        self.accepted: Dict[int, Schedule] = {}
+        self.rejected: List[int] = []
+        self.total_utility = 0.0
+        self.decision_seconds: List[float] = []
+        # Lemma-2 instrumentation: per-accepted-job primal/dual increments
+        # (P_i - P_{i-1}, D_i - D_{i-1}); Theorem 4 rests on
+        # ΔP >= ΔD / alpha.
+        self.track_duality = track_duality
+        self.primal_deltas: List[float] = []
+        self.dual_deltas: List[float] = []
+
+    # -- Alg. 1 "upon arrival of job i" ------------------------------------
+    def propose(self, job: Job) -> Optional[Schedule]:
+        """Alg. 2 candidate at current prices (no commitment).  ``None``
+        means no schedule has positive payoff — Alg. 1 would reject."""
+        t0 = time.perf_counter()
+        sched = best_schedule_fused(job, self.state)
+        self.decision_seconds.append(time.perf_counter() - t0)
+        return sched
+
+    def on_arrival(self, job: Job) -> Optional[Schedule]:
+        return self._resolve(job, self.propose(job))
+
+    def on_arrivals(self, jobs: List[Job]) -> List[Optional[Schedule]]:
+        """Decide a burst one job after another in (stable) arrival order —
+        the reference's semantics for every backend, and identical, job
+        for job, to its batched path."""
+        order = sorted(range(len(jobs)), key=lambda i: jobs[i].arrival)
+        out: List[Optional[Schedule]] = [None] * len(jobs)
+        for i in order:
+            out[i] = self.on_arrival(jobs[i])
+        return out
+
+    def _resolve(self, job: Job, sched: Optional[Schedule]
+                 ) -> Optional[Schedule]:
+        """Alg. 1 lines 5-11: admit iff positive payoff, commit, bump prices."""
+        if sched is None:                       # mu_i <= 0 -> reject
+            self.rejected.append(job.jid)
+            return None
+        if self.track_duality:
+            # prices move only inside the committed slot window, so the
+            # Lemma-2 increments are computed from those slots alone
+            w_slots = np.fromiter(sched.workers.keys(), dtype=np.int64,
+                                  count=len(sched.workers))
+            z_slots = np.fromiter(sched.ps.keys(), dtype=np.int64,
+                                  count=len(sched.ps))
+            p0 = self.state.worker_prices_at(w_slots)
+            q0 = self.state.ps_prices_at(z_slots)
+        self.state.commit(job, sched.workers, sched.ps)
+        if self.track_duality:
+            p1 = self.state.worker_prices_at(w_slots)
+            q1 = self.state.ps_prices_at(z_slots)
+            # ΔD = mu_i + Σ (p' - p) c_h + Σ (q' - q) c_k   (Lemma 2)
+            d_delta = sched.payoff
+            d_delta += float(((p1 - p0) *
+                              self.cluster.worker_caps[None]).sum())
+            d_delta += float(((q1 - q0) * self.cluster.ps_caps[None]).sum())
+            self.primal_deltas.append(sched.utility)
+            self.dual_deltas.append(d_delta)
+        self.accepted[job.jid] = sched
+        self.total_utility += sched.utility
+        return sched
+
+    # -- views used by the simulator ---------------------------------------
+    def allocation_at(self, t: int) -> Dict[int, tuple]:
+        out = {}
+        for jid, sched in self.accepted.items():
+            if t in sched.workers:
+                out[jid] = (sched.workers[t], sched.ps.get(t))
+        return out
