@@ -1,9 +1,10 @@
 """Alg. 1 — OASiS online admission + scheduling loop, on PyTorch.
 
-Every decision goes through the whole-horizon decision core
-(``core/schedule_torch.py``), which reads dual prices from the
-device-resident ``PriceState`` (``core/pricing.py``); ``commit`` keeps
-the residency fresh with in-place slot-window adds.
+Every decision goes through one of the decision cores of
+``core/schedule_torch.py`` (``core="whole"``, the default, or
+``"tiled"``), which read dual prices from the device-resident
+``PriceState`` (``core/pricing.py``); ``commit`` keeps the residency fresh
+with in-place slot-window adds.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from .pricing import PriceParams, PriceState
-from .schedule_torch import best_schedule_fused
+from .schedule_torch import CORES, best_schedule_fused
 from .types import ClusterSpec, Job, Schedule
 
 
@@ -39,8 +40,12 @@ class OASiS:
 
     def __init__(self, cluster: ClusterSpec, params: PriceParams,
                  track_duality: bool = False,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 core: str = "whole"):
+        if core not in CORES:
+            raise ValueError(f"core must be one of {CORES}, not {core!r}")
         self.cluster = cluster
+        self.core = core
         self.state = PriceState(cluster, params, device=device)
         self.accepted: Dict[int, Schedule] = {}
         self.rejected: List[int] = []
@@ -58,7 +63,7 @@ class OASiS:
         """Alg. 2 candidate at current prices (no commitment).  ``None``
         means no schedule has positive payoff — Alg. 1 would reject."""
         t0 = time.perf_counter()
-        sched = best_schedule_fused(job, self.state)
+        sched = best_schedule_fused(job, self.state, core=self.core)
         self.decision_seconds.append(time.perf_counter() - t0)
         return sched
 

@@ -18,8 +18,8 @@ Prices are maintained per (slot t, server, resource r):
 
 Reading ``g``/``v`` hands out the mutable host arrays and so drops the
 residency (the caller may write).  This is the fixed-horizon part of the
-reference state: the rolling window, server blocking and the dirty-slot
-log are not ported yet.
+reference state, with its ``version`` counter: the rolling window, server
+blocking and the dirty-slot log are not ported yet.
 """
 from __future__ import annotations
 
@@ -165,6 +165,9 @@ class PriceState:
         self._dev_static = {}
         self._commits_since_sync = 0
         self.device_uploads = 0
+        # bumped on every commit/release (the decision core keys its
+        # padded-state cache on it, with the residency it padded)
+        self.version = 0
 
     @property
     def horizon(self) -> int:
@@ -257,6 +260,7 @@ class PriceState:
                     self._dev[pool][t0:t0 + delta.shape[0]] += torch.tensor(
                         delta, dtype=self._dev_dtype, device=self.device)
                 self._commits_since_sync += 1
+        self.version += 1
 
     def commit(self, job: Job, workers: dict, ps: dict) -> None:
         self._apply(workers, ps, job.worker_res, job.ps_res, 1.0)

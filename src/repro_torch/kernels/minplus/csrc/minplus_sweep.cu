@@ -13,12 +13,24 @@
 // or written once, so its arithmetic intensity is ~DC/8 per byte in f64;
 // there is no multiply, so the tensor cores cannot help.  The slot
 // recurrence is sequential, so this first design runs one block per sweep
-// and keeps the carry on chip across the slot loop: two ping-pong carry
-// buffers of D+1 values and the current row live in dynamic shared memory
-// (opted in above 48 KB with cudaFuncSetAttribute), threads stride over d,
-// and one __syncthreads() pair separates the slots.  It uses one SM of
-// 132; spreading a sweep over several blocks (clusters, DSMEM carry) is
-// later work.
+// and keeps the carry close to the SM across the slot loop: two ping-pong
+// carry buffers of D+1 values and the current row, threads striding over
+// d, one __syncthreads() pair between the slots.  It uses one SM of 132;
+// spreading a sweep over several blocks (clusters, DSMEM carry) is later
+// work.  Where the buffers live is the wrapper's plan (kernel.py::
+// sweep_plan), by size:
+//
+//   kShared      carries and row in dynamic shared memory (opted in above
+//                48 KB with cudaFuncSetAttribute) -- every shape whose
+//                (2 (D+1) + DC+1) values fit in the 227 KB a block may use;
+//   kGlobalCarry the two carries in a (2, D+1) global scratch tensor the
+//                wrapper allocates (at D+1 = 20480 f64 that is 320 KB, which
+//                stays in the 50 MB L2), the row still in shared memory;
+//   kGlobal      carries and row read from global memory (a row wider than
+//                shared memory; no bucket of the repo's traces needs it).
+//
+// __syncthreads() orders a block's global writes before its later reads as
+// it does for shared memory, so the three differ only in where the loads go.
 //
 // Exactness: each cost is one IEEE add of two inputs (no FMA can form:
 // there is no multiply), and the strict '<' in increasing j keeps the
@@ -40,15 +52,29 @@ __device__ __forceinline__ float pos_inf<float>() { return CUDART_INF_F; }
 template <>
 __device__ __forceinline__ double pos_inf<double>() { return CUDART_INF; }
 
-template <typename T>
+// buffer placement (kernel.py::sweep_plan's modes)
+constexpr int kShared = 0;
+constexpr int kGlobalCarry = 1;
+constexpr int kGlobal = 2;
+
+template <typename T, int kMode>
 __global__ void __launch_bounds__(1024)
 minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
-                     int32_t* __restrict__ split, int n_slots, int dc1,
-                     int d1) {
+                     int32_t* __restrict__ split, T* carry, int n_slots,
+                     int dc1, int d1) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* prev = reinterpret_cast<T*>(smem_raw);   // carry cost_{t-1}, (d1,)
-  T* next = prev + d1;                        // carry being built, (d1,)
-  T* row = next + d1;                         // rows[t], (dc1,)
+  T* prev;       // carry cost_{t-1}, (d1,)
+  T* next;       // carry being built, (d1,)
+  T* row;        // rows[t] staged in shared memory, (dc1,); kGlobal: unused
+  if constexpr (kMode == kShared) {
+    prev = reinterpret_cast<T*>(smem_raw);
+    next = prev + d1;
+    row = next + d1;
+  } else {
+    prev = carry;
+    next = carry + d1;
+    row = reinterpret_cast<T*>(smem_raw);
+  }
   const T inf = pos_inf<T>();
 
   for (int d = threadIdx.x; d < d1; d += blockDim.x)
@@ -56,7 +82,11 @@ minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
 
   for (int t = 0; t < n_slots; ++t) {
     const T* row_g = rows + static_cast<int64_t>(t) * dc1;
-    for (int j = threadIdx.x; j < dc1; j += blockDim.x) row[j] = row_g[j];
+    const T* row_t = row_g;
+    if constexpr (kMode != kGlobal) {
+      for (int j = threadIdx.x; j < dc1; j += blockDim.x) row[j] = row_g[j];
+      row_t = row;
+    }
     __syncthreads();  // row t and the carry of slot t-1 are in place
 
     T* cost_t = cost + static_cast<int64_t>(t) * d1;
@@ -67,7 +97,7 @@ minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
       int32_t arg = 0;
       const int jmax = min(dc1 - 1, d);
       for (int j = 0; j <= jmax; ++j) {
-        const T cand = row[j] + prev[d - j];
+        const T cand = row_t[j] + prev[d - j];
         if (cand < best) {
           best = cand;
           arg = j;
@@ -84,23 +114,45 @@ minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
   }
 }
 
-template <typename T>
-int launch(const void* rows, void* cost, void* split, int n_slots, int dc1,
-           int d1, void* stream) {
-  const size_t smem = (2 * static_cast<size_t>(d1) + dc1) * sizeof(T);
+template <typename T, int kMode>
+int launch_mode(const void* rows, void* cost, void* split, void* carry,
+                int n_slots, int dc1, int d1, void* stream) {
+  const size_t smem =
+      kMode == kShared   ? (2 * static_cast<size_t>(d1) + dc1) * sizeof(T)
+      : kMode == kGlobal ? 0
+                         : static_cast<size_t>(dc1) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      minplus_sweep_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      minplus_sweep_kernel<T, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // columns per thread so that a block has at most 1024 threads, then as
   // few threads as give every thread that many columns
   const int cols = (d1 + 1023) / 1024;
   const int threads = ((d1 + cols - 1) / cols + 31) / 32 * 32;
-  minplus_sweep_kernel<T><<<1, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  minplus_sweep_kernel<T, kMode><<<1, threads, smem,
+                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(rows), static_cast<T*>(cost),
-      static_cast<int32_t*>(split), n_slots, dc1, d1);
+      static_cast<int32_t*>(split), static_cast<T*>(carry), n_slots, dc1,
+      d1);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const void* rows, void* cost, void* split, void* carry,
+           int n_slots, int dc1, int d1, int mode, void* stream) {
+  switch (mode) {
+    case kShared:
+      return launch_mode<T, kShared>(rows, cost, split, carry, n_slots, dc1,
+                                     d1, stream);
+    case kGlobalCarry:
+      return launch_mode<T, kGlobalCarry>(rows, cost, split, carry, n_slots,
+                                          dc1, d1, stream);
+    case kGlobal:
+      return launch_mode<T, kGlobal>(rows, cost, split, carry, n_slots, dc1,
+                                     d1, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -108,16 +160,20 @@ int launch(const void* rows, void* cost, void* split, int n_slots, int dc1,
 extern "C" {
 
 // rows (n_slots, dc1), cost (n_slots, d1) contiguous on the device;
-// split (n_slots, d1) int32 or NULL for a cost-only sweep.  Enqueued on
-// `stream`; returns the cudaError_t of the launch (0 = launched).
-int minplus_sweep_f32(const void* rows, void* cost, void* split, int n_slots,
-                      int dc1, int d1, void* stream) {
-  return launch<float>(rows, cost, split, n_slots, dc1, d1, stream);
+// split (n_slots, d1) int32 or NULL for a cost-only sweep; carry a
+// (2, d1) scratch for modes kGlobalCarry and kGlobal (NULL for kShared);
+// mode as in kernel.py::sweep_plan.  Enqueued on `stream`; returns the
+// cudaError_t of the launch (0 = launched).
+int minplus_sweep_f32(const void* rows, void* cost, void* split, void* carry,
+                      int n_slots, int dc1, int d1, int mode, void* stream) {
+  return launch<float>(rows, cost, split, carry, n_slots, dc1, d1, mode,
+                       stream);
 }
 
-int minplus_sweep_f64(const void* rows, void* cost, void* split, int n_slots,
-                      int dc1, int d1, void* stream) {
-  return launch<double>(rows, cost, split, n_slots, dc1, d1, stream);
+int minplus_sweep_f64(const void* rows, void* cost, void* split, void* carry,
+                      int n_slots, int dc1, int d1, int mode, void* stream) {
+  return launch<double>(rows, cost, split, carry, n_slots, dc1, d1, mode,
+                        stream);
 }
 
 const char* minplus_error_string(int code) {

@@ -1,88 +1,299 @@
-"""CUDA min-plus DP sweep: build, ctypes binding and the checked wrapper.
+"""CUDA min-plus kernels: build, ctypes bindings, launch plans and the
+checked wrappers.
 
-Replaces ``repro/kernels/minplus/kernel.py::minplus_sweep_pallas``; the
-kernel itself and its design notes are in ``csrc/minplus_sweep.cu``.  The
-library is compiled from that source at first use
-(:mod:`repro_torch.kernels.build`), never at import.
+Three kernels, each in its own ``csrc/*.cu`` with its design notes:
+
+* :func:`minplus_sweep_cuda` (``minplus_sweep.cu``) replaces
+  ``repro/kernels/minplus/kernel.py::minplus_sweep_pallas``: the
+  whole-horizon DP sweep, T slots in one launch of ONE block.
+  :func:`sweep_plan` places its two (D+1,) carries and its (DC+1,) row:
+  all in dynamic shared memory when ``(2 (D+1) + DC+1) * itemsize`` fits
+  the 227 KB (232,448 bytes) a block may use, else the carries in a
+  ``(2, D+1)`` global scratch tensor (L2-resident: 320 KB at D+1 = 20480
+  in f64) with the row still in shared memory, else everything in global
+  memory.  No shape is refused.
+* :func:`minplus_cuda` (``minplus_slot.cu``) replaces ``minplus_pallas``:
+  one slot with the first-index argmin (or cost only).  Grid of
+  ``ceil((D+1) / 256)`` blocks of 256 threads, one output each; the row
+  and the block's window of the carry (``2 (DC+1) + 255`` values) are
+  staged in shared memory when they fit (:func:`slot_plan`), else read
+  from global memory.
+* :func:`minplus_plateau_cuda` (``minplus_plateau.cu``) replaces
+  ``minplus_plateau_pallas``: one run-compressed slot, cost only.  Grid of
+  blocks of 256 outputs, each with its own doubling table over its window
+  of the carry (``kmax`` levels of ``256 + DC`` values) in shared memory
+  when it fits (:func:`plateau_plan`), else blocks of 1024 outputs whose
+  tables live in a global scratch tensor.
+
+The libraries are compiled from the sources at first use
+(:mod:`repro_torch.kernels.build`, all ``nvcc`` processes started
+together), never at import.  Each wrapper launches on the current stream
+without synchronising, raises on a bad device, dtype, shape or
+contiguity and on a failed launch, and counts its launches in
+``<wrapper>.launches``.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..build import build_libraries
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "minplus_sweep.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"sweep": _CSRC / "minplus_sweep.cu",
+           "slot": _CSRC / "minplus_slot.cu",
+           "plateau": _CSRC / "minplus_plateau.cu"}
 
 # shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
 
-_lib: Optional[ctypes.CDLL] = None
+# sweep buffer placements (csrc/minplus_sweep.cu's kMode)
+SWEEP_SHARED, SWEEP_GLOBAL_CARRY, SWEEP_GLOBAL = 0, 1, 2
+SLOT_BLOCK = 256               # outputs per block (csrc/minplus_slot.cu kBlock)
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "sweep": ("minplus_sweep", [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+              "minplus_error_string"),
+    "slot": ("minplus_slot", [_P, _P, _P, _P, _I, _I, _I, _P],
+             "minplus_slot_error_string"),
+    "plateau": ("minplus_plateau",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                 _P],
+                "minplus_plateau_error_string"),
+}
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel's library."""
-    global _lib
-    if _lib is None:
-        path, = build_libraries([SOURCE])
-        lib = ctypes.CDLL(str(path))
-        for fn in (lib.minplus_sweep_f32, lib.minplus_sweep_f64):
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.minplus_error_string.argtypes = [ctypes.c_int]
-        lib.minplus_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def load_libraries() -> Dict[str, ctypes.CDLL]:
+    """Build (once per source hash, the three ``nvcc`` runs started
+    together) and load every min-plus library; returns them by name."""
+    if len(_libs) < len(SOURCES):
+        names = list(SOURCES)
+        paths = build_libraries([SOURCES[n] for n in names])
+        for name, path in zip(names, paths):
+            lib = ctypes.CDLL(str(path))
+            stem, argtypes, err = _SIGNATURES[name]
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{stem}_{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            getattr(lib, err).argtypes = [ctypes.c_int]
+            getattr(lib, err).restype = ctypes.c_char_p
+            _libs[name] = lib
+    return _libs
+
+
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
+    lib = load_libraries()[name]
+    stem, _, err = _SIGNATURES[name]
+    fn = getattr(lib, f"{stem}_{'f64' if dtype == torch.float64 else 'f32'}")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{stem} launch failed: "
+                           + getattr(lib, err)(rc).decode())
+
+
+def _check(name: str, **tensors: torch.Tensor) -> torch.dtype:
+    dtype = None
+    for arg, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} needs CUDA tensors ({arg} is on "
+                             f"{t.device})")
+        if t.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{arg} must be float32 or float64, not "
+                            f"{t.dtype}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        dtype = t.dtype
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    return dtype
+
+
+# ---------------------------------------------------------------------------
+# Whole-horizon sweep
+# ---------------------------------------------------------------------------
+
+class SweepPlan(NamedTuple):
+    mode: int              # SWEEP_SHARED / SWEEP_GLOBAL_CARRY / SWEEP_GLOBAL
+    smem_bytes: int        # dynamic shared memory of the one block
+    scratch: int           # global carry scratch, in values (2 * d1 or 0)
+
+
+def sweep_plan(dc1: int, d1: int, dtype: torch.dtype) -> SweepPlan:
+    """Where the sweep's carries and row live, by size (module
+    docstring).  Pure: the CPU tests call it on every shape bucket."""
+    size = torch.empty((), dtype=dtype).element_size()
+    shared = (2 * d1 + dc1) * size          # two carries, one row
+    if shared <= SMEM_LIMIT:
+        return SweepPlan(SWEEP_SHARED, shared, 0)
+    if dc1 * size <= SMEM_LIMIT:
+        return SweepPlan(SWEEP_GLOBAL_CARRY, dc1 * size, 2 * d1)
+    return SweepPlan(SWEEP_GLOBAL, 0, 2 * d1)
 
 
 def minplus_sweep_cuda(rows: torch.Tensor, d_total: int, *,
-                       want_split: bool = True
+                       want_split: bool = True,
+                       plan: Optional[SweepPlan] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The DP sweep of :func:`..ref.minplus_sweep_ref` as one CUDA launch.
 
     rows: (T, DC+1) float32 or float64, contiguous, on a CUDA device.
     Returns ``(cost (T, D+1), split (T, D+1) int32 or None)``; the split
-    is skipped when ``want_split`` is False.  Launches on the current
-    stream without synchronising; ``minplus_sweep_cuda.launches`` counts
-    the launches."""
-    if not rows.is_cuda:
-        raise ValueError("minplus_sweep_cuda needs a CUDA tensor")
-    if rows.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"rows must be float32 or float64, not {rows.dtype}")
-    if rows.ndim != 2 or not rows.is_contiguous():
-        raise ValueError("rows must be a contiguous (T, DC+1) tensor")
+    is skipped when ``want_split`` is False.  ``plan`` overrides
+    :func:`sweep_plan` (the tests force each placement at small shapes).
+    Launches on the current stream without synchronising;
+    ``minplus_sweep_cuda.launches`` counts the launches."""
+    _check("minplus_sweep_cuda", rows=rows)
+    if rows.ndim != 2:
+        raise ValueError("rows must be a (T, DC+1) tensor")
     T, dc1 = rows.shape
     d1 = int(d_total) + 1
     if dc1 < 1 or d1 < 1:
         raise ValueError(f"empty band: rows {tuple(rows.shape)}, "
                          f"d_total {d_total}")
-    smem = (2 * d1 + dc1) * rows.element_size()   # two carries, one row
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"sweep needs {smem} bytes of shared memory, more "
-                         f"than the {SMEM_LIMIT} a block may use")
+    plan = plan or sweep_plan(dc1, d1, rows.dtype)
     cost = torch.empty((T, d1), dtype=rows.dtype, device=rows.device)
     split = (torch.empty((T, d1), dtype=torch.int32, device=rows.device)
              if want_split else None)
     if T == 0:
         return cost, split
-    lib = load_library()
-    fn = (lib.minplus_sweep_f64 if rows.dtype == torch.float64
-          else lib.minplus_sweep_f32)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = fn(rows.data_ptr(), cost.data_ptr(),
-                split.data_ptr() if split is not None else None,
-                T, dc1, d1, stream)
-    if rc != 0:
-        raise RuntimeError("minplus_sweep launch failed: "
-                           + lib.minplus_error_string(rc).decode())
+    carry = (torch.empty(plan.scratch, dtype=rows.dtype, device=rows.device)
+             if plan.scratch else None)
+    _launch("sweep", rows.dtype, rows.device, rows.data_ptr(),
+            cost.data_ptr(), split.data_ptr() if split is not None else None,
+            carry.data_ptr() if carry is not None else None, T, dc1, d1,
+            plan.mode)
     minplus_sweep_cuda.launches += 1
     return cost, split
 
 
 minplus_sweep_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One slot with its argmin (the tiled core's chain step)
+# ---------------------------------------------------------------------------
+
+def slot_plan(dc1: int, dtype: torch.dtype) -> bool:
+    """Whether the slot kernel stages the row and its window of the carry
+    (``2 (DC+1) + 255`` values) in shared memory."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return (2 * dc1 + SLOT_BLOCK - 1) * size <= SMEM_LIMIT
+
+
+def _slot_args(name: str, row: torch.Tensor, prev: torch.Tensor,
+               out: Optional[torch.Tensor]) -> Tuple[torch.dtype, torch.Tensor]:
+    if row.ndim != 1 or prev.ndim != 1 or row.numel() < 1 \
+            or prev.numel() < 1:
+        raise ValueError(f"{name}: row (DC+1,) and prev (D+1,) must be "
+                         f"non-empty vectors, not {tuple(row.shape)} and "
+                         f"{tuple(prev.shape)}")
+    if out is None:
+        out = torch.empty_like(prev)
+    elif out.shape != prev.shape:
+        raise ValueError(f"{name}: out {tuple(out.shape)} must match prev "
+                         f"{tuple(prev.shape)}")
+    dtype = _check(name, row=row, prev=prev, out=out)
+    return dtype, out
+
+
+def minplus_cuda(row: torch.Tensor, prev: torch.Tensor, *,
+                 want_arg: bool = True, out: Optional[torch.Tensor] = None,
+                 staged: Optional[bool] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One slot of :func:`..ref.minplus_ref` as one CUDA launch:
+    ``new[d] = min_j row[j] + prev[d - j]`` and the first-index argmin
+    (skipped when ``want_arg`` is False).
+
+    row (DC+1,), prev (D+1,): float32 or float64, contiguous, one CUDA
+    device.  ``out`` (D+1,) receives ``new`` when given (the tiled core
+    passes its cost-table row).  ``staged`` overrides :func:`slot_plan`.
+    Returns ``(new, arg int32 or None)``."""
+    dtype, out = _slot_args("minplus_cuda", row, prev, out)
+    if staged is None:
+        staged = slot_plan(row.numel(), dtype)
+    arg = (torch.empty(prev.shape, dtype=torch.int32, device=prev.device)
+           if want_arg else None)
+    _launch("slot", dtype, prev.device, row.data_ptr(), prev.data_ptr(),
+            out.data_ptr(), arg.data_ptr() if arg is not None else None,
+            row.numel(), prev.numel(), int(staged))
+    minplus_cuda.launches += 1
+    return out, arg
+
+
+minplus_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One run-compressed slot (the tiled core's plateau step)
+# ---------------------------------------------------------------------------
+
+class PlateauPlan(NamedTuple):
+    block: int             # outputs (and threads) per block
+    table_shared: bool     # doubling table in shared memory
+    smem_bytes: int
+    kmax: int              # table levels: floor(log2(DC+1)) + 1
+    scratch: int           # global table scratch, in values (0 if shared)
+
+
+def plateau_plan(dc1: int, d1: int, dtype: torch.dtype, r_max: int, *,
+                 table_shared: Optional[bool] = None) -> PlateauPlan:
+    """Block size and table placement of the plateau kernel (module
+    docstring); ``table_shared=False`` forces the global table.  Raises
+    only for an ``r_max`` whose run list cannot fit in shared memory."""
+    size = torch.empty((), dtype=dtype).element_size()
+    kmax = dc1.bit_length()
+
+    def smem(block: int, table: bool) -> int:
+        vals = r_max + (kmax * (block + dc1 - 1) if table else 0)
+        return vals * size + 4 * (block + 2 * r_max + 1)
+
+    if table_shared is not False and smem(256, True) <= SMEM_LIMIT:
+        return PlateauPlan(256, True, smem(256, True), kmax, 0)
+    block = 1024
+    if smem(block, False) > SMEM_LIMIT:
+        raise ValueError(f"r_max={r_max} runs do not fit in shared memory")
+    grid = -(-d1 // block)
+    return PlateauPlan(block, False, smem(block, False), kmax,
+                       grid * kmax * (block + dc1 - 1))
+
+
+def minplus_plateau_cuda(row: torch.Tensor, prev: torch.Tensor, *,
+                         r_max: int = 16,
+                         out: Optional[torch.Tensor] = None,
+                         plan: Optional[PlateauPlan] = None) -> torch.Tensor:
+    """One run-compressed slot (cost only, no argmin) as one CUDA
+    launch: the value of :func:`.monotone.plateau_step`, bit for bit.
+
+    Fast for rows of at most ``r_max`` runs of bitwise-equal values (the
+    caller's gate, :func:`.monotone.run_count`); a row with more takes the
+    kernel's direct loop and is still right.  No lane padding, so no
+    padding run is added.  Shapes, dtypes and ``out`` as
+    :func:`minplus_cuda`; ``plan`` overrides :func:`plateau_plan`."""
+    dtype, out = _slot_args("minplus_plateau_cuda", row, prev, out)
+    if r_max < 1:
+        raise ValueError(f"r_max must be >= 1, not {r_max}")
+    dc1, d1 = row.numel(), prev.numel()
+    plan = plan or plateau_plan(dc1, d1, dtype, r_max)
+    scratch = (torch.empty(plan.scratch, dtype=dtype, device=prev.device)
+               if plan.scratch else None)
+    _launch("plateau", dtype, prev.device, row.data_ptr(), prev.data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if scratch is not None
+            else None, dc1, d1, int(r_max), plan.kmax, plan.block,
+            int(plan.table_shared), plan.smem_bytes)
+    minplus_plateau_cuda.launches += 1
+    return out
+
+
+minplus_plateau_cuda.launches = 0

@@ -1,13 +1,40 @@
-"""Device dispatch for the min-plus DP sweep: a CUDA tensor goes to the
-hand-written kernel, a CPU tensor to the plain PyTorch version."""
+"""Device dispatch for the min-plus kernels: a CUDA tensor goes to the
+hand-written kernel, a CPU tensor to the plain PyTorch version.  Nothing
+falls back: a CUDA tensor the kernel refuses raises."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
-from .kernel import minplus_sweep_cuda
-from .ref import minplus_sweep_ref
+from .kernel import minplus_cuda, minplus_plateau_cuda, minplus_sweep_cuda
+from .monotone import plateau_step, run_count
+from .ref import minplus_ref, minplus_sweep_ref
+
+
+def minplus(row: torch.Tensor, prev: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One slot ``(new (D+1,), arg (D+1,) int32)`` with
+    ``new[d] = min_j row[j] + prev[d-j]`` and the first-index argmin."""
+    if row.is_cuda:
+        return minplus_cuda(row, prev)
+    return minplus_ref(row, prev)
+
+
+def minplus_monotone(row: torch.Tensor, prev: torch.Tensor,
+                     r_max: int = 16) -> torch.Tensor:
+    """Structure-aware slot, cost only: the plateau step when the row has
+    at most ``r_max`` runs (counted on the host, as the reference's eager
+    entry does), else the plain slot; each on the card's kernel or, for a
+    CPU tensor, its plain version.  Bit-identical to :func:`minplus`'s
+    cost on every path."""
+    if int(run_count(row)) <= r_max:
+        if row.is_cuda:
+            return minplus_plateau_cuda(row, prev, r_max=r_max)
+        return plateau_step(row, prev)
+    if row.is_cuda:
+        return minplus_cuda(row, prev, want_arg=False)[0]
+    return minplus_ref(row, prev)[0]
 
 
 def minplus_sweep(rows: torch.Tensor, d_total: int, *,

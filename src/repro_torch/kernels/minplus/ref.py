@@ -1,15 +1,60 @@
-"""Plain PyTorch version of the whole-horizon min-plus DP sweep.
+"""Plain PyTorch versions of the min-plus slot and the whole-horizon DP
+sweep.
 
-The CPU path of :func:`repro_torch.kernels.minplus.ops.minplus_sweep` and
-the oracle the CUDA kernel is held to, bit for bit: min-plus has no
-multiply, so every cost is one IEEE add of the inputs and the first-index
-argmin is fixed by the values alone.
+The CPU paths of :mod:`repro_torch.kernels.minplus.ops` and the oracles
+the CUDA kernels are held to, bit for bit: min-plus has no multiply, so
+every cost is one IEEE add of the inputs and the first-index argmin is
+fixed by the values alone.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+
+# candidate cells materialised at once by the slot oracles: bounds their
+# memory at wide bands (d1 = 20480, DC+1 = 8960 is 183M cells per slot)
+_CHUNK_CELLS = 1 << 22
+
+
+def window_min(row: torch.Tensor, prev: torch.Tensor, want_arg: bool
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``new[..., d] = min_j row[..., j] + prev[..., d - j]`` (+inf where
+    ``d - j < 0``) over leading batch axes, with the first-index argmin
+    (int64) when ``want_arg``; evaluated in chunks of output columns."""
+    dc1 = row.shape[-1]
+    d1 = prev.shape[-1]
+    lead = prev.shape[:-1]
+    pad = torch.full(lead + (dc1 - 1,), float("inf"), dtype=prev.dtype,
+                     device=prev.device)
+    padded = torch.cat([pad, prev], dim=-1)
+    batch = prev.numel() // max(d1, 1)
+    step = max(1, _CHUNK_CELLS // (dc1 * max(batch, 1)))
+    vals, args = [], []
+    for c0 in range(0, d1, step):
+        c1 = min(d1, c0 + step)
+        # window d of the padded carry, reversed: prev[d - j] for each j
+        win = padded[..., c0:c1 + dc1 - 1].unfold(-1, dc1, 1).flip(-1)
+        best, arg = torch.min(row.unsqueeze(-2) + win, dim=-1)
+        vals.append(best)
+        args.append(arg)
+    new = torch.cat(vals, dim=-1)
+    return new, (torch.cat(args, dim=-1) if want_arg else None)
+
+
+def minplus_ref(row: torch.Tensor, prev: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One DP slot ``new[d] = min_j row[j] + prev[d - j]`` with the
+    first-index argmin — the function of the reference's
+    ``kernels/minplus/ref.py::minplus_ref`` and Pallas ``minplus_pallas``,
+    in the inputs' dtype (the reference casts to float32).
+
+    row (DC+1,), prev (D+1,), +inf where infeasible, no NaN.  Returns
+    ``(new (D+1,), arg (D+1,) int32)``, arg 0 where every candidate is
+    +inf."""
+    new, arg = window_min(row, prev, want_arg=True)
+    return new, arg.to(torch.int32)
 
 
 def minplus_sweep_ref(rows: torch.Tensor, d_total: int

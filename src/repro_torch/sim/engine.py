@@ -72,10 +72,13 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         params: Optional[PriceParams] = None, check: bool = True,
         quantum: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
-        cancellations=None, throughput=None, fleet=None, policy=None
+        core: str = "whole", cancellations=None, throughput=None,
+        fleet=None, policy=None
         ) -> SimResult:
     """Drive OASiS through the trace event by event on ``device`` (None:
-    the CUDA card).  Same contract as the reference ``engine.run`` on
+    the CUDA card), every decision through the decision core ``core``
+    (``"whole"`` or ``"tiled"``, see ``core/schedule_torch.py``).  Same
+    contract as the reference ``engine.run`` on
     churn-free, cancellation-free, unperturbed traces; price parameters
     come from the trace when not given.
 
@@ -104,7 +107,7 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     jmap = {j.jid: j for j in jobs}
     by_slot = _group_events(jobs, T)
     params = params or price_params_from_jobs(jobs, cluster)
-    osched = OASiS(cluster, params, device=device)
+    osched = OASiS(cluster, params, device=device, core=core)
     total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
 
     for t in sorted(by_slot):

@@ -1,32 +1,72 @@
-"""The port's CUDA DP sweep on the card, against its plain version.
+"""The port's CUDA min-plus kernels on the card, against their plain
+versions: the DP sweep, the one-slot kernel (A) and the plateau kernel
+(B), and both decision routes on the card against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
 on a machine that has the card but no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_minplus_cuda.py
 
-Min-plus has no multiply, so the kernel must equal the plain version bit
-for bit, in cost and in the first-index split, in float32 and float64.
+Min-plus has no multiply, so each kernel must equal its plain version bit
+for bit, in cost and in the first-index split or argmin, in float32 and
+float64, in every buffer placement its launch plan can choose.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import schedule_torch
 from repro_torch.core.schedule_torch import _shape_bucket
-from repro_torch.kernels.minplus.kernel import minplus_sweep_cuda
-from repro_torch.kernels.minplus.ref import minplus_sweep_ref
+from repro_torch.kernels.minplus import kernel
+from repro_torch.kernels.minplus.kernel import (minplus_cuda,
+                                                minplus_plateau_cuda,
+                                                minplus_sweep_cuda)
+from repro_torch.kernels.minplus.monotone import plateau_step, run_count
+from repro_torch.kernels.minplus.ref import minplus_ref, minplus_sweep_ref
 from repro_torch.sim import engine, workload
 
-# tests/test_kernels.py's sweep shapes, the slice's (m_pad, d1) buckets
-# and the widest 10x-instance sweep
+# tests/test_kernels.py's sweep shapes, the slice's (m_pad, d1) buckets,
+# the widest 10x-instance sweep, and the wide unquantized jobs' d1 with
+# the narrowest band and the widest of the T=100 and the 10x traces
 SHAPES = [(3, 2, 6), (9, 17, 33), (16, 65, 300), (8, 64, 1280),
-          (4, 640, 1280), (500, 640, 1280)]
+          (4, 640, 1280), (500, 640, 1280), (100, 64, 20480),
+          (100, 2688, 20480), (100, 8960, 20480)]
+# the slot kernels' shapes: the tests', the 10x buckets, the wide jobs'
+SLOT_SHAPES = [(1, 1), (2, 5), (17, 129), (65, 1281), (641, 1281),
+               (64, 1280), (640, 1280), (64, 20480), (2688, 20480),
+               (8960, 20480)]
 
 
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+
+
+def _bits(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return torch.equal(a.view(view), b.view(view))      # +inf too
+
+
+def _row_prev(dc1, d1, dtype, runs=None):
+    """A seeded row (``runs`` runs of equal values, else random with +inf
+    cells) and carry on the card."""
+    rng = np.random.default_rng(dc1 * 7 + d1 + (runs or 0))
+    if runs is None:
+        row = rng.random(dc1)
+        row[rng.random(dc1) < 0.3] = np.inf
+    else:
+        vals = np.concatenate([[0.0], rng.random(runs - 1) + 0.5])
+        cuts = np.sort(rng.choice(np.arange(1, dc1), runs - 1,
+                                  replace=False))
+        row = np.repeat(vals, np.diff(np.concatenate([[0], cuts, [dc1]])))
+    row[0] = 0.0
+    prev = rng.random(d1)
+    prev[rng.random(d1) < 0.3] = np.inf
+    prev[0] = 0.0
+    return (torch.tensor(row, dtype=dtype, device="cuda"),
+            torch.tensor(prev, dtype=dtype, device="cuda"))
 
 
 def _rows(T, dc1, d1, inf_frac):
@@ -51,6 +91,85 @@ def test_cuda_kernel_equals_plain_version(card, T, dc1, d1, dtype):
     assert torch.equal(cost.view(bits), ref_cost.view(bits))   # +inf too
     assert torch.equal(split, ref_split)
     assert torch.equal(cost_only.view(bits), cost.view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", [kernel.SWEEP_SHARED,
+                                  kernel.SWEEP_GLOBAL_CARRY,
+                                  kernel.SWEEP_GLOBAL])
+def test_cuda_sweep_every_placement(card, mode, dtype):
+    T, dc1, d1 = 7, 300, 700
+    rows = torch.tensor(_rows(T, dc1, d1, 0.4), dtype=dtype, device="cuda")
+    size = rows.element_size()
+    plan = kernel.SweepPlan(mode, [(2 * d1 + dc1) * size, dc1 * size, 0][mode],
+                            0 if mode == kernel.SWEEP_SHARED else 2 * d1)
+    cost, split = minplus_sweep_cuda(rows, d1 - 1, plan=plan)
+    ref_cost, ref_split = minplus_sweep_ref(rows, d1 - 1)
+    torch.cuda.synchronize()
+    assert _bits(cost, ref_cost) and torch.equal(split, ref_split)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dc1,d1", SLOT_SHAPES)
+def test_cuda_slot_kernel_equals_plain_version(card, dc1, d1, dtype):
+    row, prev = _row_prev(dc1, d1, dtype)
+    new, arg = minplus_cuda(row, prev)
+    out = torch.empty_like(prev)
+    cost_only, none = minplus_cuda(row, prev, want_arg=False, out=out)
+    unstaged, _ = minplus_cuda(row, prev, staged=False)
+    ref_new, ref_arg = minplus_ref(row, prev)
+    torch.cuda.synchronize()
+    assert none is None and cost_only is out and arg.dtype == torch.int32
+    assert _bits(new, ref_new) and torch.equal(arg, ref_arg)
+    assert _bits(cost_only, ref_new) and _bits(unstaged, ref_new)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dc1,d1", SLOT_SHAPES[2:])
+def test_cuda_plateau_kernel_equals_plain_version(card, dc1, d1, dtype):
+    r_max = 16
+    for runs in (1, r_max - 1, r_max, 3 * r_max):
+        row, prev = _row_prev(dc1, d1, dtype, runs=min(runs, dc1))
+        got = minplus_plateau_cuda(row, prev, r_max=r_max)
+        glob = minplus_plateau_cuda(row, prev, r_max=r_max, plan=(
+            kernel.plateau_plan(dc1, d1, dtype, r_max, table_shared=False)))
+        want = plateau_step(row, prev)
+        chain = minplus_ref(row, prev)[0]
+        torch.cuda.synchronize()
+        assert int(run_count(row)) == min(runs, dc1)
+        assert _bits(got, want) and _bits(glob, want) and _bits(got, chain)
+
+
+@pytest.mark.cuda
+def test_tiled_route_on_card_equals_cpu_one_launch_per_live_slot(card):
+    cluster = workload.make_cluster(T=100, H=20, K=20)
+    jobs = workload.make_jobs(40, T=100, seed=1)
+    before = (minplus_cuda.launches, minplus_plateau_cuda.launches)
+    schedule_torch.monotone_counters_reset()
+    gpu = engine.run(cluster, jobs, quantum=0, core="tiled")
+    snap = schedule_torch.monotone_counters_snapshot()
+    launched = (minplus_cuda.launches - before[0]
+                + minplus_plateau_cuda.launches - before[1])
+    assert launched == snap["slots"] > 0
+    assert snap["plateau"] > 0 and snap["chain"] > 0
+    cpu = engine.run(cluster, jobs, quantum=0, core="tiled", device="cpu")
+    assert gpu.completion == cpu.completion
+    assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_wide_jobs_run_through_both_routes(card):
+    """Unquantized full-size jobs (d1 up to 20480) are decided on the card
+    by both routes, as on the CPU."""
+    cluster = workload.make_cluster(T=100, H=20, K=20)
+    jobs = workload.make_jobs(40, T=100, seed=1)
+    assert any(_shape_bucket(j)[1] == 20480 for j in jobs)
+    for core in ("whole", "tiled"):
+        res = engine.run(cluster, jobs, core=core, check=True)
+        assert res.accepted > 0 and np.isfinite(res.total_utility)
 
 
 @pytest.mark.cuda

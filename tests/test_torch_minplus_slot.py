@@ -1,0 +1,246 @@
+"""The port's one-slot min-plus kernels' plain versions against the JAX
+package, and the sweep's launch plan.
+
+* Kernel A (``minplus_cuda``, replacing ``minplus_pallas``): its plain
+  version ``ref.minplus_ref`` must equal the Pallas kernel (interpret
+  mode) and the reference ``minplus_ref`` in float32 bit for bit in cost
+  and exactly in the first-index argmin — min-plus has no multiply, so
+  there is no rounding to disagree on.  In float64 a chain of slots must
+  equal the port's whole-horizon sweep row by row.
+* Kernel B (``minplus_plateau_cuda``, replacing
+  ``minplus_plateau_pallas``): its plain version
+  ``monotone.plateau_step`` must equal the Pallas kernel and the
+  reference ``plateau_step`` bit for bit in float32, for every run count
+  up to ``r_max`` and with +inf runs; ``ops.minplus_monotone`` must equal
+  ``ops.minplus``'s cost on every row kind of ``tests/test_monotone.py``.
+* The tiled building blocks equal the reference's.
+* ``sweep_plan`` takes every (m_pad, d1) shape bucket of the repo's
+  unquantized traces: the sweep refuses no shape the reference decides.
+
+The kernels themselves are held to these plain versions on the card
+(``tests/test_torch_minplus_cuda.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import jax_shims  # noqa: F401  (fixture)
+from repro.kernels.minplus import monotone as jax_monotone
+from repro.kernels.minplus import tiled as jax_tiled
+from repro.kernels.minplus.kernel import minplus_pallas, minplus_plateau_pallas
+from repro.kernels.minplus.ref import minplus_ref as jax_minplus_ref
+from repro_torch.core.schedule_torch import _shape_bucket
+from repro_torch.kernels.minplus import kernel, monotone, ops, tiled
+from repro_torch.kernels.minplus.ref import minplus_ref, minplus_sweep_ref
+from repro_torch.sim import engine, workload
+
+# tests/test_kernels.py's (d1, dc1) shapes as (dc1, d1), plus the slice's
+SLOT_SHAPES = [(2, 5), (8, 64), (17, 129), (100, 1000), (257, 4097),
+               (1, 1), (65, 1281), (641, 1281)]
+KINDS = ["random", "convex", "stair", "inf_tail", "ties"]
+
+
+def _row_prev(dc1, d1, inf_frac, seed, dtype=np.float32):
+    """Seeded row and carry with +inf cells and exact ties (values on a
+    grid of eighths)."""
+    rng = np.random.default_rng(seed)
+    row = np.round(rng.random(dc1) * 8) / 8
+    prev = np.round(rng.random(d1) * 8) / 8
+    row[rng.random(dc1) < inf_frac] = np.inf
+    prev[rng.random(d1) < inf_frac] = np.inf
+    row[0] = 0.0
+    prev[0] = 0.0
+    return row.astype(dtype), prev.astype(dtype)
+
+
+def _mk_row(kind, rng, dc1, dtype):
+    """tests/test_monotone.py's row kinds."""
+    js = np.arange(dc1, dtype=np.float64)
+    if kind == "random":
+        row = rng.random(dc1)
+    elif kind == "convex":
+        row = js * (js - 1) / 2.0
+    elif kind == "stair":
+        row = np.resize(np.repeat(rng.random(max(dc1 // 8, 1)), 8), dc1)
+    elif kind == "inf_tail":
+        row = rng.random(dc1)
+        row[int(dc1 * 0.6):] = np.inf
+    else:
+        row = np.round(rng.random(dc1) * 3) / 3.0
+    row[0] = 0.0
+    return row.astype(dtype)
+
+
+def _bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("dc1,d1", SLOT_SHAPES)
+@pytest.mark.parametrize("inf_frac", [0.0, 0.3])
+def test_slot_plain_equals_pallas_and_jax_ref_f32(dc1, d1, inf_frac):
+    row, prev = _row_prev(dc1, d1, inf_frac, seed=dc1 * d1)
+    new, arg = minplus_ref(torch.tensor(row), torch.tensor(prev))
+    assert new.dtype == torch.float32 and arg.dtype == torch.int32
+    p_new, p_arg = minplus_pallas(jnp.asarray(row), jnp.asarray(prev),
+                                  interpret=True)
+    r_new, r_arg = jax_minplus_ref(jnp.asarray(row), jnp.asarray(prev))
+    assert _bits(new.numpy(), p_new) and _bits(new.numpy(), r_new)
+    assert np.array_equal(arg.numpy(), np.asarray(p_arg))
+    assert np.array_equal(arg.numpy(), np.asarray(r_arg))
+
+
+@pytest.mark.parametrize("T,dc1,d1", [(9, 17, 33), (6, 65, 1281),
+                                      (3, 641, 1281)])
+def test_slot_chain_equals_sweep_f64(T, dc1, d1):
+    """Slot after slot from the identity carry, the plain slot equals the
+    whole-horizon sweep's cost and split rows, and the tiled chain step
+    its cost."""
+    rng = np.random.default_rng(T * dc1)
+    rows = np.round(rng.random((T, dc1)) * 8) / 8
+    rows[rng.random((T, dc1)) < 0.3] = np.inf
+    rows[:, 0] = 0.0
+    rows = torch.tensor(rows)
+    cost, split = minplus_sweep_ref(rows, d1 - 1)
+    prev = torch.full((d1,), float("inf"), dtype=torch.float64)
+    prev[0] = 0.0
+    for t in range(T):
+        new, arg = minplus_ref(rows[t], prev)
+        chain = tiled.minplus_chain_step(rows[t][None], prev[None])[0]
+        assert _bits(new.numpy(), cost[t].numpy()), t
+        assert _bits(chain.numpy(), cost[t].numpy()), t
+        assert torch.equal(arg, split[t]), t
+        prev = new
+
+
+@pytest.mark.parametrize("dc1,d1", [(17, 33), (65, 129), (130, 200),
+                                    (64, 1280)])
+@pytest.mark.parametrize("n_runs", range(1, 17))
+@pytest.mark.parametrize("inf_runs", [0, 1])
+def test_plateau_plain_equals_pallas_and_jax_f32(dc1, d1, n_runs, inf_runs):
+    rng = np.random.default_rng(dc1 + d1 + n_runs)
+    # exactly n_runs runs: 0 first (COST_t of 0 passes), then distinct
+    # values, the last run +inf when inf_runs
+    vals = np.concatenate([[0.0], rng.permutation(n_runs - 1) / 4.0 + 0.25])
+    if inf_runs and n_runs > 1:
+        vals[-1] = np.inf
+    cuts = np.sort(rng.choice(np.arange(1, dc1), n_runs - 1, replace=False))
+    row = np.repeat(vals, np.diff(np.concatenate([[0], cuts, [dc1]]))
+                    ).astype(np.float32)
+    prev = (np.round(rng.random(d1) * 8) / 8).astype(np.float32)
+    prev[rng.random(d1) < 0.3] = np.inf
+    prev[0] = 0.0
+    assert int(monotone.run_count_np(row)) == n_runs
+    assert int(monotone.run_count(torch.tensor(row))) == n_runs == int(
+        jax_monotone.run_count(jnp.asarray(row)))
+    got = monotone.plateau_step(torch.tensor(row), torch.tensor(prev))
+    pallas = minplus_plateau_pallas(jnp.asarray(row), jnp.asarray(prev),
+                                    r_max=16, interpret=True)
+    want = jax_monotone.plateau_step(jnp.asarray(row), jnp.asarray(prev))
+    chain = minplus_ref(torch.tensor(row), torch.tensor(prev))[0]
+    assert _bits(got.numpy(), pallas) and _bits(got.numpy(), want)
+    assert _bits(got.numpy(), chain.numpy())
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_minplus_monotone_equals_minplus_f64(kind):
+    """tests/test_monotone.py:191 on the port: the structure-aware entry
+    equals the plain slot's cost on every row kind."""
+    rng = np.random.default_rng(21)
+    row = torch.tensor(_mk_row(kind, rng, 40, np.float64))
+    prev = torch.tensor(rng.random(101))
+    prev[0] = 0.0
+    want = ops.minplus(row, prev)[0]
+    got = ops.minplus_monotone(row, prev)
+    assert _bits(got.numpy(), want.numpy())
+    assert _bits(monotone.plateau_step(row, prev).numpy(), want.numpy())
+
+
+def test_tiled_blocks_equal_jax_f64(jax_shims):
+    import jax
+    rng = np.random.default_rng(3)
+    T, dc1, d1 = 150, 13, 57
+    rows = np.repeat(rng.random((T, 4)), 4, axis=1)[:, :dc1]
+    rows[rng.random((T, dc1)) < 0.2] = np.inf
+    rows[:, 0] = 0.0
+    rows[:70, 1:] = np.inf                  # identity prefix
+    with jax.enable_x64(True):
+        want = np.asarray(jax_tiled.minplus_sweep_tiled(
+            jnp.asarray(rows), d1 - 1, start=70))
+        chain = np.asarray(jax_tiled.minplus_chain_step(
+            jnp.asarray(rows[75:78]), jnp.asarray(want[70:73])))
+    got = tiled.minplus_sweep_tiled(torch.tensor(rows), d1 - 1, start=70)
+    assert got.shape == (T, d1)
+    assert _bits(got[64:].numpy(), want[64:])
+    got_chain = tiled.minplus_chain_step(torch.tensor(rows[75:78]),
+                                         torch.tensor(want[70:73]))
+    assert _bits(got_chain.numpy(), chain)
+    assert tiled.TILE == jax_tiled.TILE
+    assert (monotone.PATH_DNC, monotone.PATH_PLATEAU, monotone.PATH_CHAIN) \
+        == (jax_monotone.PATH_DNC, jax_monotone.PATH_PLATEAU,
+            jax_monotone.PATH_CHAIN)
+
+
+def test_ops_dispatch_cpu_uses_plain_versions():
+    row, prev = _row_prev(20, 90, 0.2, seed=5, dtype=np.float64)
+    row, prev = torch.tensor(row), torch.tensor(prev)
+    before = (kernel.minplus_cuda.launches,
+              kernel.minplus_plateau_cuda.launches)
+    new, arg = ops.minplus(row, prev)
+    want_new, want_arg = minplus_ref(row, prev)
+    assert torch.equal(new, want_new) and torch.equal(arg, want_arg)
+    assert torch.equal(ops.minplus_monotone(row, prev, r_max=2), want_new)
+    assert (kernel.minplus_cuda.launches,
+            kernel.minplus_plateau_cuda.launches) == before
+
+
+@pytest.mark.parametrize("fn", [kernel.minplus_cuda,
+                                kernel.minplus_plateau_cuda])
+def test_slot_wrappers_refuse_cpu_tensors(fn):
+    with pytest.raises(ValueError):
+        fn(torch.zeros(3, dtype=torch.float64),
+           torch.zeros(7, dtype=torch.float64))
+
+
+def _trace_buckets():
+    """Every (m_pad, d1) bucket of the two unquantized traces."""
+    out = set()
+    for n, T, seed in ((2000, 500, 0), (40, 100, 1)):
+        for job in workload.make_jobs(n, T=T, seed=seed):
+            key = _shape_bucket(engine._with_quantum(job, None))
+            if key is not None:
+                out.add(key)
+    return sorted(out)
+
+
+def test_launch_plans_take_every_trace_bucket():
+    """The sweep and the slot kernels plan a launch, within the 227 KB of
+    shared memory a block may use, for every shape bucket the reference
+    decides on the 10x trace and the T=100 full-size trace at quantum=None
+    (among them d1 = 20480 with m_pad up to 8960, which the sweep's
+    all-shared placement cannot hold in float64)."""
+    buckets = _trace_buckets()
+    assert (8960, 20480) in buckets and (2688, 20480) in buckets
+    modes = set()
+    for m_pad, d1 in buckets:
+        for dtype in (torch.float32, torch.float64):
+            plan = kernel.sweep_plan(m_pad, d1, dtype)
+            assert 0 <= plan.smem_bytes <= kernel.SMEM_LIMIT
+            size = 8 if dtype == torch.float64 else 4
+            if plan.mode == kernel.SWEEP_SHARED:
+                assert plan.smem_bytes == (2 * d1 + m_pad) * size
+            else:
+                assert plan.scratch == 2 * d1
+            modes.add(plan.mode)
+            pp = kernel.plateau_plan(m_pad, d1, dtype, max(16, m_pad // 4))
+            assert pp.smem_bytes <= kernel.SMEM_LIMIT
+            assert pp.table_shared or pp.scratch > 0
+            kernel.slot_plan(m_pad, dtype)
+    assert kernel.SWEEP_GLOBAL_CARRY in modes
+    assert kernel.sweep_plan(64, 1280, torch.float64) == kernel.SweepPlan(
+        kernel.SWEEP_SHARED, (2 * 1280 + 64) * 8, 0)
+    # a row wider than shared memory still gets a plan
+    assert kernel.sweep_plan(40000, 40001, torch.float64).mode \
+        == kernel.SWEEP_GLOBAL
