@@ -13,6 +13,15 @@ with the kernel counts set to 0 just before it and read just after: every
 DP decision of the whole route went through the CUDA sweep, every live
 slot of the tiled route through the one-slot or the plateau kernel.
 Unquantized full-size jobs (d1 up to 20480) then go through both routes.
+
+The model stack's slice follows: the Mamba2 SSD scan and the flash
+attention kernels against their plain versions (test shapes and
+Zamba2-7B's prefill shapes, every launch plan), the Zamba2 smoke model on
+the card against the CPU, a full-width Zamba2-7B prefill against its own
+teacher-forced decode, and the serving path ``repro_torch.launch.serve``
+at full width (batch 4, prompt 2048, 32 new tokens), with the kernel
+counts set to 0 just before it and read just after: every prefill ran 81
+SSD and 13 flash launches, no decode step ran either.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -34,8 +43,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.kernels import build_all  # noqa: E402
 from repro_torch.kernels.build import library_path  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.minplus import kernel as minplus_kernel  # noqa: E402
+from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd.ops import ssd_op  # noqa: E402
 from repro_torch.kernels.minplus.monotone import (  # noqa: E402
     plateau_step, run_count)
 from repro_torch.kernels.minplus.ref import (  # noqa: E402
@@ -43,12 +57,22 @@ from repro_torch.kernels.minplus.ref import (  # noqa: E402
 from repro_torch.core import schedule_torch  # noqa: E402
 from repro_torch.core.pricing import price_params_from_jobs  # noqa: E402
 from repro_torch.core.schedule_torch import _shape_bucket  # noqa: E402
+from repro_torch.configs import get_config, get_smoke  # noqa: E402
+from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.models.attention import _sdpa_chunked  # noqa: E402
+from repro_torch.models.layers import tree_map  # noqa: E402
+from repro_torch.models.mamba2 import ssd_chunked_plain  # noqa: E402
+from repro_torch.models.model import (  # noqa: E402
+    decode_step, init_cache, init_model, prefill)
+from repro_torch.serve import steps as serve_steps  # noqa: E402
 from repro_torch.sim import engine  # noqa: E402
 from repro_torch.sim.workload import make_cluster, make_jobs  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): vector (non-tensor)
-# rates per dtype and the HBM3 bandwidth
-PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12}
+# rates for float32 and float64, the tensor cores' rate for bfloat16, and
+# the HBM3 bandwidth
+PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12,
+            torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 
 # tests/test_kernels.py's sweep shapes, then the slice's: T in {100, 500},
@@ -138,10 +162,12 @@ def kernel_phase():
     f64, at every placement its plan picks; the cost-only sweep (the
     whole route's form) timed against the plain one."""
     t0 = time.perf_counter()
-    minplus_kernel.load_libraries()
-    print(f"build: {', '.join(p.name for p in minplus_kernel.SOURCES.values())}"
+    built = build_all()
+    print(f"build: {', '.join(p.stem.rsplit('_', 1)[0] for p in built)}"
           f" in {time.perf_counter() - t0:.3f} s (one nvcc each, together)")
-    for name, src in minplus_kernel.SOURCES.items():
+    minplus_kernel.load_libraries()
+    for name, src in {**minplus_kernel.SOURCES, **ssd_kernel.SOURCES,
+                      **flash_kernel.SOURCES}.items():
         for line in library_path(src).with_suffix(
                 ".log").read_text().splitlines():
             if "registers" in line or "smem" in line:
@@ -515,12 +541,452 @@ def profile_phase(core, n_jobs=400):
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# The model stack: Mamba2 SSD scan and flash attention, Zamba2-7B serving
+# ---------------------------------------------------------------------------
+
+# (b, L, H, P, G, N, chunk): tests/test_kernels.py's SSD shapes, Zamba2's
+# per-head shape at a short ragged L, and Zamba2-7B's prefill shape (batch
+# 4, prompt 2048: 448 rows of L 2048, P = N = 64, Q 128)
+SSD_TEST_SHAPES = [(1, 32, 2, 16, 1, 16, 16), (2, 64, 4, 32, 2, 32, 32),
+                   (1, 100, 4, 64, 1, 64, 64), (2, 256, 8, 64, 4, 128, 128),
+                   (1, 300, 4, 64, 1, 64, 128)]
+SSD_ZAMBA = (4, 2048, 112, 64, 1, 64, 128)
+# (B, Sq, Sk, H, KV, D): tests/test_kernels.py's sweep plus D = 112, then
+# Zamba2-7B's shared attention at the prefill (causal; bf16 as served, and
+# float32, where 2e-5 holds every key block of the 32 query blocks)
+FLASH_TEST_SHAPES = [(1, 64, 64, 2, 2, 64), (2, 128, 128, 4, 2, 64),
+                     (1, 130, 130, 4, 1, 128), (2, 96, 96, 8, 4, 256),
+                     (2, 200, 200, 4, 2, 112)]
+FLASH_MASKS = [(True, 0, 0.0), (True, 32, 0.0), (True, 0, 50.0),
+               (False, 0, 0.0)]
+FLASH_ZAMBA = (4, 2048, 2048, 32, 32, 112)
+SERVE = {"batch": 4, "prompt": 2048, "gen": 32}
+# Zamba2-7B: 81 Mamba2 layers, 13 calls of the shared attention block
+ZAMBA_SSD, ZAMBA_FLASH = 81, 13
+CONSISTENCY_LEN = 320          # 320 * 320 > 256 * 256: the chunked branch
+
+
+def _ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + b * L + H * P + N)
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+    x = rnd((b, L, H, P), 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rnd((b, L, H), 1.0))
+    A = -torch.exp(rnd((H,), 0.3))
+    return (x, dt, A, rnd((b, L, G, N), 0.3).to(dtype),
+            rnd((b, L, G, N), 0.3).to(dtype))
+
+
+def _ssd_plans(P, N, Q):
+    """The planned score tile and a ragged one of ceil(Q/3) rows."""
+    return [ssd_kernel.ssd_plan(P, N, Q),
+            ssd_kernel.ssd_plan(P, N, Q, qb=(Q + 2) // 3)]
+
+
+def _ssd_bounds(b, L, H, P, G, N, Q, dtype):
+    """(ms over the ops peak, ms over HBM) for one scan: the multiply-adds
+    of the four chunk products over each chunk's real steps q (C B^T and
+    scores x over the q(q+1)/2 causal pairs, C state and the state update
+    over q P N each), two operations apiece at the inputs' type's peak;
+    x, dt, A, B, C read and y, the final state written once."""
+    macs = 0
+    for c0 in range(0, L, Q):
+        q = min(Q, L - c0)
+        macs += q * (q + 1) // 2 * (N + P) + 2 * q * P * N
+    ops = 2.0 * b * H * macs
+    size = dtype.itemsize
+    nbytes = (b * L * H * P * size + b * L * H * 4 + H * 4
+              + 2 * b * L * G * N * size + b * L * H * P * 4
+              + b * H * P * N * 4)
+    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def ssd_phase():
+    """The SSD kernel == its plain versions (the chunked model version and
+    the sequential oracle) within 1e-3, y and final state, f32 and bf16,
+    at every launch plan; at Zamba2-7B's prefill shape in float32 (the
+    serving path's type: its causal conv, with float32 weights, hands the
+    scan float32 x, B and C) timed against the chunked plain version."""
+    max_err, cases, timing = 0.0, 0, None
+    for shape in SSD_TEST_SHAPES + [SSD_ZAMBA]:
+        b, L, H, P, G, N, Q = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, A, B, C = _ssd_inputs(b, L, H, P, G, N, dtype)
+            want_y, want_s = ssd_chunked_plain(x, dt, A, B, C, Q)
+            if shape != SSD_ZAMBA:      # the sequential oracle too
+                seq = ssd_op(x.float(), dt, A, B.float(), C.float())
+                torch.testing.assert_close(seq, want_y, atol=1e-3,
+                                           rtol=1e-3)
+            for plan in _ssd_plans(P, N, Q):
+                y, fin = ssd_kernel.ssd_cuda(x, dt, A, B, C, chunk=Q,
+                                             plan=plan)
+                torch.cuda.synchronize()
+                err = max(float((y - want_y).abs().max()),
+                          float((fin - want_s).abs().max()))
+                max_err = max(max_err, err)
+                torch.testing.assert_close(
+                    y, want_y, atol=1e-3, rtol=1e-3,
+                    msg=lambda m: f"ssd {shape} {dtype} {plan}: {m}")
+                torch.testing.assert_close(
+                    fin, want_s, atol=1e-3, rtol=1e-3,
+                    msg=lambda m: f"ssd {shape} {dtype} {plan}: {m}")
+                cases += 1
+            if shape == SSD_ZAMBA and dtype == torch.float32:
+                k_ms = _device_ms(lambda: ssd_kernel.ssd_cuda(
+                    x, dt, A, B, C, chunk=Q), 5)
+                p_ms = _time_ms(lambda: ssd_chunked_plain(x, dt, A, B, C, Q),
+                                reps=2)
+                op_ms, byte_ms = _ssd_bounds(*shape, dtype)
+                timing = (k_ms, p_ms, max(op_ms, byte_ms), op_ms, byte_ms)
+                plan = ssd_kernel.ssd_plan(P, N, Q)
+                print(f"ssd_scan Zamba2-7B prefill (b={b}, L={L}, H={H}, "
+                      f"P={P}, N={N}, Q={Q}) float32 plan={tuple(plan)}: "
+                      f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} "
+                      f"bound_ms={max(op_ms, byte_ms)!r} (operations "
+                      f"{op_ms!r} ms at {PEAK_OPS[dtype]:.3g} op/s, bytes "
+                      f"{byte_ms!r} ms at {PEAK_BYTES:.3g} B/s)")
+            del x, dt, A, B, C, want_y, want_s
+    print(f"ssd phase ok: {cases} shape/dtype/plan cases within 1e-3 of the "
+          f"plain versions, max_abs_err={max_err!r}")
+    return max_err, timing
+
+
+def _flash_inputs(B, Sq, Sk, H, KV, D, dtype):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(B * Sq + H * D + KV)
+    return tuple(torch.randn(s, generator=g, device="cuda").to(dtype)
+                 for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+
+
+def _flash_plans(D):
+    plans = [flash_kernel.flash_plan(D)]
+    for bq, bk in flash_kernel.TILES:
+        if flash_kernel.flash_smem_bytes(D, bq, bk) <= flash_kernel.SMEM_LIMIT:
+            plans.append(flash_kernel.flash_plan(D, bq=bq, bk=bk))
+    return list(dict.fromkeys(plans))
+
+
+def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
+    """(ms over the ops peak, ms over HBM): q k^T and p v over the visible
+    (query, key) pairs of this mask, two operations per multiply-add at
+    the inputs' type's peak; q, k, v read and the output written once."""
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis &= qp >= kp
+    if window > 0:
+        vis &= qp - kp < window
+    ops = 2.0 * 2 * B * H * int(vis.sum()) * D
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * dtype.itemsize
+    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def flash_phase():
+    """The flash kernel == its plain versions (the model's chunked
+    recurrence and the naive oracle), f32 within 2e-5 and bf16 within
+    2e-2, over every mask case and launch plan, Zamba2-7B's prefill shape
+    in both types; there, in bf16, timed against the chunked plain version and, as a yardstick
+    the port never calls, torch's scaled_dot_product_attention."""
+    max_err, cases, timing = 0.0, 0, None
+    for shape in FLASH_TEST_SHAPES + [FLASH_ZAMBA]:
+        B, Sq, Sk, H, KV, D = shape
+        masks = [(True, 0, 0.0)] if shape == FLASH_ZAMBA else FLASH_MASKS
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_inputs(*shape, dtype)
+            tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+            for causal, window, cap in masks:
+                want = _sdpa_chunked(q.reshape(B, Sq, KV, H // KV, D), k, v,
+                                     torch.arange(Sq, device="cuda"),
+                                     torch.arange(Sk, device="cuda"), causal,
+                                     window, cap, None, 1024
+                                     ).reshape(B, Sq, H, D)
+                naive = attention_ref(q.float(), k.float(), v.float(),
+                                      causal=causal, window=window,
+                                      softcap=cap)
+                torch.testing.assert_close(want, naive, atol=tol, rtol=tol)
+                for plan in _flash_plans(D):
+                    got = flash_kernel.flash_attention_cuda(
+                        q, k, v, causal=causal, window=window, softcap=cap,
+                        plan=plan)
+                    torch.cuda.synchronize()
+                    err = float((got.float() - want).abs().max())
+                    max_err = max(max_err, err)
+                    torch.testing.assert_close(
+                        got.float(), want, atol=tol, rtol=tol,
+                        msg=lambda m: f"flash {shape} {dtype} causal="
+                        f"{causal} window={window} cap={cap} {plan}: {m}")
+                    cases += 1
+            if shape == FLASH_ZAMBA and dtype == torch.bfloat16:
+                k_ms = _device_ms(lambda: flash_kernel.flash_attention_cuda(
+                    q, k, v, causal=True), 5)
+                qg = q.reshape(B, Sq, KV, H // KV, D)
+                pos = torch.arange(Sq, device="cuda")
+                p_ms = _time_ms(lambda: _sdpa_chunked(
+                    qg, k, v, pos, pos, True, 0, 0.0, None, 1024), reps=2)
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                lib_ms = _device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), 5)
+                op_ms, byte_ms = _flash_bounds(*shape, True, 0, dtype)
+                timing = (k_ms, p_ms, max(op_ms, byte_ms), op_ms, byte_ms,
+                          lib_ms)
+                print(f"flash_attention Zamba2-7B prefill (B={B}, S={Sq}, "
+                      f"H=KV={H}, D={D}, causal) bfloat16 plan="
+                      f"{tuple(flash_kernel.flash_plan(D))}: kernel_device_ms="
+                      f"{k_ms!r} plain_ms={p_ms!r} library_ms (torch "
+                      f"scaled_dot_product_attention)={lib_ms!r} bound_ms="
+                      f"{max(op_ms, byte_ms)!r} (operations {op_ms!r} ms at "
+                      f"{PEAK_OPS[dtype]:.3g} op/s, bytes {byte_ms!r} ms at "
+                      f"{PEAK_BYTES:.3g} B/s)")
+            del q, k, v
+    print(f"flash phase ok: {cases} shape/dtype/mask/plan cases within "
+          f"tolerance of the plain versions, max_abs_err={max_err!r}")
+    return max_err, timing
+
+
+def _model_counts():
+    return ssd_kernel.ssd_cuda.launches, \
+        flash_kernel.flash_attention_cuda.launches
+
+
+def _reset_model_counts():
+    ssd_kernel.ssd_cuda.launches = 0
+    flash_kernel.flash_attention_cuda.launches = 0
+
+
+def _rel(got, want):
+    return float((got.float() - want.float().to(got.device)).abs().max()) / (
+        float(want.float().abs().max()) + 1e-9)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def model_parity_phase():
+    """The Zamba2 smoke model in float32: the port on the card (SSD and
+    flash kernels) against the port on the CPU (their plain versions):
+    prefill logits and every cache leaf, then 8 decode steps, rel 1e-4."""
+    cfg = get_smoke("zamba2_7b").scaled(dtype="float32",
+                                        param_dtype="float32")
+    cpu_params = init_model(cfg, seed=3, device="cpu")
+    gpu_params = tree_map(lambda t: t.cuda(), cpu_params,
+                          lambda t: isinstance(t, torch.Tensor))
+    B, S, steps = 2, 300, 8
+    g = torch.Generator()
+    g.manual_seed(4)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g)
+    _reset_model_counts()
+    with torch.inference_mode():
+        lg_cpu, c_cpu = prefill(cpu_params, cfg, {"tokens": toks[:, :S]}, S)
+        lg_gpu, c_gpu = prefill(gpu_params, cfg,
+                                {"tokens": toks[:, :S].cuda()}, S)
+    torch.cuda.synchronize()
+    n_ssd, n_flash = _model_counts()
+    rels = [_rel(lg_gpu, lg_cpu)] + [
+        _rel(a, b) for a, b in zip(_leaves(c_gpu), _leaves(c_cpu))]
+    _, d_cpu = serve_steps.prefill_into_cache(cpu_params, cfg, toks[:, :S],
+                                              S + steps)
+    _, d_gpu = serve_steps.prefill_into_cache(gpu_params, cfg,
+                                              toks[:, :S].cuda(), S + steps)
+    before = _model_counts()
+    dec = []
+    with torch.inference_mode():
+        for i in range(steps):
+            t = toks[:, S + i:S + i + 1]
+            a, d_cpu = decode_step(cpu_params, cfg, t, d_cpu, S + i)
+            b, d_gpu = decode_step(gpu_params, cfg, t.cuda(), d_gpu, S + i)
+            dec.append(_rel(b, a))
+    torch.cuda.synchronize()
+    dec_launches = tuple(x - y for x, y in zip(_model_counts(), before))
+    cache_rel = max(_rel(a, b) for a, b in zip(_leaves(d_gpu),
+                                               _leaves(d_cpu)))
+    print(f"model parity (Zamba2 smoke, float32, B={B}, S={S}): prefill "
+          f"logits rel={rels[0]!r}, max cache-leaf rel={max(rels[1:])!r} "
+          f"over {len(rels) - 1} leaves, {steps} decode steps max rel="
+          f"{max(dec)!r}, decode cache rel={cache_rel!r}; prefill launches "
+          f"ssd={n_ssd} flash={n_flash}, decode launches {dec_launches}")
+    if not (max(rels + dec + [cache_rel]) <= 1e-4
+            and n_ssd == cfg.n_layers and n_flash == cfg.n_layers
+            // cfg.hybrid_period and dec_launches == (0, 0)):
+        raise AssertionError("the Zamba2 smoke model on the card differs "
+                             "from the CPU, or the kernels were not taken")
+
+
+def consistency_phase():
+    """Zamba2-7B at full width in float32 compute, one request: the
+    prefill of 320 prompt tokens (both kernels) against the teacher-forced
+    decode of the same tokens (no kernel), last-position logits within
+    relative 2e-2 (the JAX package's bound for decode against a full
+    forward)."""
+    cfg = get_config("zamba2_7b").scaled(dtype="float32")
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    n = CONSISTENCY_LEN
+    toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g,
+                         device="cuda")
+    _reset_model_counts()
+    with torch.inference_mode():
+        lg_pre, _ = prefill(params, cfg, {"tokens": toks}, n)
+        torch.cuda.synchronize()
+        pre = _model_counts()
+        cache = init_cache(cfg, 1, n, dtype=torch.float32)
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg_dec, cache = decode_step(params, cfg, toks[:, i:i + 1], cache,
+                                        i)
+        torch.cuda.synchronize()
+        tf_s = time.perf_counter() - t0
+    dec = tuple(x - y for x, y in zip(_model_counts(), pre))
+    rel = _rel(lg_pre[:, -1], lg_dec[:, -1])
+    same = bool(torch.equal(lg_pre[:, -1, :cfg.vocab_size].argmax(-1),
+                            lg_dec[:, -1, :cfg.vocab_size].argmax(-1)))
+    print(f"full-width consistency (Zamba2-7B, float32 compute, 1 x {n} "
+          f"tokens): init_s={init_s!r} prefill launches ssd={pre[0]} flash="
+          f"{pre[1]}; teacher-forced decode {tf_s!r} s, launches {dec}; "
+          f"last-logits rel={rel!r} same_argmax={same}")
+    if not (rel <= 2e-2 and pre == (ZAMBA_SSD, ZAMBA_FLASH)
+            and dec == (0, 0) and bool(torch.isfinite(lg_pre).all())):
+        raise AssertionError("full-width prefill and teacher-forced decode "
+                             "disagree, or the kernels were not taken")
+    del params, cache
+
+
+def serve_phase():
+    """The main path: ``repro_torch.launch.serve`` at full width, bf16
+    compute (batch 4, prompt 2048, 32 new tokens, one untimed warm-up run
+    of the same batch first), counts set to 0 just before and read just
+    after.  Returns (ssd launches, flash launches) of the run."""
+    torch.cuda.empty_cache()
+    _reset_model_counts()
+    res = serve_launch.main(["--arch", "zamba2_7b", "--batch",
+                             str(SERVE["batch"]), "--prompt-len",
+                             str(SERVE["prompt"]), "--gen",
+                             str(SERVE["gen"])])
+    torch.cuda.synchronize()
+    n_ssd, n_flash = _model_counts()
+    runs = 2                                    # warm-up + timed
+    print(f"serve (Zamba2-7B, bf16, batch {SERVE['batch']}, prompt "
+          f"{SERVE['prompt']}, {SERVE['gen']} new tokens): prefill_s="
+          f"{res['prefill_s']!r} prompt_tokens_per_s="
+          f"{res['prompt_tokens_per_s']!r} decode_ms_p50="
+          f"{res['decode_ms_p50']!r} decode_ms_p95={res['decode_ms_p95']!r} "
+          f"generated_tokens_per_s={res['generated_tokens_per_s']!r} "
+          f"launches_per_prefill={res['prefill_launches']} "
+          f"launches_in_decode={res['decode_launches']} "
+          f"peak_memory_bytes={res['peak_memory_bytes']} "
+          f"run_launches ssd={n_ssd} flash={n_flash}")
+    print(f"  decode ms per token: {res['decode_ms']}")
+    toks = res["tokens"]
+    if not (res["prefill_launches"] == {"ssd": ZAMBA_SSD,
+                                        "flash": ZAMBA_FLASH}
+            and res["decode_launches"] == {"ssd": 0, "flash": 0}
+            and (n_ssd, n_flash) == (runs * ZAMBA_SSD, runs * ZAMBA_FLASH)):
+        raise AssertionError("the serving path did not run 81 SSD and 13 "
+                             "flash launches per prefill and none in decode")
+    if not (toks.shape == (SERVE["batch"], SERVE["gen"])
+            and bool(torch.isfinite(res["logits"]).all())
+            and int(toks.min()) >= 0 and int(toks.max()) < 32000):
+        raise AssertionError("implausible serving output")
+    return n_ssd, n_flash
+
+
+def _device_table(prof):
+    """{kernel or device op: (device ms, launches)} from a profile, device
+    self time summed by name; ``aten::`` entries are left out, since each
+    carries the time of the kernels it launched, which have their own."""
+    table = {}
+    for e in prof.key_averages():
+        ms = _self_device_ms(e)
+        if ms > 0 and not e.key.startswith("aten::"):
+            t = table.get(e.key, (0.0, 0))
+            table[e.key] = (t[0] + ms, t[1] + e.count)
+    return table
+
+
+def serve_profile_phase():
+    """Where the serving time goes at full width (bf16, batch 4, prompt
+    2048): one traced prefill (device busy, idle share, the two kernels'
+    device time, the top device ops), then 4 traced decode steps."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("zamba2_7b")
+    params = init_model(cfg, seed=0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    S = SERVE["prompt"]
+    toks = torch.randint(0, cfg.vocab_size, (SERVE["batch"], S),
+                         generator=g, device="cuda")
+    serve_steps.prefill_into_cache(params, cfg, toks, S + 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = serve_steps.prefill_into_cache(params, cfg, toks,
+                                                       S + SERVE["gen"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = _device_table(prof)
+    busy = sum(v[0] for v in dev.values())
+    kern = {name: tuple(map(sum, zip(*([v for k, v in dev.items()
+                                        if name in k] or [(0.0, 0)]))))
+            for name in ("ssd_scan_kernel", "flash_fwd_kernel")}
+    print(f"profile (one Zamba2-7B prefill, bf16, batch {SERVE['batch']}, "
+          f"prompt {S}, traced): wall_ms={wall_ms!r} device_busy_ms={busy!r}"
+          f" device_idle_share={1.0 - busy / wall_ms!r} " + " ".join(
+              f"{k}_ms={v[0]!r} {k}_launches={v[1]}"
+              for k, v in kern.items()))
+    for k, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  device {ms!r} ms ({n} launches): {k[:90]}")
+    tok = serve_steps.greedy(logits, cfg)
+    steps = 4
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            for i in range(steps):
+                logits, cache = decode_step(params, cfg, tok, cache, S + i)
+                tok = serve_steps.greedy(logits, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = _device_table(prof)
+    busy = sum(v[0] for v in dev.values())
+    launches = sum(v[1] for v in dev.values())
+    print(f"profile ({steps} Zamba2-7B decode steps, bf16, batch "
+          f"{SERVE['batch']}, traced): wall_ms_per_step={wall_ms / steps!r} "
+          f"device_busy_ms_per_step={busy / steps!r} device_idle_share="
+          f"{1.0 - busy / wall_ms!r} device_launches_per_step="
+          f"{launches / steps!r}")
+    for k, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"  device {ms!r} ms ({n} launches): {k[:90]}")
+    del params, cache
+    return kern
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = _card()
     print(card, flush=True)
+    # the model phases compare float32 results: no TF32 anywhere
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     max_err, timings = kernel_phase()
     slot_err, slot_timings = slot_phase()
     paper_phase()
@@ -529,6 +995,12 @@ def main() -> int:
     wide_phase()
     profile_phase("whole")
     profile_phase("tiled")
+    ssd_err, ssd_t = ssd_phase()
+    flash_err, flash_t = flash_phase()
+    model_parity_phase()
+    consistency_phase()
+    ssd_launches, flash_launches = serve_phase()
+    serve_profile_phase()
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); one-slot kernel: means over the same m_pad mix at
     # d1 = 1280 (f64, cost only, device time per launch); plateau kernel:
@@ -547,12 +1019,25 @@ def main() -> int:
              slot_err["slot"], slot),
             ("minplus_plateau", "minplus_plateau.cu", "207", b_launches,
              slot_err["plateau"], plat)]
+    rows = [(name, src + file, ref + line, n_launch, err, t, None)
+            for name, file, line, n_launch, err, t in rows]
+    # the model kernels: device time per launch at Zamba2-7B's prefill
+    # shapes (bf16), launches over the serve phase's two prefills
+    rows += [("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd/kernel.py:57", ssd_launches, ssd_err,
+              ssd_t, None),
+             ("flash_attention",
+              "src/repro_torch/kernels/flash_attention/csrc/"
+              "flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:71",
+              flash_launches, flash_err, flash_t, flash_t[5])]
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src + file,
-        "replaces": ref + line, "launches": n_launch, "max_abs_err": err,
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": n_launch, "max_abs_err": err,
         "ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
         "bound_by": "operations" if t[3] >= t[4] else "bytes",
-        "library_ms": None} for name, file, line, n_launch, err, t in rows]}))
+        "library_ms": lib}
+        for name, source, replaces, n_launch, err, t, lib in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

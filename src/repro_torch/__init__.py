@@ -1,13 +1,17 @@
-"""PyTorch/CUDA port of the OASiS scheduler (the JAX package ``repro`` is
-the reference it is checked against).
+"""PyTorch/CUDA port of the OASiS scheduler and of the model stack it
+schedules (the JAX package ``repro`` is the reference it is checked
+against).
 
 Device policy: every entry point takes ``device=None``, which means the
 CUDA card; without one it raises instead of falling back to the CPU.
 The CPU runs only when the caller passes ``device="cpu"`` (the tests do).
 
-Dtype policy: float64 on every device.  The TPU route of the reference
-forced float32 only because the TPU has no float64; the H100 has it, so
-the port's decisions are held to the float64 reference trajectories.
+Dtype policy: the scheduler runs float64 on every device.  The TPU route
+of the reference forced float32 only because the TPU has no float64; the
+H100 has it, so the port's decisions are held to the float64 reference
+trajectories.  The model stack (``models``, ``serve``, ``launch``)
+follows each config's ``dtype`` (compute, bfloat16 by default) and
+``param_dtype`` (storage, float32), as the reference does.
 """
 from __future__ import annotations
 

@@ -8,12 +8,15 @@ Several sources are compiled by concurrent ``nvcc`` processes.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -71,3 +74,31 @@ def build_libraries(sources: Sequence[Path]) -> List[Path]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return libs
+
+
+def bind(path: Path, functions: Dict[str, Sequence], error: str
+         ) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare each exported function
+    (``name -> argtypes``, each returning an int status) and its
+    ``error`` string function (status -> message)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in functions.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    getattr(lib, error).argtypes = [ctypes.c_int]
+    getattr(lib, error).restype = ctypes.c_char_p
+    return lib
+
+
+def launch(lib: ctypes.CDLL, name: str, error: str, device: torch.device,
+           *args) -> None:
+    """Call the library's ``name`` with ``args`` and the current stream of
+    ``device``; raise RuntimeError with the ``error`` function's message
+    when it returns a non-zero launch status."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + getattr(lib, error)(rc).decode())

@@ -40,7 +40,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..build import build_libraries
+from ..build import bind, build_libraries, launch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"sweep": _CSRC / "minplus_sweep.cu",
@@ -76,28 +76,17 @@ def load_libraries() -> Dict[str, ctypes.CDLL]:
         names = list(SOURCES)
         paths = build_libraries([SOURCES[n] for n in names])
         for name, path in zip(names, paths):
-            lib = ctypes.CDLL(str(path))
             stem, argtypes, err = _SIGNATURES[name]
-            for suffix in ("f32", "f64"):
-                fn = getattr(lib, f"{stem}_{suffix}")
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            getattr(lib, err).argtypes = [ctypes.c_int]
-            getattr(lib, err).restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[name] = bind(path, {f"{stem}_{suffix}": argtypes
+                                      for suffix in ("f32", "f64")}, err)
     return _libs
 
 
 def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
-    lib = load_libraries()[name]
     stem, _, err = _SIGNATURES[name]
-    fn = getattr(lib, f"{stem}_{'f64' if dtype == torch.float64 else 'f32'}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{stem} launch failed: "
-                           + getattr(lib, err)(rc).decode())
+    launch(load_libraries()[name],
+           f"{stem}_{'f64' if dtype == torch.float64 else 'f32'}", err,
+           device, *args)
 
 
 def _check(name: str, **tensors: torch.Tensor) -> torch.dtype:

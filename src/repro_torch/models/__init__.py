@@ -1,0 +1,9 @@
+"""The model stack of the port: the Mamba2 and Zamba2 families' layers,
+parameters, prefill and decode (``repro/models`` is the reference)."""
+from .config import ModelConfig, smoke_variant
+from .layers import param_count
+from .model import (decode_step, init_cache, init_model, model_specs,
+                    prefill)
+
+__all__ = ["ModelConfig", "decode_step", "init_cache", "init_model",
+           "model_specs", "param_count", "prefill", "smoke_variant"]

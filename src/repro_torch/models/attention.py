@@ -1,0 +1,174 @@
+"""Attention: GQA + RoPE + sliding window + logit soft-cap, as
+``repro/models/attention.py`` (self-attention; the MLA and cross paths
+come with the families that use them).
+
+The branch is the reference's: ``naive`` (:func:`_sdpa`, full scores)
+when ``S * Sk <= 256 * 256`` or ``attn_impl == "naive"``, else the
+flash-style recurrence.  There a CUDA tensor goes to the hand-written
+flash-attention kernel (``kernels/flash_attention``) and a CPU tensor to
+:func:`_sdpa_chunked`, the same online-softmax recurrence in plain
+PyTorch.  Decode attends one new token against the KV cache with
+:func:`_sdpa`, plain PyTorch on both, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..kernels.flash_attention.ops import attention_op
+from .layers import P, apply_rope, softcap
+
+NEG_INF = -1e30
+
+
+def attn_specs(cfg) -> Dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": P((d, H * hd), ("embed", "heads")),
+        "wk": P((d, KV * hd), ("embed", "kv")),
+        "wv": P((d, KV * hd), ("embed", "kv")),
+        "wo": P((H * hd, d), ("heads", "embed")),
+    }
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int,
+          kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """(Sq, Sk) boolean validity mask."""
+    m = torch.ones((qpos.shape[-1], kpos.shape[-1]), dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        m &= qpos[:, None] - kpos[None, :] < window
+    if kv_len is not None:
+        m &= kpos[None, :] < kv_len
+    return m
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor, cap: float) -> torch.Tensor:
+    """q: (B,Sq,KV,G,D); k/v: (B,Sk,KV,D); mask: (Sq,Sk) or (B,Sq,Sk).
+    Returns (B,Sq,KV,G,D) float32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    s = softcap(s, cap)
+    m = mask[:, None, None] if mask.ndim == 3 else mask[None, None, None]
+    s = torch.where(m, s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+
+
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+                  window: int, cap: float, kv_len: Optional[torch.Tensor],
+                  chunk: int) -> torch.Tensor:
+    """Online softmax over KV chunks (the flash-attention recurrence in
+    plain PyTorch).  q: (B,Sq,KV,G,D); k/v: (B,Sk,KV,D).  Returns
+    (B,Sq,KV,G,D) float32."""
+    B, Sq, KV, G, D = q.shape
+    Sk = k.shape[1]
+    if kv_len is None:
+        kv_len = Sk              # always mask the chunk padding
+    chunk = min(chunk, Sk)
+    n = (Sk + chunk - 1) // chunk
+    pad = n * chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad),
+                                       value=(2 ** 31 - 1) // 2)
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), dtype=torch.float32,
+                      device=q.device)
+    neg = torch.full((), NEG_INF, device=q.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, k[:, sl].float()) * scale
+        s = softcap(s, cap)
+        msk = _mask(qpos, kpos[sl], causal, window, kv_len)
+        s = torch.where(msk[None, None, None], s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, v[:, sl].float())
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4)          # (B,Sq,KV,G,D)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           positions: torch.Tensor, cap: float) -> torch.Tensor:
+    """The chunked branch on the card: one flash-attention launch.  Its
+    masks are by index, so the positions must be ``arange(S)`` (they are
+    on every prefill).  q: (B,S,H,D) -> (B,S,H,D) in q's dtype."""
+    S = q.shape[1]
+    if positions.ndim != 1 or not torch.equal(
+            positions, torch.arange(S, device=positions.device)):
+        raise NotImplementedError(
+            "the flash-attention kernel masks by index: positions must be "
+            "arange(S)")
+    return attention_op(q, k, v, causal=True, softcap=cap)
+
+
+def attention(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+              *, cache: Optional[Dict] = None,
+              cache_len: Optional[int] = None,
+              return_cache: bool = False
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Causal self-attention with RoPE, no window (the served families'
+    only kind).
+
+    * prefill: cache=None (return_cache to build one)
+    * decode:  x is (B,1,D), cache holds K/V, cache_len (an int, one for
+               the whole batch) is the number of valid positions; the new
+               K/V are written into ``cache`` in place, and it is returned.
+    """
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
+    k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
+    v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    new_cache = None
+    if cache is not None:
+        # decode: write the new K/V at cache_len, in place (the reference
+        # returns an updated copy; a cache smaller than the stream rolls
+        # over: keys are stored post-RoPE, so slot order does not matter)
+        kc, vc = cache["k"], cache["v"]
+        size = kc.shape[1]
+        write = min(int(cache_len) % size, size - S)
+        kc[:, write:write + S] = k.to(kc.dtype)
+        vc[:, write:write + S] = v.to(vc.dtype)
+        new_cache = cache
+        kpos = torch.arange(size, device=x.device)
+        valid = min(int(cache_len) + S, size)
+        msk = (kpos[None, :] < valid).expand(S, size)
+        o = _sdpa(q.reshape(B, S, KV, G, hd), kc, vc, msk,
+                  cfg.attn_logit_softcap)
+    else:
+        if return_cache:
+            new_cache = {"k": k, "v": v}
+        if cfg.attn_impl == "naive" or S * S <= 256 * 256:
+            o = _sdpa(q.reshape(B, S, KV, G, hd), k, v,
+                      _mask(positions, positions, True, 0, None),
+                      cfg.attn_logit_softcap)
+        elif x.is_cuda:
+            o = _flash(q, k, v, positions, cfg.attn_logit_softcap)
+        else:
+            o = _sdpa_chunked(q.reshape(B, S, KV, G, hd), k, v, positions,
+                              positions, True, 0, cfg.attn_logit_softcap,
+                              None, cfg.attn_chunk)
+    # every path yields (B, S, KV, G, D) or (B, S, H, D)
+    o = o.reshape(B, S, H * hd).to(dt)
+    return o @ params["wo"].to(dt), new_cache

@@ -1,0 +1,98 @@
+"""Layer blocks of the families the port serves, as
+``repro/models/blocks.py``: the MLP, the dense decoder layer (the body of
+Zamba2's shared block), the Mamba2 layer and the Zamba2 period.
+
+``body(p, cfg, h, ctx, cache)`` returns ``(h, new_cache)``; ``ctx``
+carries the positions, ``cache_len`` (decode), ``return_cache``
+(prefill) and ``h0`` (the initial embedding Zamba2's shared block reads).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .attention import attention, attn_specs
+from .layers import P, activation, apply_norm, norm_spec
+from .mamba2 import mamba_block, mamba_specs
+
+
+def mlp_specs(cfg, d_ff: Optional[int] = None) -> Dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wi": P((d, f), ("embed", "mlp")),
+        "wo": P((f, d), ("mlp", "embed")),
+        "wg": P((d, f), ("embed", "mlp")),      # gated (SwiGLU)
+    }
+
+
+def mlp(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    act = activation(cfg.act)
+    h = act(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    return h @ params["wo"].to(dt)
+
+
+def dense_layer_specs(cfg) -> Dict:
+    return {
+        "ln_attn": norm_spec(cfg),
+        "attn": attn_specs(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def dense_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+                cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    a_in = apply_norm(p["ln_attn"], h, cfg)
+    a_out, new_cache = attention(
+        p["attn"], cfg, a_in, ctx["positions"], cache=cache,
+        cache_len=ctx.get("cache_len"),
+        return_cache=ctx.get("return_cache", False))
+    h = h + a_out
+    m_in = apply_norm(p["ln_mlp"], h, cfg)
+    return h + mlp(p["mlp"], cfg, m_in), new_cache
+
+
+def ssm_layer_specs(cfg) -> Dict:
+    return {"ln": norm_spec(cfg), "mamba": mamba_specs(cfg)}
+
+
+def ssm_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+              cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    x = apply_norm(p["ln"], h, cfg)
+    out, new_cache = mamba_block(p["mamba"], cfg, x, cache=cache,
+                                 want_cache=ctx.get("return_cache", False))
+    return h + out, new_cache
+
+
+def shared_attn_specs(cfg) -> Dict:
+    """Zamba2 shared transformer block (weights reused at every period):
+    input is concat(current hidden, initial embedding) fused by a linear."""
+    d = cfg.d_model
+    return {
+        "fuse": P((2 * d, d), ("embed", "embed")),
+        "layer": dense_layer_specs(cfg),
+    }
+
+
+def zamba_period_specs(cfg) -> Dict:
+    return {"ssm": [ssm_layer_specs(cfg) for _ in range(cfg.hybrid_period)]}
+
+
+def zamba_period(p: Dict, shared: Dict, cfg, h: torch.Tensor, ctx: Dict,
+                 cache: Optional[Dict]
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    new_cache: Dict[str, Any] = {"ssm": [], "attn": None}
+    for i in range(cfg.hybrid_period):
+        c = cache["ssm"][i] if cache else None
+        h, nc = ssm_layer(p["ssm"][i], cfg, h, ctx, c)
+        new_cache["ssm"].append(nc)
+    fused = torch.cat([h, ctx["h0"]], dim=-1) @ shared["fuse"].to(h.dtype)
+    a_c = cache["attn"] if cache else None
+    out, nc_a = dense_layer(shared["layer"], cfg, fused, ctx, a_c)
+    new_cache["attn"] = nc_a
+    h = h + (out - fused)          # residual of the shared block only
+    if all(c is None for c in new_cache["ssm"]) and nc_a is None:
+        new_cache = None
+    return h, new_cache

@@ -1,0 +1,243 @@
+"""Model assembly: parameters, prefill and decode for the families the
+port serves so far (``ssm``: Mamba2; ``hybrid``: Zamba2), as
+``repro/models/model.py``.
+
+Layers are organized into *groups* of identical structure, each group's
+parameters stacked along a leading layer axis as in the reference, so
+the parameter and cache trees are the reference's.  The reference's
+``lax.scan`` over a group becomes a Python loop over the layer index.
+Prefill returns caches stacked the same way; decode updates the cache it
+is given in place and returns it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from .. import resolve_device
+from . import blocks
+from .config import ModelConfig
+from .layers import (P, apply_norm, init_params, norm_spec, padded_vocab,
+                     softcap, tree_map)
+
+SERVED_FAMILIES = ("ssm", "hybrid")
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupDef:
+    name: str
+    n: int                                   # layers in the group
+    specs: Dict                              # per-layer param specs
+    body: Optional[Callable]                 # (p, cfg, h, ctx, cache)
+
+
+def check_served(cfg: ModelConfig) -> None:
+    """The served families' configs use RMSNorm, a SiLU-gated MLP, tied
+    embeddings and no post- or qk-norms; refuse a config that asks for
+    what the port does not compute yet."""
+    if (cfg.family not in SERVED_FAMILIES or cfg.norm != "rmsnorm"
+            or cfg.act != "silu" or not cfg.gated_mlp or cfg.post_norms
+            or cfg.qk_norm or not cfg.tie_embeddings):
+        raise NotImplementedError(
+            f"config {cfg.name!r} (family {cfg.family!r}): the port serves "
+            f"the {SERVED_FAMILIES} families with RMSNorm, a SiLU-gated MLP "
+            "and tied embeddings so far; the dense, MoE, MLA, enc-dec and "
+            "VLM families come in a later slice of the model stack "
+            "(ROADMAP Queue 1)")
+
+
+def group_defs(cfg: ModelConfig) -> List[GroupDef]:
+    check_served(cfg)
+    f = cfg.family
+    if f == "ssm":
+        return [GroupDef("layers", cfg.n_layers, blocks.ssm_layer_specs(cfg),
+                         blocks.ssm_layer)]
+    if f == "hybrid":
+        per = cfg.hybrid_period
+        n_periods = cfg.n_layers // per
+        tail = cfg.n_layers - n_periods * per
+        defs = [GroupDef("periods", n_periods, blocks.zamba_period_specs(cfg),
+                         None)]  # body needs the shared block's params
+        if tail:
+            defs.append(GroupDef("tail", tail, blocks.ssm_layer_specs(cfg),
+                                 blocks.ssm_layer))
+        return defs
+
+
+# ---------------------------------------------------------------------------
+# parameter construction
+# ---------------------------------------------------------------------------
+
+def _stack_specs(specs: Dict, n: int) -> Dict:
+    return tree_map(lambda p: P((n,) + p.shape, ("layers",) + p.axes,
+                                p.init, p.scale), specs)
+
+
+def model_specs(cfg: ModelConfig) -> Dict:
+    vp = padded_vocab(cfg.vocab_size)
+    specs: Dict[str, Any] = {
+        "embed": P((vp, cfg.d_model), ("vocab", "embed"), scale=1.0),
+        "final_norm": norm_spec(cfg),
+        "groups": {g.name: _stack_specs(g.specs, g.n) for g in group_defs(cfg)},
+    }
+    if cfg.family == "hybrid":
+        specs["shared_block"] = blocks.shared_attn_specs(cfg)
+    return specs
+
+
+def init_model(cfg: ModelConfig, seed: int = 0,
+               device: Optional[Union[str, torch.device]] = None) -> Dict:
+    """Random parameters in ``cfg.param_dtype`` from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_params(gen, model_specs(cfg),
+                       dtype=getattr(torch, cfg.param_dtype))
+
+
+# ---------------------------------------------------------------------------
+# the layer loop
+# ---------------------------------------------------------------------------
+
+def _is_tensor(x: Any) -> bool:
+    return isinstance(x, torch.Tensor)
+
+
+def _stack(trees: List[Any]) -> Any:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(trees)
+
+
+def _write_layer(dst: Any, i: int, src: Any) -> None:
+    """Copy layer ``i``'s new cache ``src`` into the stacked ``dst``
+    (leaves already written in place are skipped)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write_layer(dst[k], i, src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            _write_layer(d, i, s)
+    else:
+        view = dst[i]
+        if src.data_ptr() != view.data_ptr():
+            view.copy_(src)
+
+
+def _scan_group(gdef: GroupDef, params: Dict, cfg: ModelConfig,
+                h: torch.Tensor, ctx: Dict, cache: Optional[Dict],
+                shared: Optional[Dict]) -> Tuple[torch.Tensor, Any]:
+    caches = []
+    for i in range(gdef.n):
+        p_i = tree_map(lambda x: x[i], params, _is_tensor)
+        c_i = None if cache is None else tree_map(lambda x: x[i], cache,
+                                                   _is_tensor)
+        if gdef.name == "periods":
+            h, nc = blocks.zamba_period(p_i, shared, cfg, h, ctx, c_i)
+        else:
+            h, nc = gdef.body(p_i, cfg, h, ctx, c_i)
+        if cache is not None:
+            _write_layer(cache, i, nc)
+        else:
+            caches.append(nc)
+    if cache is not None:
+        return h, cache
+    if all(c is None for c in caches):
+        return h, None
+    return h, _stack(caches)
+
+
+def _embed(params: Dict, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+
+
+def _logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(params["final_norm"], h, cfg)
+    logits = h @ params["embed"].to(h.dtype).T      # tied embeddings
+    return softcap(logits.float(), cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[Union[str, torch.device]] = None) -> Dict:
+    """Stacked per-group decode caches, zeroed (None device: the card)."""
+    dev = resolve_device(device)
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+
+    def kv(n: int, length: int) -> Dict:
+        return {"k": torch.zeros((n, batch, length, KV, hd), dtype=dtype,
+                                 device=dev),
+                "v": torch.zeros((n, batch, length, KV, hd), dtype=dtype,
+                                 device=dev)}
+
+    def ssm(n: int) -> Dict:
+        return {"state": torch.zeros((n, batch, cfg.ssm_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=torch.float32, device=dev),
+                "conv_x": torch.zeros((n, batch, cfg.ssm_conv - 1,
+                                       cfg.d_inner), dtype=dtype, device=dev),
+                "conv_bc": torch.zeros((n, batch, cfg.ssm_conv - 1,
+                                        2 * cfg.ssm_groups * cfg.ssm_state),
+                                       dtype=dtype, device=dev)}
+
+    caches: Dict[str, Any] = {}
+    for g in group_defs(cfg):
+        if g.name == "periods":
+            caches[g.name] = {
+                "ssm": [ssm(g.n) for _ in range(cfg.hybrid_period)],
+                "attn": kv(g.n, max_len)}
+        else:
+            caches[g.name] = ssm(g.n)
+    return caches
+
+
+def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Forward over the prompt ``batch["tokens"]`` (B, S); returns
+    (last-position logits (B, 1, Vpad) float32, cache) with the attention
+    caches of length S, as the reference's (``max_len`` is unused there
+    too; :mod:`repro_torch.serve.steps` moves the cache into a decode
+    cache of ``max_len``)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)
+    ctx: Dict[str, Any] = {"positions": positions, "return_cache": True}
+    h = _embed(params, cfg, tokens)
+    ctx["h0"] = h
+    shared = params.get("shared_block")
+    cache_out: Dict[str, Any] = {}
+    for g in group_defs(cfg):
+        h, nc = _scan_group(g, params["groups"][g.name], cfg, h, ctx, None,
+                            shared)
+        cache_out[g.name] = nc
+    return _logits(params, cfg, h[:, -1:]), cache_out
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict, cache_len: int) -> Tuple[torch.Tensor, Dict]:
+    """One decode step.  tokens: (B, 1); ``cache`` from :func:`init_cache`
+    (updated in place and returned); ``cache_len``: the number of valid
+    positions, one for the whole batch."""
+    B, S = tokens.shape
+    cache_len = int(cache_len)
+    positions = cache_len + torch.arange(S, device=tokens.device)
+    ctx: Dict[str, Any] = {"positions": positions, "cache_len": cache_len,
+                           "return_cache": True}
+    h = _embed(params, cfg, tokens)
+    ctx["h0"] = h
+    shared = params.get("shared_block")
+    for g in group_defs(cfg):
+        h, cache[g.name] = _scan_group(g, params["groups"][g.name], cfg, h,
+                                       ctx, cache[g.name], shared)
+    return _logits(params, cfg, h), cache

@@ -1,0 +1,239 @@
+"""The port's SSD and flash-attention CUDA kernels on the card, against
+their plain versions in every launch plan, and the Zamba2 smoke serve on
+the card against the CPU.
+
+Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
+on a machine that has the card but no JAX:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_model_cuda.py
+
+Tolerances: each kernel computes in float32 from the same inputs as its
+plain version (bfloat16 inputs are widened exactly), so only the order
+of the float32 sums differs: SSD 1e-3 (the JAX kernel test's float32
+bound), flash attention 2e-5 in float32 and 2e-2 where the output is
+rounded to bfloat16 (the JAX kernel test's bounds); the float32 bound is
+also held at Zamba2-7B's prompt length, 2048.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke
+from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd import kernel as ssd
+from repro_torch.kernels.ssd.ops import ssd_op
+from repro_torch.launch import serve as serve_launch
+from repro_torch.models.layers import tree_map
+from repro_torch.models.model import init_model
+from repro_torch.serve import steps
+
+pytestmark = pytest.mark.cuda
+
+# (b, L, H, P, G, N, chunk): tests/test_kernels.py's four SSD shapes,
+# Zamba2-7B's per-head shape at a short ragged L, and its prefill shape
+SSD_SHAPES = [(1, 32, 2, 16, 1, 16, 16), (2, 64, 4, 32, 2, 32, 32),
+              (1, 100, 4, 64, 1, 64, 64), (2, 256, 8, 64, 4, 128, 128),
+              (1, 300, 4, 64, 1, 64, 128), (4, 2048, 112, 64, 1, 64, 128)]
+# (B, Sq, Sk, H, KV, D): tests/test_kernels.py's sweep, then D = 112
+FLASH_SHAPES = [(1, 64, 64, 2, 2, 64), (2, 128, 128, 4, 2, 64),
+                (1, 130, 130, 4, 1, 128), (2, 96, 96, 8, 4, 256),
+                (2, 200, 200, 4, 2, 112)]
+FLASH_MASKS = [(True, 0, 0.0), (True, 32, 0.0), (True, 0, 50.0),
+               (False, 0, 0.0)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
+    """Seeded SSD inputs on the card in the model's layout (x, B, C in
+    ``dtype``; dt, A float32), as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed + b * L + H * P + N)
+    x = rng.standard_normal((b, L, H, P)) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((b, L, H))))
+    A = -np.exp(rng.standard_normal(H) * 0.3)
+    B = rng.standard_normal((b, L, G, N)) * 0.3
+    C = rng.standard_normal((b, L, G, N)) * 0.3
+
+    def dev(a, dt_=torch.float32):
+        return torch.tensor(a, dtype=torch.float32).to(dt_).cuda()
+    return dev(x, dtype), dev(dt), dev(A), dev(B, dtype), dev(C, dtype)
+
+
+def ssd_plain(x, dt, A, B, C):
+    """The sequential oracle on float32 copies of the inputs, and the
+    state after the last step, ``sum_t (prod_{s > t} exp(dt_s A)) dt_t
+    x_t B_t^T``."""
+    H = x.shape[2]
+    decay = torch.exp(dt * A)                             # (b, L, H)
+    tail = torch.flip(torch.cumprod(torch.flip(decay, [1]), 1), [1])
+    w = torch.cat([tail[:, 1:], torch.ones_like(tail[:, :1])], 1) * dt
+    Bh = B.float().repeat_interleave(H // B.shape[2], 2)
+    state = torch.einsum("blh,blhp,blhn->bhpn", w, x.float(), Bh)
+    return ssd_op(x.float(), dt, A, B.float(), C.float()), state
+
+
+def ssd_plans(P, N, Q):
+    """The planned score tile and one of QB = ceil(Q/3) rows, which leaves
+    a ragged last row block."""
+    return [ssd.ssd_plan(P, N, Q), ssd.ssd_plan(P, N, Q, qb=(Q + 2) // 3)]
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_ssd_kernel_matches_plain_every_plan(card, shape, dtype):
+    b, L, H, P, G, N, Q = shape
+    x, dt, A, B, C = ssd_inputs(b, L, H, P, G, N, dtype)
+    want_y, want_s = ssd_plain(x, dt, A, B, C)
+    for plan in ssd_plans(P, N, Q):
+        before = ssd.ssd_cuda.launches
+        y, s = ssd.ssd_cuda(x, dt, A, B, C, chunk=Q, plan=plan)
+        torch.cuda.synchronize()
+        assert ssd.ssd_cuda.launches == before + 1
+        assert y.dtype == torch.float32 and y.shape == (b, L, H, P)
+        torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3,
+                                   msg=lambda m: f"{plan}: {m}")
+        torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3,
+                                   msg=lambda m: f"{plan}: {m}")
+
+
+def test_ssd_kernel_init_state_carries(card):
+    """Two launches over the halves of a sequence, the second started
+    from the first's final state, equal one launch over the whole."""
+    b, L, H, P, G, N, Q = 2, 256, 4, 64, 1, 64, 128
+    x, dt, A, B, C = ssd_inputs(b, L, H, P, G, N, torch.float32, seed=3)
+    y, s = ssd.ssd_cuda(x, dt, A, B, C, chunk=Q)
+    h = 100                                     # not a chunk multiple
+    cut = lambda t, sl: t[:, sl].contiguous()   # noqa: E731
+    y1, s1 = ssd.ssd_cuda(*(cut(t, slice(0, h)) for t in (x, dt)), A,
+                          *(cut(t, slice(0, h)) for t in (B, C)), chunk=Q)
+    y2, s2 = ssd.ssd_cuda(*(cut(t, slice(h, L)) for t in (x, dt)), A,
+                          *(cut(t, slice(h, L)) for t in (B, C)), chunk=Q,
+                          init_state=s1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-3,
+                               rtol=1e-3)
+    torch.testing.assert_close(s2, s, atol=1e-3, rtol=1e-3)
+
+
+def test_ssd_kernel_refuses_what_it_cannot_launch(card):
+    x, dt, A, B, C = ssd_inputs(1, 32, 2, 16, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_cuda(x.cpu(), dt, A, B, C, chunk=16)
+    with pytest.raises(TypeError):
+        ssd.ssd_cuda(x, dt.double(), A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_cuda(x.transpose(1, 2), dt, A, B, C, chunk=16)
+
+
+def flash_inputs(B, Sq, Sk, H, KV, D, dtype):
+    rng = np.random.default_rng(B * Sq + H * D + KV)
+
+    def dev(shape):
+        return torch.tensor(rng.standard_normal(shape),
+                            dtype=torch.float32).to(dtype).cuda()
+    return dev((B, Sq, H, D)), dev((B, Sk, KV, D)), dev((B, Sk, KV, D))
+
+
+def flash_plans(D):
+    plans = [fa.flash_plan(D)]
+    for bq, bk in fa.TILES:
+        if fa.flash_smem_bytes(D, bq, bk) <= fa.SMEM_LIMIT:
+            plans.append(fa.flash_plan(D, bq=bq, bk=bk))
+    return list(dict.fromkeys(plans))
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
+def test_flash_kernel_matches_plain_every_plan(card, shape, dtype, causal,
+                                               window, cap):
+    q, k, v = flash_inputs(*shape, dtype)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window, softcap=cap)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for plan in flash_plans(shape[-1]):
+        before = fa.flash_attention_cuda.launches
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      softcap=cap, plan=plan)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_cuda.launches == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol,
+                                   msg=lambda m: f"{plan}: {m}")
+
+
+@pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
+def test_flash_kernel_long_sequence_float32(card, causal, window, cap):
+    """Zamba2-7B's prompt length and head dim (S 2048, D 112; GQA here) in
+    float32 at 2e-5: a fault that shows only over many key blocks (block
+    skipping, the last key block, 32 query blocks) is not hidden by the
+    bfloat16 tolerance."""
+    shape = (1, 2048, 2048, 4, 2, 112)
+    q, k, v = flash_inputs(*shape, torch.float32)
+    want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    for plan in flash_plans(shape[-1]):
+        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      softcap=cap, plan=plan)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5,
+                                   msg=lambda m: f"{plan}: {m}")
+
+
+def test_flash_kernel_refuses_what_it_cannot_launch(card):
+    q, k, v = flash_inputs(1, 64, 64, 2, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_cuda(q.cpu(), k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_cuda(q[:, :, :1].contiguous(),
+                                torch.cat([k, k, k], 2), torch.cat([v] * 3, 2))
+
+
+def _rel(got, want):
+    return float((got.float().cpu() - want.float()).abs().max()) / (
+        float(want.float().abs().max()) + 1e-9)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_7b", "mamba2_370m"])
+def test_smoke_serve_on_card_matches_cpu(card, arch):
+    """The smoke model (float32) served on the card, through the kernels,
+    against the same parameters served on the CPU through the plain
+    versions: the same greedy tokens, logits within relative 1e-4, and
+    every prefill's SSD and flash launches counted (none in decode).  The
+    prompt of 300 tokens takes the chunked attention branch."""
+    cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32")
+    cpu = init_model(cfg, seed=5, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu, lambda t: isinstance(t,
+                                                               torch.Tensor))
+    g = torch.Generator()
+    g.manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), generator=g)
+    before = (ssd.ssd_cuda.launches, fa.flash_attention_cuda.launches)
+    out_g, lg_g = steps.generate(gpu, cfg, toks.cuda(), 6)
+    torch.cuda.synchronize()
+    n_ssd = ssd.ssd_cuda.launches - before[0]
+    n_fa = fa.flash_attention_cuda.launches - before[1]
+    out_c, lg_c = steps.generate(cpu, cfg, toks, 6)
+    assert torch.equal(out_g.cpu(), out_c)
+    assert _rel(lg_g, lg_c) < 1e-4
+    assert n_ssd == cfg.n_layers
+    assert n_fa == (cfg.n_layers // cfg.hybrid_period
+                    if cfg.family == "hybrid" else 0)
+
+
+def test_launcher_on_card_counts_prefill_launches(card):
+    res = serve_launch.main(["--arch", "zamba2_7b", "--smoke", "--batch",
+                             "2", "--prompt-len", "300", "--gen", "3",
+                             "--warmup", "0"])
+    assert res["prefill_launches"] == {"ssd": 5, "flash": 2}
+    assert res["decode_launches"] == {"ssd": 0, "flash": 0}
+    assert res["tokens"].shape == (2, 3) and res["device"] != "cpu"
