@@ -124,12 +124,19 @@ def _time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _band_candidates(dc1, d1):
+    """Candidates ``j <= min(DC, d)`` of one slot over D+1 outputs:
+    (DC+1)(D+1) - DC(DC+1)/2 where D >= DC."""
+    n = min(dc1, d1)
+    return n * d1 - n * (n - 1) // 2
+
+
 def _bound_ms(T, dc1, d1, dtype, want_split):
     """(ms over the ops peak, ms over HBM) for one sweep: 2 ops (add,
-    min) per candidate at the vector peak; each input read and each output
-    written once.  The bound is the larger."""
+    min) per candidate of the band at the vector peak; each input read and
+    each output written once.  The bound is the larger."""
     size = dtype.itemsize
-    ops = 2.0 * T * d1 * dc1
+    ops = 2.0 * T * _band_candidates(dc1, d1)
     nbytes = T * dc1 * size + T * d1 * (size + (4 if want_split else 0))
     return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
@@ -157,10 +164,29 @@ def _self_device_ms(event):
                    getattr(event, "self_cuda_time_total", 0.0)) / 1e3
 
 
+def _device_table(prof):
+    """{kernel or device op: (device ms, launches)} from a profile, device
+    self time summed by name; ``aten::`` entries are left out, since each
+    carries the time of the kernels it launched, which have their own."""
+    table = {}
+    for e in prof.key_averages():
+        ms = _self_device_ms(e)
+        if ms > 0 and not e.key.startswith("aten::"):
+            t = table.get(e.key, (0.0, 0))
+            table[e.key] = (t[0] + ms, t[1] + e.count)
+    return table
+
+
+def _plan_str(plan):
+    return (f"C={plan.cluster} k={minplus_kernel.SWEEP_K} w={plan.w} "
+            f"jgroups={plan.jgroups} threads={plan.threads}")
+
+
 def kernel_phase():
     """The sweep == its plain version bitwise, cost and split, f32 and
-    f64, at every placement its plan picks; the cost-only sweep (the
-    whole route's form) timed against the plain one."""
+    f64, under the plan it picks, printed beside each shape's times; the
+    cost-only sweep (the whole route's form) timed (device time per
+    launch) against the plain one."""
     t0 = time.perf_counter()
     built = build_all()
     print(f"build: {', '.join(p.stem.rsplit('_', 1)[0] for p in built)}"
@@ -196,8 +222,8 @@ def kernel_phase():
                     f"from the plain version (max abs err {err})")
             if (T, dc1, d1) in SLICE_SHAPES + WIDE_SHAPES:
                 wide = (T, dc1, d1) in WIDE_SHAPES
-                k_ms = _time_ms(lambda: minplus_kernel.minplus_sweep_cuda(
-                    rows, d1 - 1, want_split=False), reps=1 if wide else 5)
+                k_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+                    rows, d1 - 1, want_split=False), reps=2 if wide else 10)
                 p_ms = _time_ms(lambda: minplus_sweep_ref(rows, d1 - 1),
                                 reps=1 if wide else 2)
                 op_ms, byte_ms = _bound_ms(T, dc1, d1, dtype,
@@ -207,12 +233,12 @@ def kernel_phase():
                                                 byte_ms)
                 plan = minplus_kernel.sweep_plan(dc1, d1, dtype)
                 print(f"sweep T={T} m_pad={dc1} d1={d1} "
-                      f"{str(dtype).split('.')[-1]} placement={plan.mode}: "
-                      f"kernel_ms={k_ms!r} plain_ms={p_ms!r} "
+                      f"{str(dtype).split('.')[-1]} plan: {_plan_str(plan)}: "
+                      f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} "
                       f"bound_ms={b_ms!r} bitwise=True")
     n = len(TEST_SHAPES + SLICE_SHAPES + WIDE_SHAPES) * 2
-    print(f"kernel phase ok: {n} sweep shape/dtype cases bitwise equal, "
-          f"max_abs_err={max_err!r}")
+    print(f"kernel phase ok: {n} sweep shape/dtype cases bitwise "
+          f"equal, max_abs_err={max_err!r}")
     return max_err, timings
 
 
@@ -252,8 +278,7 @@ def _slot_bounds(row, d1, dtype, plateau):
         levels = int(lengths.max()).bit_length() - 1
         ops = levels * (d1 + dc1) + 3.0 * len(starts) * d1
     else:
-        cand = sum(min(dc1, d + 1) for d in range(d1))
-        ops = 2.0 * cand
+        ops = 2.0 * _band_candidates(dc1, d1)
     nbytes = (dc1 + 2 * d1) * size
     return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
@@ -501,8 +526,9 @@ def profile_phase(core, n_jobs=400):
     """Where the time goes: a traced run of the 10x trace's first
     ``n_jobs`` arrivals through ``core`` (same price parameters as the
     full run, so these are the main run's first decisions); device busy =
-    the sum of device self time over all traced ops (one stream, so they
-    do not overlap).  Returns {kernel: (device ms, launches)}."""
+    the sum of device self time over the traced kernels and device copies,
+    each counted once (``_device_table``; one stream, so they do not
+    overlap).  Returns {kernel: (device ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
     cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
     jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
@@ -514,21 +540,16 @@ def profile_phase(core, n_jobs=400):
                          core=core)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev, calls = {}, {}
-    for e in prof.key_averages():
-        ms = _self_device_ms(e)
-        if ms > 0:
-            dev[e.key] = dev.get(e.key, 0.0) + ms
-            calls[e.key] = calls.get(e.key, 0) + e.count
-    busy = sum(dev.values())
+    dev = _device_table(prof)
+    busy = sum(ms for ms, _ in dev.values())
     kernels = {}
     for name in ("minplus_sweep_kernel", "minplus_slot_kernel",
                  "minplus_plateau_kernel"):
         keys = [k for k in dev if name in k]
         if keys:
-            kernels[name] = (sum(dev[k] for k in keys),
-                             sum(calls[k] for k in keys))
-    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+            kernels[name] = (sum(dev[k][0] for k in keys),
+                             sum(dev[k][1] for k in keys))
+    top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"profile ({core} route, 10x trace, first {n_jobs} jobs, traced): "
           f"decisions={len(res.decision_seconds)} wall_ms={wall_ms!r} "
           f"device_busy_ms={busy!r} device_idle_share="
@@ -536,8 +557,8 @@ def profile_phase(core, n_jobs=400):
               f"{k}_ms={v[0]!r} {k}_launches={v[1]} "
               f"{k}_ms_per_launch={v[0] / max(v[1], 1)!r}"
               for k, v in kernels.items()))
-    for k, ms in top:
-        print(f"  device {ms!r} ms: {k[:90]}")
+    for k, (ms, n) in top:
+        print(f"  device {ms!r} ms ({n} launches): {k[:90]}")
     return kernels
 
 
@@ -907,19 +928,6 @@ def serve_phase():
     return n_ssd, n_flash
 
 
-def _device_table(prof):
-    """{kernel or device op: (device ms, launches)} from a profile, device
-    self time summed by name; ``aten::`` entries are left out, since each
-    carries the time of the kernels it launched, which have their own."""
-    table = {}
-    for e in prof.key_averages():
-        ms = _self_device_ms(e)
-        if ms > 0 and not e.key.startswith("aten::"):
-            t = table.get(e.key, (0.0, 0))
-            table[e.key] = (t[0] + ms, t[1] + e.count)
-    return table
-
-
 def serve_profile_phase():
     """Where the serving time goes at full width (bf16, batch 4, prompt
     2048): one traced prefill (device busy, idle share, the two kernels'
@@ -1008,6 +1016,10 @@ def main() -> int:
     n = sum(hist.values())
     mean = [sum(hist[m] * timings[(SCALE["T"], m, 1280, torch.float64)][i]
                 for m in hist) / n for i in range(5)]
+    print(f"sweep over the 10x mix (float64, cost only): launch-weighted "
+          f"kernel_device_ms={mean[0]!r} bound_ms={mean[2]!r}; per m_pad " +
+          " ".join(f"{m}:{timings[(SCALE['T'], m, 1280, torch.float64)][0]!r}"
+                   f"x{hist[m]}" for m in sorted(hist)))
     slot = [sum(hist[m] * slot_timings[("slot", m, 1280)][i]
                 for m in hist) / n for i in range(5)]
     plat = slot_timings[("plateau", 64, 1280)]

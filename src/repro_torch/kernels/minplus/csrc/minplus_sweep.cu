@@ -1,4 +1,5 @@
-// Whole-horizon banded min-plus DP sweep for Hopper (sm_90a).
+// Whole-horizon banded min-plus DP sweep for Hopper (sm_90a): one
+// thread-block cluster per sweep, the carry in distributed shared memory.
 //
 // Replaces the TPU kernel src/repro/kernels/minplus/kernel.py::
 // minplus_sweep_pallas (body _minplus_sweep_kernel):
@@ -8,42 +9,86 @@
 //
 // from the carry cost_{-1} = [0, inf, ...], all T slots in ONE launch.
 //
-// What bounds it on this card: operations.  A sweep does about
-// 2 * T * (D+1) * (DC+1) adds and compares on T * (DC+1 + D+1) values read
-// or written once, so its arithmetic intensity is ~DC/8 per byte in f64;
-// there is no multiply, so the tensor cores cannot help.  The slot
-// recurrence is sequential, so this first design runs one block per sweep
-// and keeps the carry close to the SM across the slot loop: two ping-pong
-// carry buffers of D+1 values and the current row, threads striding over
-// d, one __syncthreads() pair between the slots.  It uses one SM of 132;
-// spreading a sweep over several blocks (clusters, DSMEM carry) is later
-// work.  Where the buffers live is the wrapper's plan (kernel.py::
-// sweep_plan), by size:
+// What bounds it on this card.  A slot evaluates the band's
+// (DC+1)(D+1) - DC(DC+1)/2 candidates, an add and a min each, on values
+// that stay on chip, so operations bound it: the FP64 (or FP32)
+// instruction rate of the SMs that run the sweep.  Tensor cores cannot
+// help, since min-plus has no multiply.  The slots form a sequential
+// chain, so what is left is the per-slot cost of handing the carry from
+// one slot to the next across the SMs: a cluster barrier, with the fence
+// that publishes the carry, and a read of the neighbours' carry (the
+// halo), T times.
 //
-//   kShared      carries and row in dynamic shared memory (opted in above
-//                48 KB with cudaFuncSetAttribute) -- every shape whose
-//                (2 (D+1) + DC+1) values fit in the 227 KB a block may use;
-//   kGlobalCarry the two carries in a (2, D+1) global scratch tensor the
-//                wrapper allocates (at D+1 = 20480 f64 that is 320 KB, which
-//                stays in the 50 MB L2), the row still in shared memory;
-//   kGlobal      carries and row read from global memory (a row wider than
-//                shared memory; no bucket of the repo's traces needs it).
+// The design, and what it does about each:
+// * One cluster of C blocks (C in {1, 2, 4, 8, 16}, kernel.py::sweep_plan;
+//   16, beyond the portable size, only where the card can place it) on C
+//   SMs.  Block r owns the columns [r w, (r+1) w) and keeps its slice of
+//   cost_{t-1} and cost_t (ping-pong) in its shared memory.
+// * At each slot a block copies the halo it needs, cost_{t-1}[r w - JP ..
+//   r w) (+inf left of 0; JP = DC+1 rounded up to K), out of the lower
+//   ranks' slices through DSMEM in 16-byte loads, and its own slice, into
+//   one local window, once: the j loop reads only local memory.
+// * One cluster barrier per slot publishes slot t's slices before any
+//   block copies its halo for slot t+1.  With the slices ping-ponged it
+//   also orders every read of a slice before the write that reuses it two
+//   slots later; the barrier after the last slot is the one every block
+//   passes before it exits, so no block's shared memory goes away while a
+//   neighbour may still read it.  A release by every thread would cost a
+//   cluster-scope fence each (several times the relaxed barrier itself,
+//   measured on the card), so the block's writes are gathered by
+//   __syncthreads, one thread fences
+//   them, every thread arrives relaxed and waits with acquire; the slot's
+//   global stores go out between the arrive and the wait, where no fence
+//   waits for them.
+// * Register tiling: a thread owns K = 4 consecutive columns and walks j in
+//   steps of K with a 2K-value sliding window of the carry in registers:
+//   per K*K candidates, K broadcast loads of the row and K new carry
+//   loads.  The window is stored as K planes (value x at plane x mod K,
+//   position x / K), so the K loads of a warp hit consecutive addresses.
+// * Where a block has too few column groups to fill its warps, the j range
+//   is split over S thread groups too; their (value, j) partials are
+//   merged in increasing j, a lower j winning a tie.
+// * A slot's row comes in with cp.async (one 4- or 8-byte copy per
+//   value: rows + t (DC+1) is not 16-byte aligned for odd DC+1), issued
+//   before the halo copy so that the two overlap.  A second row buffer,
+//   filled during the previous slot, measured no faster at any 10x bucket
+//   (PERF.md), and the widest float64 band has no room for it, so there
+//   is one.
 //
-// __syncthreads() orders a block's global writes before its later reads as
-// it does for shared memory, so the three differ only in where the loads go.
-//
-// Exactness: each cost is one IEEE add of two inputs (no FMA can form:
-// there is no multiply), and the strict '<' in increasing j keeps the
-// first index of the minimum, so the result equals the plain PyTorch
-// version (kernels/minplus/ref.py) bit for bit in f32 and f64.  Skipping
-// j > d is exact: those candidates read the +inf left pad, and
-// x + inf is never '<' anything.
+// Exactness: each candidate is one IEEE add of two inputs (no multiply,
+// so nothing can contract into an FMA).  With the split, each thread takes
+// the strict '<' in increasing j and the merge keeps the lower j on a tie.
+// Cost only, a thread takes the min (FMNMX in f32; in f64 a compare and a
+// select, which run faster than DMNMX): min and the first-index select
+// differ only on a tie of +0 and -0, and no candidate is -0, since the
+// carry starts at +0 and a sum is -0 only when both addends are.  So
+// cost and split equal the plain PyTorch version (kernels/minplus/ref.py)
+// bit for bit in f32 and f64, for rows without NaN.  Candidates with
+// j > d read the window's +inf left pad and those with j > DC the row's
+// +inf right pad: x + inf is never below anything, so evaluating them
+// changes nothing.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+#include <mutex>
+#include <set>
+#include <tuple>
+
+namespace cg = cooperative_groups;
 
 namespace {
+
+constexpr int kMaxThreads = 512;
+constexpr int kMaxPortableCluster = 8;
+constexpr int kMaxCluster = 16;
+// consecutive columns a thread owns (kernel.py::SWEEP_K); 8 measured
+// slower on every 10x bucket and on the wide jobs' bands
+constexpr int K = 4;
+// columns a thread merges: with the j range split over S >= 2 groups a
+// block has w / K * S >= w / 2 threads, so w <= kMergeCols * threads
+constexpr int kMergeCols = 2;
 
 template <typename T>
 __device__ __forceinline__ T pos_inf();
@@ -52,107 +97,331 @@ __device__ __forceinline__ float pos_inf<float>() { return CUDART_INF_F; }
 template <>
 __device__ __forceinline__ double pos_inf<double>() { return CUDART_INF; }
 
-// buffer placement (kernel.py::sweep_plan's modes)
-constexpr int kShared = 0;
-constexpr int kGlobalCarry = 1;
-constexpr int kGlobal = 2;
-
-template <typename T, int kMode>
-__global__ void __launch_bounds__(1024)
-minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
-                     int32_t* __restrict__ split, T* carry, int n_slots,
-                     int dc1, int d1) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* prev;       // carry cost_{t-1}, (d1,)
-  T* next;       // carry being built, (d1,)
-  T* row;        // rows[t] staged in shared memory, (dc1,); kGlobal: unused
-  if constexpr (kMode == kShared) {
-    prev = reinterpret_cast<T*>(smem_raw);
-    next = prev + d1;
-    row = next + d1;
-  } else {
-    prev = carry;
-    next = carry + d1;
-    row = reinterpret_cast<T*>(smem_raw);
+template <typename T>
+__device__ __forceinline__ void copy_row_async(T* dst, const T* src, int n) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const unsigned addr =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + j));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(addr),
+                 "l"(src + j), "n"(sizeof(T)));
   }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// 16 bytes of values: the unit of the halo copy
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+};
+
+// The cluster barrier of a slot, in two halves (see the note at the top):
+// the block's writes gathered by __syncthreads and fenced to cluster scope
+// by one thread, a relaxed arrive; then a wait that acquires the other
+// blocks' writes.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncthreads();
+  if (threadIdx.x == 0) asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T min_of(T a, T b);
+template <>
+__device__ __forceinline__ float min_of<float>(float a, float b) {
+  return fminf(a, b);
+}
+// in float64 a compare and a select run faster than DMNMX (measured on
+// the card)
+template <>
+__device__ __forceinline__ double min_of<double>(double a, double b) {
+  return b < a ? b : a;
+}
+
+// Shared memory of a block, in values of T (then int32 split partials):
+//   slice[2][w]      its columns of cost_{t-1} / cost_t (ping-pong)
+//   win[jpad + w]    halo + own carry, K planes of (jpad + w) / K
+//   row[jpad]
+//   part[S][K][w/K]  per-j-group partial minima (S > 1 only)
+//   part_arg[S][K][w/K]  their first argmins (S > 1 and split only)
+template <typename T, bool kSplit>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
+                     int32_t* __restrict__ split, int n_slots, int dc1,
+                     int d1, int w, int jpad, int n_jgroups) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* slice = reinterpret_cast<T*>(smem_raw);
+  T* win = slice + 2 * w;
+  T* row_buf = win + jpad + w;
+  T* part = row_buf + jpad;
+  int32_t* part_arg = reinterpret_cast<int32_t*>(part + n_jgroups * w);
+  const int plane = (jpad + w) / K;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int col0 = static_cast<int>(cluster.block_rank()) * w;
   const T inf = pos_inf<T>();
 
-  for (int d = threadIdx.x; d < d1; d += blockDim.x)
-    prev[d] = d == 0 ? T(0) : inf;
+  // this thread's columns [col0 + c0, col0 + c0 + K) and j range
+  // [jlo, jhi): group s of n_jgroups over the block's j extent
+  const int groups = w / K;
+  const int g = tid % groups;
+  const int c0 = g * K;
+  const int s = tid / groups;
+  const int j_block = min(jpad, col0 + w);
+  const int j_step = ((j_block + n_jgroups - 1) / n_jgroups + K - 1) / K * K;
+  const int jlo = s * j_step;
+  const int jhi = min(min(jlo + j_step, j_block), col0 + c0 + K);
+
+  for (int c = tid; c < w; c += nthreads)
+    slice[c] = col0 + c == 0 ? T(0) : inf;
+  for (int j = dc1 + tid; j < jpad; j += nthreads) row_buf[j] = inf;
+  cluster.sync();  // every block's slice of the carry is in place
 
   for (int t = 0; t < n_slots; ++t) {
-    const T* row_g = rows + static_cast<int64_t>(t) * dc1;
-    const T* row_t = row_g;
-    if constexpr (kMode != kGlobal) {
-      for (int j = threadIdx.x; j < dc1; j += blockDim.x) row[j] = row_g[j];
-      row_t = row;
-    }
-    __syncthreads();  // row t and the carry of slot t-1 are in place
+    const T* prev = slice + (t & 1) * w;
+    T* next = slice + ((t + 1) & 1) * w;
+    // row t, over the buffer slot t-1 read, whose reads ended before the
+    // last barrier
+    const T* row = row_buf;
+    copy_row_async(row_buf, rows + static_cast<int64_t>(t) * dc1, dc1);
 
+    // window value x is cost_{t-1}[col0 - jpad + x]: the halo from the
+    // lower ranks' slices, then this block's own, through DSMEM in
+    // 16-byte loads (jpad, w and col0 are multiples of K >= 4 values, so
+    // a load never straddles two slices)
+    using V = typename Vec16<T>::type;
+    constexpr int kV = Vec16<T>::n;
+    for (int x = tid * kV; x < jpad + w; x += nthreads * kV) {
+      const int gx = col0 - jpad + x;
+      V vec;
+      const T* v = reinterpret_cast<const T*>(&vec);
+      if (gx < 0) {
+#pragma unroll
+        for (int e = 0; e < kV; ++e) reinterpret_cast<T*>(&vec)[e] = inf;
+      } else {
+        const int q = gx / w;
+        vec = *reinterpret_cast<const V*>(cluster.map_shared_rank(prev, q) +
+                                          gx - q * w);
+      }
+#pragma unroll
+      for (int e = 0; e < kV; ++e)
+        win[((x + e) % K) * plane + (x + e) / K] = v[e];
+    }
+    cp_async_wait_all();
+    __syncthreads();  // window and row t are in place
+
+    // candidate (k, j) reads window value jpad + c0 + k - j.  For the
+    // chunk j in [jb, jb + K), with base = jpad + c0 - jb (a multiple of
+    // K), hi[i] = win(base + i) and lo[i] = win(base - K + i).
+    T best[K];
+    int32_t arg[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      best[k] = inf;
+      arg[k] = 0;
+    }
+    if (jlo < jhi) {
+      int pos = (jpad + c0 - jlo) / K;
+      T hi[K], lo[K];
+#pragma unroll
+      for (int i = 0; i < K; ++i) hi[i] = win[i * plane + pos];
+      for (int jb = jlo; jb < jhi; jb += K) {
+        --pos;
+        T r[K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          lo[i] = win[i * plane + pos];
+          r[i] = row[jb + i];
+        }
+#pragma unroll
+        for (int jj = 0; jj < K; ++jj) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const T cand = r[jj] + (k >= jj ? hi[k - jj] : lo[K + k - jj]);
+            if constexpr (kSplit) {
+              if (cand < best[k]) {
+                best[k] = cand;
+                arg[k] = jb + jj;
+              }
+            } else {
+              best[k] = min_of(best[k], cand);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < K; ++i) hi[i] = lo[i];
+      }
+    }
+
+    // this slot's values go to the block's next slice, are published by
+    // the barrier's arrive, and only then stored to cost (and split), so
+    // that no fence waits for global stores
     T* cost_t = cost + static_cast<int64_t>(t) * d1;
-    int32_t* split_t =
-        split == nullptr ? nullptr : split + static_cast<int64_t>(t) * d1;
-    for (int d = threadIdx.x; d < d1; d += blockDim.x) {
-      T best = inf;
-      int32_t arg = 0;
-      const int jmax = min(dc1 - 1, d);
-      for (int j = 0; j <= jmax; ++j) {
-        const T cand = row_t[j] + prev[d - j];
-        if (cand < best) {
-          best = cand;
-          arg = j;
+    int32_t* split_t = kSplit ? split + static_cast<int64_t>(t) * d1 : nullptr;
+    if (n_jgroups == 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) next[c0 + k] = best[k];
+      cluster_arrive();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (col0 + c0 + k < d1) {
+          cost_t[col0 + c0 + k] = best[k];
+          if constexpr (kSplit) split_t[col0 + c0 + k] = arg[k];
         }
       }
-      next[d] = best;
-      cost_t[d] = best;
-      if (split_t != nullptr) split_t[d] = arg;
+    } else {
+      // partials as K planes of the column groups, so that a warp's
+      // stores and the merge's loads hit consecutive addresses
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        part[(s * K + k) * groups + g] = best[k];
+        if constexpr (kSplit) part_arg[(s * K + k) * groups + g] = arg[k];
+      }
+      __syncthreads();
+      // merge in increasing j group: strict '<' keeps the lower j on a
+      // tie; a thread merges the columns c = tid + i * nthreads
+      T b[kMergeCols];
+      int32_t a[kMergeCols];
+#pragma unroll
+      for (int i = 0; i < kMergeCols; ++i) {
+        const int c = tid + i * nthreads;
+        if (c >= w) break;
+        const int at = (c % K) * groups + c / K;
+        b[i] = part[at];
+        a[i] = kSplit ? part_arg[at] : 0;
+#pragma unroll 4
+        for (int q = 1; q < n_jgroups; ++q) {
+          const T v = part[q * w + at];
+          if (v < b[i]) {
+            b[i] = v;
+            if constexpr (kSplit) a[i] = part_arg[q * w + at];
+          }
+        }
+        next[c] = b[i];
+      }
+      cluster_arrive();
+#pragma unroll
+      for (int i = 0; i < kMergeCols; ++i) {
+        const int c = tid + i * nthreads;
+        if (c >= w) break;
+        if (col0 + c < d1) {
+          cost_t[col0 + c] = b[i];
+          if constexpr (kSplit) split_t[col0 + c] = a[i];
+        }
+      }
     }
-    __syncthreads();  // every read of row and prev is done
-    T* tmp = prev;
-    prev = next;
-    next = tmp;
+    // every read of window, rows, partials and of the slices of slot t-1
+    // (here and in the neighbours) is done, and slot t's slices are in
+    // place; after the last slot, no block's shared memory is read again
+    cluster_wait();
   }
 }
 
-template <typename T, int kMode>
-int launch_mode(const void* rows, void* cost, void* split, void* carry,
-                int n_slots, int dc1, int d1, void* stream) {
-  const size_t smem =
-      kMode == kShared   ? (2 * static_cast<size_t>(d1) + dc1) * sizeof(T)
-      : kMode == kGlobal ? 0
-                         : static_cast<size_t>(dc1) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      minplus_sweep_kernel<T, kMode>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename T>
+size_t smem_bytes(int w, int jpad, int n_jgroups, bool split) {
+  const size_t part = n_jgroups > 1 ? static_cast<size_t>(n_jgroups) * w : 0;
+  return sizeof(T) * (3 * static_cast<size_t>(w) +
+                      2 * static_cast<size_t>(jpad) + part) +
+         (split ? sizeof(int32_t) * part : 0);
+}
+
+// The kernel's attributes, set once per (device, shared memory, cluster,
+// block size) on its first launch, not on every launch of a decision:
+// the largest dynamic shared memory the card allows a block (one value
+// for every plan, so no later setting can undercut an earlier plan) and,
+// beyond the portable cluster size, the non-portable size allowed and
+// the card checked to place one such cluster.
+template <typename T, bool kSplit>
+cudaError_t prepare(const cudaLaunchConfig_t& cfg, int cluster) {
+  auto kern = minplus_sweep_kernel<T, kSplit>;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  static std::mutex mu;
+  static std::set<std::tuple<int, size_t, int, int>> ready;
+  const auto key = std::make_tuple(device, cfg.dynamicSmemBytes, cluster,
+                                   static_cast<int>(cfg.blockDim.x));
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready.count(key) != 0) return cudaSuccess;
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err != cudaSuccess) return err;
+  if (cfg.dynamicSmemBytes > static_cast<size_t>(optin))
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (err != cudaSuccess) return err;
+  if (cluster > kMaxPortableCluster) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  }
+  ready.insert(key);
+  return cudaSuccess;
+}
+
+template <typename T, bool kSplit>
+int launch_split(const void* rows, void* cost, void* split, int n_slots,
+                 int dc1, int d1, int cluster, int w, int jpad, int n_jgroups,
+                 void* stream) {
+  auto kern = minplus_sweep_kernel<T, kSplit>;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3((w / K) * n_jgroups, 1, 1);
+  cfg.dynamicSmemBytes = smem_bytes<T>(w, jpad, n_jgroups, kSplit);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = prepare<T, kSplit>(cfg, cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // columns per thread so that a block has at most 1024 threads, then as
-  // few threads as give every thread that many columns
-  const int cols = (d1 + 1023) / 1024;
-  const int threads = ((d1 + cols - 1) / cols + 31) / 32 * 32;
-  minplus_sweep_kernel<T, kMode><<<1, threads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(rows), static_cast<T*>(cost),
-      static_cast<int32_t*>(split), static_cast<T*>(carry), n_slots, dc1,
-      d1);
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(rows),
+                           static_cast<T*>(cost), static_cast<int32_t*>(split),
+                           n_slots, dc1, d1, w, jpad, n_jgroups);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* rows, void* cost, void* split, void* carry,
-           int n_slots, int dc1, int d1, int mode, void* stream) {
-  switch (mode) {
-    case kShared:
-      return launch_mode<T, kShared>(rows, cost, split, carry, n_slots, dc1,
-                                     d1, stream);
-    case kGlobalCarry:
-      return launch_mode<T, kGlobalCarry>(rows, cost, split, carry, n_slots,
-                                          dc1, d1, stream);
-    case kGlobal:
-      return launch_mode<T, kGlobal>(rows, cost, split, carry, n_slots, dc1,
-                                     d1, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch(const void* rows, void* cost, void* split, int n_slots, int dc1,
+           int d1, int cluster, int w, int jpad, int n_jgroups,
+           void* stream) {
+  // the plan's invariants (kernel.py::sweep_plan); anything else is refused
+  if (cluster < 1 || cluster > kMaxCluster || w < K || w % K != 0 ||
+      jpad < dc1 || jpad % K != 0 ||
+      static_cast<int64_t>(cluster) * w < d1 || n_jgroups < 1 ||
+      (w / K) * n_jgroups > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (split != nullptr)
+    return launch_split<T, true>(rows, cost, split, n_slots, dc1, d1, cluster,
+                                 w, jpad, n_jgroups, stream);
+  return launch_split<T, false>(rows, cost, split, n_slots, dc1, d1, cluster,
+                                w, jpad, n_jgroups, stream);
 }
 
 }  // namespace
@@ -160,20 +429,22 @@ int launch(const void* rows, void* cost, void* split, void* carry,
 extern "C" {
 
 // rows (n_slots, dc1), cost (n_slots, d1) contiguous on the device;
-// split (n_slots, d1) int32 or NULL for a cost-only sweep; carry a
-// (2, d1) scratch for modes kGlobalCarry and kGlobal (NULL for kShared);
-// mode as in kernel.py::sweep_plan.  Enqueued on `stream`; returns the
+// split (n_slots, d1) int32 or NULL for a cost-only sweep; the launch
+// plan (kernel.py::sweep_plan): cluster size, columns per block w, padded
+// band jpad, j groups.  Enqueued on `stream`; returns the
 // cudaError_t of the launch (0 = launched).
-int minplus_sweep_f32(const void* rows, void* cost, void* split, void* carry,
-                      int n_slots, int dc1, int d1, int mode, void* stream) {
-  return launch<float>(rows, cost, split, carry, n_slots, dc1, d1, mode,
-                       stream);
+int minplus_sweep_f32(const void* rows, void* cost, void* split, int n_slots,
+                      int dc1, int d1, int cluster, int w, int jpad,
+                      int n_jgroups, void* stream) {
+  return launch<float>(rows, cost, split, n_slots, dc1, d1, cluster, w, jpad,
+                       n_jgroups, stream);
 }
 
-int minplus_sweep_f64(const void* rows, void* cost, void* split, void* carry,
-                      int n_slots, int dc1, int d1, int mode, void* stream) {
-  return launch<double>(rows, cost, split, carry, n_slots, dc1, d1, mode,
-                        stream);
+int minplus_sweep_f64(const void* rows, void* cost, void* split, int n_slots,
+                      int dc1, int d1, int cluster, int w, int jpad,
+                      int n_jgroups, void* stream) {
+  return launch<double>(rows, cost, split, n_slots, dc1, d1, cluster, w, jpad,
+                        n_jgroups, stream);
 }
 
 const char* minplus_error_string(int code) {

@@ -5,13 +5,12 @@ Three kernels, each in its own ``csrc/*.cu`` with its design notes:
 
 * :func:`minplus_sweep_cuda` (``minplus_sweep.cu``) replaces
   ``repro/kernels/minplus/kernel.py::minplus_sweep_pallas``: the
-  whole-horizon DP sweep, T slots in one launch of ONE block.
-  :func:`sweep_plan` places its two (D+1,) carries and its (DC+1,) row:
-  all in dynamic shared memory when ``(2 (D+1) + DC+1) * itemsize`` fits
-  the 227 KB (232,448 bytes) a block may use, else the carries in a
-  ``(2, D+1)`` global scratch tensor (L2-resident: 320 KB at D+1 = 20480
-  in f64) with the row still in shared memory, else everything in global
-  memory.  No shape is refused.
+  whole-horizon DP sweep, T slots in one launch of ONE thread-block
+  cluster whose blocks each own a slice of the carry and read their
+  neighbours' through distributed shared memory.  :func:`sweep_plan`
+  picks the cluster size (up to 16 blocks) and the split of the j range
+  over thread groups, and refuses a band whose buffers
+  cannot fit the 227 KB (232,448 bytes) a block may use.
 * :func:`minplus_cuda` (``minplus_slot.cu``) replaces ``minplus_pallas``:
   one slot with the first-index argmin (or cost only).  Grid of
   ``ceil((D+1) / 256)`` blocks of 256 threads, one output each; the row
@@ -50,15 +49,24 @@ SOURCES = {"sweep": _CSRC / "minplus_sweep.cu",
 # shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
 
-# sweep buffer placements (csrc/minplus_sweep.cu's kMode)
-SWEEP_SHARED, SWEEP_GLOBAL_CARRY, SWEEP_GLOBAL = 0, 1, 2
+# the sweep's cluster sizes and threads per block (csrc/minplus_sweep.cu);
+# 16 is beyond the portable size, so the kernel checks that the card can
+# place it.  A split j range aims at SWEEP_SPLIT_THREADS threads a block,
+# and a block keeps at least SWEEP_MIN_COLUMNS columns (PERF.md's table
+# of every cluster size and j split timed at the 10x buckets is the
+# measurement behind both)
+SWEEP_CLUSTERS = (1, 2, 4, 8, 16)
+SWEEP_K = 4                    # consecutive columns a thread owns (kernel K)
+SWEEP_MAX_THREADS = 512
+SWEEP_SPLIT_THREADS = 256
+SWEEP_MIN_COLUMNS = 64
 SLOT_BLOCK = 256               # outputs per block (csrc/minplus_slot.cu kBlock)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sweep": ("minplus_sweep", [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "sweep": ("minplus_sweep", [_P, _P, _P] + [_I] * 7 + [_P],
               "minplus_error_string"),
     "slot": ("minplus_slot", [_P, _P, _P, _P, _I, _I, _I, _P],
              "minplus_slot_error_string"),
@@ -114,34 +122,79 @@ def _check(name: str, **tensors: torch.Tensor) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 class SweepPlan(NamedTuple):
-    mode: int              # SWEEP_SHARED / SWEEP_GLOBAL_CARRY / SWEEP_GLOBAL
-    smem_bytes: int        # dynamic shared memory of the one block
-    scratch: int           # global carry scratch, in values (2 * d1 or 0)
+    cluster: int           # blocks in the sweep's one cluster (C)
+    w: int                 # columns per block
+    jpad: int              # DC+1 rounded up to SWEEP_K: row buffer, halo
+    jgroups: int           # thread groups the j range is split over (S)
+    threads: int           # per block: (w / SWEEP_K) * jgroups
+    smem_bytes: int        # dynamic shared memory per block
+
+
+def _sweep_smem(w: int, jpad: int, jgroups: int, size: int) -> int:
+    """Shared memory of one block (csrc/minplus_sweep.cu's layout): two
+    carry slices and the window of w + jpad values, the row, and with a
+    split j range the partial minima and their argmins."""
+    part = jgroups * w if jgroups > 1 else 0
+    return size * (3 * w + 2 * jpad + part) + 4 * part
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _sweep_plan_at(dc1: int, d1: int, size: int,
+                   cluster: int) -> Optional[SweepPlan]:
+    k = SWEEP_K
+    w = _ceil_to(-(-d1 // cluster), k)
+    jpad = _ceil_to(dc1, k)
+    groups = w // k
+    # split j so that a block has about SWEEP_SPLIT_THREADS threads, each
+    # group keeping at least 2 steps of k
+    jgroups = max(1, min(SWEEP_SPLIT_THREADS // groups, jpad // (2 * k)))
+    smem = _sweep_smem(w, jpad, jgroups, size)
+    if groups * jgroups > SWEEP_MAX_THREADS or smem > SMEM_LIMIT:
+        return None
+    return SweepPlan(cluster, w, jpad, jgroups, groups * jgroups, smem)
 
 
 def sweep_plan(dc1: int, d1: int, dtype: torch.dtype) -> SweepPlan:
-    """Where the sweep's carries and row live, by size (module
-    docstring).  Pure: the CPU tests call it on every shape bucket."""
+    """The sweep's launch plan for a (DC+1)-wide band over D+1 columns
+    (module docstring).  Pure: the CPU tests call it on every shape
+    bucket.  The cluster is the largest of :data:`SWEEP_CLUSTERS` that
+    leaves every block at least :data:`SWEEP_MIN_COLUMNS` columns (so
+    d1 = 64 C takes C blocks), or the next larger one where that does not
+    fit.  Raises ValueError where no plan fits shared memory or the
+    threads of a block."""
     size = torch.empty((), dtype=dtype).element_size()
-    shared = (2 * d1 + dc1) * size          # two carries, one row
-    if shared <= SMEM_LIMIT:
-        return SweepPlan(SWEEP_SHARED, shared, 0)
-    if dc1 * size <= SMEM_LIMIT:
-        return SweepPlan(SWEEP_GLOBAL_CARRY, dc1 * size, 2 * d1)
-    return SweepPlan(SWEEP_GLOBAL, 0, 2 * d1)
+    first = min(SWEEP_CLUSTERS[-1], _pow2_floor(d1 // SWEEP_MIN_COLUMNS))
+    for c in SWEEP_CLUSTERS:
+        plan = _sweep_plan_at(dc1, d1, size, c) if c >= first else None
+        if plan is not None:
+            return plan
+    raise ValueError(
+        f"no sweep plan for a band of {dc1} over {d1} columns in {dtype}: "
+        f"a block's carry slices, window and row ({dc1} values) must fit "
+        f"the {SMEM_LIMIT} bytes of shared memory a block may use, and its "
+        f"column groups its {SWEEP_MAX_THREADS} threads, with a cluster of "
+        f"at most {SWEEP_CLUSTERS[-1]} blocks")
 
 
 def minplus_sweep_cuda(rows: torch.Tensor, d_total: int, *,
                        want_split: bool = True,
                        plan: Optional[SweepPlan] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The DP sweep of :func:`..ref.minplus_sweep_ref` as one CUDA launch.
+    """The DP sweep of :func:`..ref.minplus_sweep_ref` as one CUDA launch
+    of one thread-block cluster.
 
     rows: (T, DC+1) float32 or float64, contiguous, on a CUDA device.
     Returns ``(cost (T, D+1), split (T, D+1) int32 or None)``; the split
     is skipped when ``want_split`` is False.  ``plan`` overrides
-    :func:`sweep_plan` (the tests force each placement at small shapes).
-    Launches on the current stream without synchronising;
+    :func:`sweep_plan` (a test may force a plan of its own).  Launches on
+    the current stream without synchronising;
     ``minplus_sweep_cuda.launches`` counts the launches."""
     _check("minplus_sweep_cuda", rows=rows)
     if rows.ndim != 2:
@@ -157,12 +210,9 @@ def minplus_sweep_cuda(rows: torch.Tensor, d_total: int, *,
              if want_split else None)
     if T == 0:
         return cost, split
-    carry = (torch.empty(plan.scratch, dtype=rows.dtype, device=rows.device)
-             if plan.scratch else None)
     _launch("sweep", rows.dtype, rows.device, rows.data_ptr(),
             cost.data_ptr(), split.data_ptr() if split is not None else None,
-            carry.data_ptr() if carry is not None else None, T, dc1, d1,
-            plan.mode)
+            T, dc1, d1, plan.cluster, plan.w, plan.jpad, plan.jgroups)
     minplus_sweep_cuda.launches += 1
     return cost, split
 

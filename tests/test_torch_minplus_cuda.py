@@ -9,7 +9,8 @@ on a machine that has the card but no JAX:
 
 Min-plus has no multiply, so each kernel must equal its plain version bit
 for bit, in cost and in the first-index split or argmin, in float32 and
-float64, in every buffer placement its launch plan can choose.
+float64, in every launch plan it can take (the sweep: every cluster
+size).
 """
 import numpy as np
 import pytest
@@ -77,37 +78,63 @@ def _rows(T, dc1, d1, inf_frac):
     return rows
 
 
+def _stair_rows(T, dc1, d1):
+    """COST-row stand-ins: non-decreasing staircases of a few runs on a
+    grid of quarters, so candidates tie exactly across blocks and j
+    groups; +inf past a feasible prefix, 0 (of either sign) at column 0
+    and in the first run."""
+    rng = np.random.default_rng(T * d1 + dc1 + 1)
+    rows = np.empty((T, dc1))
+    for t in range(T):
+        runs = int(rng.integers(1, min(dc1, 8) + 1))
+        cuts = np.sort(rng.choice(np.arange(1, dc1), runs - 1,
+                                  replace=False)) if runs > 1 else \
+            np.zeros(0, np.int64)
+        vals = np.cumsum(rng.integers(0, 3, runs)) / 4.0
+        rows[t] = np.repeat(vals, np.diff(np.concatenate([[0], cuts,
+                                                          [dc1]])))
+        rows[t, int(rng.integers(dc1 // 2, dc1 + 1)):] = np.inf
+    rows[:, 0] = 0.0
+    rows[rows == 0] = np.where(rng.random(T) < 0.5, -0.0, 0.0)[
+        np.nonzero(rows == 0)[0]]          # zeros of both signs
+    return rows
+
+
+def _sweep_equals_plain(rows, d1, plan=None):
+    cost, split = minplus_sweep_cuda(rows, d1 - 1, plan=plan)
+    cost_only, none = minplus_sweep_cuda(rows, d1 - 1, want_split=False,
+                                         plan=plan)
+    ref_cost, ref_split = minplus_sweep_ref(rows, d1 - 1)
+    torch.cuda.synchronize()
+    assert none is None and split.dtype == torch.int32
+    assert _bits(cost, ref_cost) and torch.equal(split, ref_split)
+    assert _bits(cost_only, ref_cost)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("T,dc1,d1", SHAPES)
 def test_cuda_kernel_equals_plain_version(card, T, dc1, d1, dtype):
-    rows = torch.tensor(_rows(T, dc1, d1, 0.4), dtype=dtype, device="cuda")
-    cost, split = minplus_sweep_cuda(rows, d1 - 1)
-    cost_only, none = minplus_sweep_cuda(rows, d1 - 1, want_split=False)
-    ref_cost, ref_split = minplus_sweep_ref(rows, d1 - 1)
-    torch.cuda.synchronize()
-    assert none is None and cost.dtype == dtype and split.dtype == torch.int32
-    bits = torch.int32 if dtype == torch.float32 else torch.int64
-    assert torch.equal(cost.view(bits), ref_cost.view(bits))   # +inf too
-    assert torch.equal(split, ref_split)
-    assert torch.equal(cost_only.view(bits), cost.view(bits))
+    """Bitwise, cost and split, on random rows with +inf cells and on
+    staircase rows full of ties."""
+    for rows in (_rows(T, dc1, d1, 0.4), _stair_rows(T, dc1, d1)):
+        _sweep_equals_plain(torch.tensor(rows, dtype=dtype, device="cuda"),
+                            d1)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("mode", [kernel.SWEEP_SHARED,
-                                  kernel.SWEEP_GLOBAL_CARRY,
-                                  kernel.SWEEP_GLOBAL])
-def test_cuda_sweep_every_placement(card, mode, dtype):
-    T, dc1, d1 = 7, 300, 700
-    rows = torch.tensor(_rows(T, dc1, d1, 0.4), dtype=dtype, device="cuda")
-    size = rows.element_size()
-    plan = kernel.SweepPlan(mode, [(2 * d1 + dc1) * size, dc1 * size, 0][mode],
-                            0 if mode == kernel.SWEEP_SHARED else 2 * d1)
-    cost, split = minplus_sweep_cuda(rows, d1 - 1, plan=plan)
-    ref_cost, ref_split = minplus_sweep_ref(rows, d1 - 1)
-    torch.cuda.synchronize()
-    assert _bits(cost, ref_cost) and torch.equal(split, ref_split)
+@pytest.mark.parametrize("cluster", kernel.SWEEP_CLUSTERS)
+def test_cuda_sweep_every_cluster_size(card, cluster, dtype):
+    """Every cluster size the plan can choose, reached through its shape:
+    d1 = 64 C columns take C blocks, and a band of 0.6 d1 reaches over the
+    halo of up to 10 lower ranks, with the j range split: bitwise, ties
+    and zeros of both signs included."""
+    T, dc1, d1 = 7, max(2, 64 * cluster * 3 // 5), 64 * cluster
+    assert kernel.sweep_plan(dc1, d1, dtype).cluster == cluster
+    for rows in (_rows(T, dc1, d1, 0.4), _stair_rows(T, dc1, d1)):
+        _sweep_equals_plain(torch.tensor(rows, dtype=dtype, device="cuda"),
+                            d1)
 
 
 @pytest.mark.cuda

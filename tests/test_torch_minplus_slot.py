@@ -16,6 +16,9 @@ package, and the sweep's launch plan.
 * The tiled building blocks equal the reference's.
 * ``sweep_plan`` takes every (m_pad, d1) shape bucket of the repo's
   unquantized traces: the sweep refuses no shape the reference decides.
+  A numpy replay of the CUDA sweep's decomposition (the cluster's carry
+  slices, the halo each block copies, the j split and the (value, j)
+  merge) equals the plain sweep bit for bit under every cluster size.
 
 The kernels themselves are held to these plain versions on the card
 (``tests/test_torch_minplus_cuda.py``).
@@ -215,32 +218,222 @@ def _trace_buckets():
     return sorted(out)
 
 
+
+
 def test_launch_plans_take_every_trace_bucket():
     """The sweep and the slot kernels plan a launch, within the 227 KB of
     shared memory a block may use, for every shape bucket the reference
     decides on the 10x trace and the T=100 full-size trace at quantum=None
-    (among them d1 = 20480 with m_pad up to 8960, which the sweep's
-    all-shared placement cannot hold in float64)."""
+    (among them d1 = 20480 with m_pad up to 8960, the tight float64
+    shape); the sweep takes a cluster of several
+    blocks on every bucket, and refuses a band wider than shared memory."""
     buckets = _trace_buckets()
     assert (8960, 20480) in buckets and (2688, 20480) in buckets
-    modes = set()
     for m_pad, d1 in buckets:
         for dtype in (torch.float32, torch.float64):
             plan = kernel.sweep_plan(m_pad, d1, dtype)
-            assert 0 <= plan.smem_bytes <= kernel.SMEM_LIMIT
             size = 8 if dtype == torch.float64 else 4
-            if plan.mode == kernel.SWEEP_SHARED:
-                assert plan.smem_bytes == (2 * d1 + m_pad) * size
-            else:
-                assert plan.scratch == 2 * d1
-            modes.add(plan.mode)
+            assert plan.cluster in kernel.SWEEP_CLUSTERS and plan.cluster > 1
+            k = kernel.SWEEP_K
+            assert plan.cluster * plan.w >= d1 and plan.w % k == 0
+            assert plan.jpad >= m_pad and plan.jpad % k == 0
+            assert plan.threads == plan.w // k * plan.jgroups \
+                <= kernel.SWEEP_MAX_THREADS
+            part = plan.jgroups * plan.w if plan.jgroups > 1 else 0
+            assert plan.smem_bytes == size * (
+                3 * plan.w + 2 * plan.jpad + part) \
+                + 4 * part <= kernel.SMEM_LIMIT
             pp = kernel.plateau_plan(m_pad, d1, dtype, max(16, m_pad // 4))
             assert pp.smem_bytes <= kernel.SMEM_LIMIT
             assert pp.table_shared or pp.scratch > 0
             kernel.slot_plan(m_pad, dtype)
-    assert kernel.SWEEP_GLOBAL_CARRY in modes
+    # d1 = 64 C columns take a cluster of C blocks, every size there is
+    for dtype in (torch.float32, torch.float64):
+        assert [kernel.sweep_plan(c * 40, 64 * c, dtype).cluster
+                for c in kernel.SWEEP_CLUSTERS] == list(kernel.SWEEP_CLUSTERS)
     assert kernel.sweep_plan(64, 1280, torch.float64) == kernel.SweepPlan(
-        kernel.SWEEP_SHARED, (2 * 1280 + 64) * 8, 0)
-    # a row wider than shared memory still gets a plan
-    assert kernel.sweep_plan(40000, 40001, torch.float64).mode \
-        == kernel.SWEEP_GLOBAL
+        cluster=16, w=80, jpad=64, jgroups=8,
+        threads=160, smem_bytes=8 * (3 * 80 + 2 * 64 + 8 * 80) + 4 * 8 * 80)
+    # a row wider than shared memory is refused, naming the limit
+    with pytest.raises(ValueError, match=str(kernel.SMEM_LIMIT)):
+        kernel.sweep_plan(40000, 40001, torch.float64)
+
+
+def _stair_rows(rng, T, dc1, dtype):
+    """COST-row stand-ins: non-decreasing staircases of a few runs on a
+    grid of quarters (so candidates tie exactly, across blocks and j
+    groups), +inf past a feasible prefix, 0 at column 0."""
+    rows = np.empty((T, dc1))
+    for t in range(T):
+        runs = int(rng.integers(1, min(dc1, 8) + 1))
+        cuts = np.sort(rng.choice(np.arange(1, dc1), runs - 1,
+                                  replace=False)) if runs > 1 else \
+            np.zeros(0, np.int64)
+        vals = np.cumsum(rng.integers(0, 3, runs)) / 4.0
+        rows[t] = np.repeat(vals, np.diff(np.concatenate([[0], cuts,
+                                                          [dc1]])))
+        rows[t, int(rng.integers(dc1 // 2, dc1 + 1)):] = np.inf
+    rows[:, 0] = 0.0
+    return rows.astype(dtype)
+
+
+def _ceil_to(n, m):
+    return -(-n // m) * m
+
+
+def _replay_slot(row, prev, plan, groups=None):
+    """One slot of csrc/minplus_sweep.cu's decomposition under ``plan``,
+    in numpy: block r of the cluster holds the carry slice
+    ``prev[r w, (r+1) w)`` (-inf past D, which no column below D+1 may
+    read), builds its window from the lower ranks' slices (the halo) and
+    its own, stored as ``k`` planes; each thread takes its ``k`` columns
+    over its group's j range, and the groups' (value, j) partials merge
+    in increasing j.  ``groups`` restricts the replay to those column
+    groups of every block.  Returns ``(cost, split)`` (NaN / -1 at the
+    columns not replayed)."""
+    K, w, jpad, S, C = (kernel.SWEEP_K, plan.w, plan.jpad, plan.jgroups,
+                        plan.cluster)
+    dc1, d1, dt = row.size, prev.size, row.dtype
+    row_buf = np.full(jpad, np.inf, dt)
+    row_buf[:dc1] = row
+    slices = np.full(C * w, -np.inf, dt)
+    slices[:d1] = prev
+    slices = slices.reshape(C, w)
+    plane = (jpad + w) // K
+    sel = np.arange(w // K) if groups is None else np.unique(
+        np.asarray(groups) % (w // K))
+    c0 = sel * K
+    cost = np.full(d1, np.nan, dt)
+    split = np.full(d1, -1, np.int32)
+    for r in range(C):
+        col0 = r * w
+        x = np.arange(jpad + w)
+        g = col0 - jpad + x
+        q = np.where(g >= 0, g // w, 0)
+        assert (q[(g >= 0) & (x < jpad)] < r).all()     # halo: lower ranks
+        assert (q[x >= jpad] == r).all()
+        win = np.empty(jpad + w, dt)
+        win[(x % K) * plane + x // K] = np.where(
+            g < 0, np.inf, slices[q, np.clip(g - q * w, 0, w - 1)])
+        j_block = min(jpad, col0 + w)
+        j_step = _ceil_to(-(-j_block // S), K)
+        part = np.full((S, sel.size, K), np.inf, dt)
+        part_arg = np.zeros((S, sel.size, K), np.int32)
+        for s in range(S):
+            jlo = s * j_step
+            jhi = np.minimum(min(jlo + j_step, j_block), col0 + c0 + K)
+            if jhi.max() <= jlo:
+                continue
+            j = np.arange(jlo, jhi.max())
+            xs = jpad + c0[:, None, None] + np.arange(K)[None, :, None] \
+                - j[None, None, :]
+            live = np.broadcast_to(j[None, None, :] < jhi[:, None, None],
+                                   xs.shape)
+            assert xs[live].min() >= 0 and xs[live].max() < jpad + w
+            xs = np.clip(xs, 0, jpad + w - 1)
+            with np.errstate(invalid="ignore"):     # -inf + inf off `live`
+                cand = np.where(live, row_buf[j][None, None, :]
+                                + win[(xs % K) * plane + xs // K], np.inf)
+            a = np.argmin(cand, axis=2)       # first index: strict '<'
+            b = np.take_along_axis(cand, a[..., None], 2)[..., 0]
+            part[s] = b
+            part_arg[s] = np.where(b < np.inf, jlo + a, 0)
+        best, arg = part[0], part_arg[0]
+        for s in range(1, S):
+            won = part[s] < best
+            best = np.where(won, part[s], best)
+            arg = np.where(won, part_arg[s], arg)
+        cols = col0 + c0[:, None] + np.arange(K)[None, :]
+        keep = cols < d1
+        cost[cols[keep]] = best[keep]
+        split[cols[keep]] = arg[keep]
+    return cost, split
+
+
+def _replay_sweep(rows, d1, plan):
+    """The whole sweep replayed slot by slot from the carry [0, inf, ...]."""
+    prev = np.full(d1, np.inf, rows.dtype)
+    prev[0] = 0.0
+    cost = np.empty((rows.shape[0], d1), rows.dtype)
+    split = np.empty((rows.shape[0], d1), np.int32)
+    for t in range(rows.shape[0]):
+        cost[t], split[t] = _replay_slot(rows[t], prev, plan)
+        prev = cost[t]
+    return cost, split
+
+
+# the sweep's test shapes; shapes with d1 = 64 C, which the plan gives C
+# blocks (1, 2, 4, 8, 16; the band's halo reaching over up to 10 lower
+# ranks); and the 10x buckets
+REPLAY_SHAPES = [(3, 2, 6), (9, 17, 33), (16, 65, 300), (6, 40, 64),
+                 (6, 90, 128), (5, 150, 256), (7, 300, 512), (3, 600, 1024),
+                 (5, 64, 1280), (4, 128, 1280), (3, 256, 1280),
+                 (3, 384, 1280), (2, 512, 1280), (2, 640, 1280)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("T,dc1,d1", REPLAY_SHAPES)
+def test_sweep_plan_replay_equals_plain_sweep(T, dc1, d1, dtype):
+    """The kernel's decomposition, replayed in numpy under its plan (at
+    the 10x buckets, j groups of the low ranks left empty by the band),
+    equals the plain sweep bit for bit in cost and split, on staircase
+    rows full of ties and on random rows with +inf cells."""
+    rng = np.random.default_rng(T * d1 + dc1)
+    rand = np.round(rng.random((T, dc1)) * 8) / 8
+    rand[rng.random((T, dc1)) < 0.4] = np.inf
+    rand[:, 0] = 0.0
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    plan = kernel.sweep_plan(dc1, d1, tdt)
+    for rows in (_stair_rows(rng, T, dc1, dtype), rand.astype(dtype)):
+        want_cost, want_split = minplus_sweep_ref(torch.tensor(rows), d1 - 1)
+        cost, split = _replay_sweep(rows, d1, plan)
+        assert _bits(cost, want_cost.numpy()), plan
+        assert np.array_equal(split, want_split.numpy()), plan
+
+
+def test_sweep_plan_replay_every_trace_bucket():
+    """On every (m_pad, d1) bucket of the repo's traces, in float32 and
+    float64, one slot of the planned decomposition over a staircase row
+    from a seeded carry with ties and +inf cells: each block's first,
+    second, middle and last column groups (every block boundary, every
+    halo edge, every j group) equal the slot's definition, the first
+    index of ``min_j row[j] + prev[d - j]``, bit for bit."""
+    for m_pad, d1 in _trace_buckets():
+        for dtype, tdt in ((np.float32, torch.float32),
+                           (np.float64, torch.float64)):
+            rng = np.random.default_rng(m_pad * 7 + d1)
+            row = _stair_rows(rng, 1, m_pad, dtype)[0]
+            prev = (np.round(rng.random(d1) * 8) / 8).astype(dtype)
+            prev[rng.random(d1) < 0.3] = np.inf
+            plan = kernel.sweep_plan(m_pad, d1, tdt)
+            groups = plan.w // kernel.SWEEP_K
+            cost, split = _replay_slot(row, prev, plan,
+                                       [0, 1, groups // 2, groups - 1])
+            cols = np.flatnonzero(split >= 0)
+            assert cols[0] == 0 and cols[-1] == d1 - 1
+            for r in range(1, plan.cluster):
+                assert r * plan.w in cols or r * plan.w >= d1
+            for d in cols:
+                n = min(m_pad, d + 1)
+                cand = row[:n] + prev[d::-1][:n]
+                j = int(np.argmin(cand))
+                assert _bits(cost[d:d + 1], cand[j:j + 1]), (m_pad, d1, d)
+                assert split[d] == (j if cand[j] < np.inf else 0), \
+                    (m_pad, d1, d)
+
+
+def test_sweep_never_yields_negative_zero():
+    """No candidate of the sweep is -0, whatever the rows hold: the carry
+    starts at +0 and an IEEE sum is -0 only when both addends are.  The
+    CUDA sweep's cost-only path takes min (which may pick either zero of a
+    +0/-0 tie) where the split path selects the first minimum; this is
+    why the two agree bit for bit."""
+    rng = np.random.default_rng(11)
+    rows = np.round(rng.random((12, 40)) * 2) / 4       # many zeros
+    rows[rows == 0] = -0.0
+    rows[rng.random(rows.shape) < 0.2] = np.inf
+    for dtype in (torch.float32, torch.float64):
+        cost, _ = minplus_sweep_ref(torch.tensor(rows, dtype=dtype), 99)
+        zeros = cost[cost == 0]
+        assert zeros.numel() > 0 and not torch.signbit(zeros).any()
+

@@ -183,7 +183,7 @@ def test_floor_rejects_before_first_tile(jax_shims):
     assert snap["slots"] == 0 and snap["decisions"] == 1
 
 
-@pytest.mark.parametrize("seed", [0, 2])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
 def test_tiled_trajectory_equals_fast_paper_scale(seed):
     want = simulate(make_cluster(T=100, H=50, K=50),
                     make_jobs(200, T=100, seed=seed, small=True),
