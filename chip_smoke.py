@@ -14,14 +14,16 @@ DP decision of the whole route went through the CUDA sweep, every live
 slot of the tiled route through the one-slot or the plateau kernel.
 Unquantized full-size jobs (d1 up to 20480) then go through both routes.
 
-The model stack's slice follows: the Mamba2 SSD scan and the flash
-attention kernels against their plain versions (test shapes and
-Zamba2-7B's prefill shapes, every launch plan), the Zamba2 smoke model on
-the card against the CPU, a full-width Zamba2-7B prefill against its own
-teacher-forced decode, and the serving path ``repro_torch.launch.serve``
-at full width (batch 4, prompt 2048, 32 new tokens), with the kernel
-counts set to 0 just before it and read just after: every prefill ran 81
-SSD and 13 flash launches, no decode step ran either.
+The model stack's slice follows: the Mamba2 SSD scan and both flash
+attention kernels (tensor cores for bfloat16, CUDA cores for float32)
+against their plain versions (test shapes and Zamba2-7B's prefill
+shapes, every launch plan), the Zamba2 smoke model on the card against
+the CPU, a full-width Zamba2-7B prefill in float32 against its own
+teacher-forced decode (the float32 path: 81 SSD and 13 CUDA-core flash
+launches), and the serving path ``repro_torch.launch.serve`` at full
+width in bfloat16 (batch 4, prompt 2048, 32 new tokens), each with the
+kernel counts set to 0 just before it and read just after: every prefill
+ran 81 SSD and 13 tensor-core flash launches, no decode step ran any.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -194,10 +197,16 @@ def kernel_phase():
     minplus_kernel.load_libraries()
     for name, src in {**minplus_kernel.SOURCES, **ssd_kernel.SOURCES,
                       **flash_kernel.SOURCES}.items():
+        # each function's template arguments (flash_wgmma's head dim),
+        # its stack and spill bytes, then its registers
+        fn = ""
         for line in library_path(src).with_suffix(
                 ".log").read_text().splitlines():
-            if "registers" in line or "smem" in line:
-                print(f"  ptxas {name}:", line.strip())
+            if "Function properties for" in line:
+                targs = re.search(r"kernelI(\w+?)EE", line)
+                fn = f" <{targs.group(1)}>" if targs else ""
+            elif "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas {name}{fn}:", line.strip())
     max_err = 0.0
     timings = {}
     for T, dc1, d1 in TEST_SHAPES + SLICE_SHAPES + WIDE_SHAPES:
@@ -582,6 +591,11 @@ FLASH_TEST_SHAPES = [(1, 64, 64, 2, 2, 64), (2, 128, 128, 4, 2, 64),
 FLASH_MASKS = [(True, 0, 0.0), (True, 32, 0.0), (True, 0, 50.0),
                (False, 0, 0.0)]
 FLASH_ZAMBA = (4, 2048, 2048, 32, 32, 112)
+# the tensor-core kernel's ||got - want|| / ||want|| against the float32
+# plain version: bf16 output rounding alone gives ~1.6e-3; a key tile
+# dropped or read late moves long rows by ~1e-1 of their norm while each
+# element may stay under 2e-2 (tests/test_torch_model_cuda.py)
+WGMMA_REL_NORM = 5e-3
 SERVE = {"batch": 4, "prompt": 2048, "gen": 32}
 # Zamba2-7B: 81 Mamba2 layers, 13 calls of the shared attention block
 ZAMBA_SSD, ZAMBA_FLASH = 81, 13
@@ -706,13 +720,38 @@ def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
     return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def _time_flash(shape, dtype, q, k, v, kernel, reps):
+    """(kernel ms, plain ms, bound ms, ops ms, bytes ms, library ms) at
+    ``shape``, causal: device time per launch of ``kernel``, the model's
+    chunked plain version, and torch's scaled_dot_product_attention as a
+    yardstick the port never calls."""
+    B, Sq, Sk, H, KV, D = shape
+    k_ms = _device_ms(lambda: kernel(q, k, v, causal=True), reps)
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    pos = torch.arange(Sq, device="cuda")
+    p_ms = _time_ms(lambda: _sdpa_chunked(qg, k, v, pos, pos, True, 0, 0.0,
+                                          None, 1024), reps=2)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib_ms = _device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 5)
+    op_ms, byte_ms = _flash_bounds(*shape, True, 0, dtype)
+    return k_ms, p_ms, max(op_ms, byte_ms), op_ms, byte_ms, lib_ms
+
+
 def flash_phase():
-    """The flash kernel == its plain versions (the model's chunked
-    recurrence and the naive oracle), f32 within 2e-5 and bf16 within
-    2e-2, over every mask case and launch plan, Zamba2-7B's prefill shape
-    in both types; there, in bf16, timed against the chunked plain version and, as a yardstick
-    the port never calls, torch's scaled_dot_product_attention."""
-    max_err, cases, timing = 0.0, 0, None
+    """Both flash kernels == their plain versions (the model's chunked
+    recurrence and the naive oracle) over every mask case, Zamba2-7B's
+    prefill shape included (causal): the CUDA-core kernel (f32) at every
+    launch plan within 2e-5, the tensor-core kernel (bf16) within 2e-2
+    and within WGMMA_REL_NORM on the relative norm of the whole error
+    against the float32 oracle.  At the prefill shape, bf16 on the
+    tensor-core kernel and f32 on the CUDA-core kernel are timed against
+    the chunked plain version and torch's scaled_dot_product_attention.
+    Returns (max err, timing) of the f32 kernel over its f32 cases and of
+    the bf16 kernel."""
+    err = {"f32": 0.0, "wgmma": 0.0}
+    cases, timing, worst_rel = 0, {}, 0.0
     for shape in FLASH_TEST_SHAPES + [FLASH_ZAMBA]:
         B, Sq, Sk, H, KV, D = shape
         masks = [(True, 0, 0.0)] if shape == FLASH_ZAMBA else FLASH_MASKS
@@ -729,55 +768,83 @@ def flash_phase():
                                       causal=causal, window=window,
                                       softcap=cap)
                 torch.testing.assert_close(want, naive, atol=tol, rtol=tol)
-                for plan in _flash_plans(D):
-                    got = flash_kernel.flash_attention_cuda(
-                        q, k, v, causal=causal, window=window, softcap=cap,
-                        plan=plan)
+                if dtype == torch.float32:
+                    runs = [(f"cuda {plan}", "f32",
+                             lambda plan=plan:
+                             flash_kernel.flash_attention_cuda(
+                                 q, k, v, causal=causal, window=window,
+                                 softcap=cap, plan=plan))
+                            for plan in _flash_plans(D)]
+                else:
+                    runs = [(f"wgmma {flash_kernel.wgmma_plan(D)}", "wgmma",
+                             lambda: flash_kernel.flash_attention_wgmma(
+                                 q, k, v, causal=causal, window=window,
+                                 softcap=cap))]
+                for label, kind, run in runs:
+                    got = run()
                     torch.cuda.synchronize()
-                    err = float((got.float() - want).abs().max())
-                    max_err = max(max_err, err)
+                    e = float((got.float() - want).abs().max())
+                    err[kind] = max(err[kind], e)
                     torch.testing.assert_close(
                         got.float(), want, atol=tol, rtol=tol,
                         msg=lambda m: f"flash {shape} {dtype} causal="
-                        f"{causal} window={window} cap={cap} {plan}: {m}")
+                        f"{causal} window={window} cap={cap} {label}: {m}")
                     cases += 1
-            if shape == FLASH_ZAMBA and dtype == torch.bfloat16:
-                k_ms = _device_ms(lambda: flash_kernel.flash_attention_cuda(
-                    q, k, v, causal=True), 5)
-                qg = q.reshape(B, Sq, KV, H // KV, D)
-                pos = torch.arange(Sq, device="cuda")
-                p_ms = _time_ms(lambda: _sdpa_chunked(
-                    qg, k, v, pos, pos, True, 0, 0.0, None, 1024), reps=2)
-                qt, kt, vt = (t.transpose(1, 2).contiguous()
-                              for t in (q, k, v))
-                lib_ms = _device_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True), 5)
-                op_ms, byte_ms = _flash_bounds(*shape, True, 0, dtype)
-                timing = (k_ms, p_ms, max(op_ms, byte_ms), op_ms, byte_ms,
-                          lib_ms)
-                print(f"flash_attention Zamba2-7B prefill (B={B}, S={Sq}, "
-                      f"H=KV={H}, D={D}, causal) bfloat16 plan="
-                      f"{tuple(flash_kernel.flash_plan(D))}: kernel_device_ms="
-                      f"{k_ms!r} plain_ms={p_ms!r} library_ms (torch "
-                      f"scaled_dot_product_attention)={lib_ms!r} bound_ms="
-                      f"{max(op_ms, byte_ms)!r} (operations {op_ms!r} ms at "
-                      f"{PEAK_OPS[dtype]:.3g} op/s, bytes {byte_ms!r} ms at "
+                    if kind == "wgmma":
+                        rel = float((got.float() - naive).norm()
+                                    / naive.norm())
+                        worst_rel = max(worst_rel, rel)
+                        if shape == FLASH_ZAMBA:
+                            print(f"flash_attention_wgmma at Zamba2-7B's "
+                                  f"prefill shape (B={B}, S={Sq}, H=KV={H}, "
+                                  f"D={D}, causal): max_abs_err={e!r} "
+                                  f"(bound 2e-2), rel_norm_err={rel!r} "
+                                  f"(bound {WGMMA_REL_NORM})")
+                        assert rel <= WGMMA_REL_NORM, (
+                            f"flash {shape} causal={causal} window={window} "
+                            f"cap={cap} {label}: rel_norm_err {rel!r} > "
+                            f"{WGMMA_REL_NORM}")
+                    if shape == FLASH_ZAMBA and dtype == torch.float32:
+                        print(f"flash_attention float32 at Zamba2-7B's "
+                              f"prefill shape (B={B}, S={Sq}, H=KV={H}, "
+                              f"D={D}, causal), {label}: max_abs_err={e!r} "
+                              "(bound 2e-5)")
+            if shape == FLASH_ZAMBA:
+                kernel, name = ((flash_kernel.flash_attention_wgmma,
+                                 "flash_attention_wgmma") if dtype ==
+                                torch.bfloat16 else
+                                (flash_kernel.flash_attention_cuda,
+                                 "flash_attention (CUDA cores)"))
+                t = _time_flash(shape, dtype, q, k, v, kernel,
+                                20 if dtype == torch.bfloat16 else 5)
+                timing[dtype] = t
+                print(f"{name} Zamba2-7B prefill (B={B}, S={Sq}, H=KV={H}, "
+                      f"D={D}, causal) {str(dtype).split('.')[-1]}: "
+                      f"kernel_device_ms={t[0]!r} plain_ms={t[1]!r} "
+                      f"library_ms (torch scaled_dot_product_attention)="
+                      f"{t[5]!r} bound_ms={t[2]!r} (operations {t[3]!r} ms "
+                      f"at {PEAK_OPS[dtype]:.3g} op/s, bytes {t[4]!r} ms at "
                       f"{PEAK_BYTES:.3g} B/s)")
             del q, k, v
-    print(f"flash phase ok: {cases} shape/dtype/mask/plan cases within "
-          f"tolerance of the plain versions, max_abs_err={max_err!r}")
-    return max_err, timing
+    print(f"flash phase ok: {cases} shape/dtype/mask/kernel/plan cases "
+          f"within tolerance of the plain versions, max_abs_err CUDA cores "
+          f"f32={err['f32']!r}, tensor cores bf16={err['wgmma']!r} "
+          f"(rel_norm_err max {worst_rel!r}, bound {WGMMA_REL_NORM})")
+    return ((err["f32"], timing[torch.float32]),
+            (err["wgmma"], timing[torch.bfloat16]))
 
 
 def _model_counts():
-    return ssd_kernel.ssd_cuda.launches, \
-        flash_kernel.flash_attention_cuda.launches
+    """(SSD, CUDA-core flash, tensor-core flash) launches so far."""
+    return (ssd_kernel.ssd_cuda.launches,
+            flash_kernel.flash_attention_cuda.launches,
+            flash_kernel.flash_attention_wgmma.launches)
 
 
 def _reset_model_counts():
     ssd_kernel.ssd_cuda.launches = 0
     flash_kernel.flash_attention_cuda.launches = 0
+    flash_kernel.flash_attention_wgmma.launches = 0
 
 
 def _rel(got, want):
@@ -815,7 +882,7 @@ def model_parity_phase():
         lg_gpu, c_gpu = prefill(gpu_params, cfg,
                                 {"tokens": toks[:, :S].cuda()}, S)
     torch.cuda.synchronize()
-    n_ssd, n_flash = _model_counts()
+    n_ssd, n_flash, n_wgmma = _model_counts()
     rels = [_rel(lg_gpu, lg_cpu)] + [
         _rel(a, b) for a, b in zip(_leaves(c_gpu), _leaves(c_cpu))]
     _, d_cpu = serve_steps.prefill_into_cache(cpu_params, cfg, toks[:, :S],
@@ -838,20 +905,24 @@ def model_parity_phase():
           f"logits rel={rels[0]!r}, max cache-leaf rel={max(rels[1:])!r} "
           f"over {len(rels) - 1} leaves, {steps} decode steps max rel="
           f"{max(dec)!r}, decode cache rel={cache_rel!r}; prefill launches "
-          f"ssd={n_ssd} flash={n_flash}, decode launches {dec_launches}")
+          f"ssd={n_ssd} flash={n_flash} flash_wgmma={n_wgmma}, decode "
+          f"launches {dec_launches}")
     if not (max(rels + dec + [cache_rel]) <= 1e-4
             and n_ssd == cfg.n_layers and n_flash == cfg.n_layers
-            // cfg.hybrid_period and dec_launches == (0, 0)):
+            // cfg.hybrid_period and n_wgmma == 0
+            and dec_launches == (0, 0, 0)):
         raise AssertionError("the Zamba2 smoke model on the card differs "
                              "from the CPU, or the kernels were not taken")
 
 
 def consistency_phase():
     """Zamba2-7B at full width in float32 compute, one request: the
-    prefill of 320 prompt tokens (both kernels) against the teacher-forced
-    decode of the same tokens (no kernel), last-position logits within
-    relative 2e-2 (the JAX package's bound for decode against a full
-    forward)."""
+    prefill of 320 prompt tokens (the SSD and the CUDA-core flash kernel)
+    against the teacher-forced decode of the same tokens (no kernel),
+    last-position logits within relative 2e-2 (the JAX package's bound
+    for decode against a full forward).  Counts set to 0 just before the
+    prefill and read just after; returns the CUDA-core flash kernel's
+    launches there (the float32 path's)."""
     cfg = get_config("zamba2_7b").scaled(dtype="float32")
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0)
@@ -880,20 +951,22 @@ def consistency_phase():
                             lg_dec[:, -1, :cfg.vocab_size].argmax(-1)))
     print(f"full-width consistency (Zamba2-7B, float32 compute, 1 x {n} "
           f"tokens): init_s={init_s!r} prefill launches ssd={pre[0]} flash="
-          f"{pre[1]}; teacher-forced decode {tf_s!r} s, launches {dec}; "
-          f"last-logits rel={rel!r} same_argmax={same}")
-    if not (rel <= 2e-2 and pre == (ZAMBA_SSD, ZAMBA_FLASH)
-            and dec == (0, 0) and bool(torch.isfinite(lg_pre).all())):
+          f"{pre[1]} flash_wgmma={pre[2]}; teacher-forced decode {tf_s!r} "
+          f"s, launches {dec}; last-logits rel={rel!r} same_argmax={same}")
+    if not (rel <= 2e-2 and pre == (ZAMBA_SSD, ZAMBA_FLASH, 0)
+            and dec == (0, 0, 0) and bool(torch.isfinite(lg_pre).all())):
         raise AssertionError("full-width prefill and teacher-forced decode "
                              "disagree, or the kernels were not taken")
     del params, cache
+    return pre[1]
 
 
 def serve_phase():
     """The main path: ``repro_torch.launch.serve`` at full width, bf16
     compute (batch 4, prompt 2048, 32 new tokens, one untimed warm-up run
     of the same batch first), counts set to 0 just before and read just
-    after.  Returns (ssd launches, flash launches) of the run."""
+    after: the bf16 attention runs on the tensor-core kernel.  Returns
+    (ssd launches, tensor-core flash launches) of the run."""
     torch.cuda.empty_cache()
     _reset_model_counts()
     res = serve_launch.main(["--arch", "zamba2_7b", "--batch",
@@ -901,7 +974,7 @@ def serve_phase():
                              str(SERVE["prompt"]), "--gen",
                              str(SERVE["gen"])])
     torch.cuda.synchronize()
-    n_ssd, n_flash = _model_counts()
+    n_ssd, n_flash, n_wgmma = _model_counts()
     runs = 2                                    # warm-up + timed
     print(f"serve (Zamba2-7B, bf16, batch {SERVE['batch']}, prompt "
           f"{SERVE['prompt']}, {SERVE['gen']} new tokens): prefill_s="
@@ -912,25 +985,27 @@ def serve_phase():
           f"launches_per_prefill={res['prefill_launches']} "
           f"launches_in_decode={res['decode_launches']} "
           f"peak_memory_bytes={res['peak_memory_bytes']} "
-          f"run_launches ssd={n_ssd} flash={n_flash}")
+          f"run_launches ssd={n_ssd} flash={n_flash} flash_wgmma={n_wgmma}")
     print(f"  decode ms per token: {res['decode_ms']}")
     toks = res["tokens"]
     if not (res["prefill_launches"] == {"ssd": ZAMBA_SSD,
                                         "flash": ZAMBA_FLASH}
             and res["decode_launches"] == {"ssd": 0, "flash": 0}
-            and (n_ssd, n_flash) == (runs * ZAMBA_SSD, runs * ZAMBA_FLASH)):
+            and (n_ssd, n_flash, n_wgmma)
+            == (runs * ZAMBA_SSD, 0, runs * ZAMBA_FLASH)):
         raise AssertionError("the serving path did not run 81 SSD and 13 "
-                             "flash launches per prefill and none in decode")
+                             "tensor-core flash launches per prefill and "
+                             "none in decode")
     if not (toks.shape == (SERVE["batch"], SERVE["gen"])
             and bool(torch.isfinite(res["logits"]).all())
             and int(toks.min()) >= 0 and int(toks.max()) < 32000):
         raise AssertionError("implausible serving output")
-    return n_ssd, n_flash
+    return n_ssd, n_wgmma
 
 
 def serve_profile_phase():
     """Where the serving time goes at full width (bf16, batch 4, prompt
-    2048): one traced prefill (device busy, idle share, the two kernels'
+    2048): one traced prefill (device busy, idle share, the kernels'
     device time, the top device ops), then 4 traced decode steps."""
     from torch.profiler import ProfilerActivity, profile
     cfg = get_config("zamba2_7b")
@@ -953,7 +1028,8 @@ def serve_profile_phase():
     busy = sum(v[0] for v in dev.values())
     kern = {name: tuple(map(sum, zip(*([v for k, v in dev.items()
                                         if name in k] or [(0.0, 0)]))))
-            for name in ("ssd_scan_kernel", "flash_fwd_kernel")}
+            for name in ("ssd_scan_kernel", "flash_wgmma_kernel",
+                         "flash_fwd_kernel")}
     print(f"profile (one Zamba2-7B prefill, bf16, batch {SERVE['batch']}, "
           f"prompt {S}, traced): wall_ms={wall_ms!r} device_busy_ms={busy!r}"
           f" device_idle_share={1.0 - busy / wall_ms!r} " + " ".join(
@@ -1004,10 +1080,10 @@ def main() -> int:
     profile_phase("whole")
     profile_phase("tiled")
     ssd_err, ssd_t = ssd_phase()
-    flash_err, flash_t = flash_phase()
+    (flash_err, flash_t), (wgmma_err, wgmma_t) = flash_phase()
     model_parity_phase()
-    consistency_phase()
-    ssd_launches, flash_launches = serve_phase()
+    flash_launches = consistency_phase()
+    ssd_launches, wgmma_launches = serve_phase()
     serve_profile_phase()
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); one-slot kernel: means over the same m_pad mix at
@@ -1034,14 +1110,18 @@ def main() -> int:
     rows = [(name, src + file, ref + line, n_launch, err, t, None)
             for name, file, line, n_launch, err, t in rows]
     # the model kernels: device time per launch at Zamba2-7B's prefill
-    # shapes (bf16), launches over the serve phase's two prefills
+    # shapes; SSD (float32) and the tensor-core flash kernel (bf16):
+    # launches over the serve phase's two prefills; the CUDA-core flash
+    # kernel (float32): launches over the float32 path's prefill (the
+    # consistency phase)
+    fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
+    fa_ref = "src/repro/kernels/flash_attention/kernel.py:71"
     rows += [("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
               "src/repro/kernels/ssd/kernel.py:57", ssd_launches, ssd_err,
               ssd_t, None),
-             ("flash_attention",
-              "src/repro_torch/kernels/flash_attention/csrc/"
-              "flash_attention.cu",
-              "src/repro/kernels/flash_attention/kernel.py:71",
+             ("flash_attention_wgmma", fa_src + "flash_attention_wgmma.cu",
+              fa_ref, wgmma_launches, wgmma_err, wgmma_t, wgmma_t[5]),
+             ("flash_attention", fa_src + "flash_attention.cu", fa_ref,
               flash_launches, flash_err, flash_t, flash_t[5])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

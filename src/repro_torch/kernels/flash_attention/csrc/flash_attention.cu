@@ -1,5 +1,7 @@
-// Flash attention (forward) for Hopper (sm_90a): GQA, causal mask,
-// sliding window, tanh logit soft-cap, online softmax in float32.
+// Flash attention (forward) in float32 for Hopper (sm_90a) on CUDA
+// cores: GQA, causal mask, sliding window, tanh logit soft-cap, online
+// softmax in float32.  bfloat16 inputs go to the tensor-core kernel of
+// flash_attention_wgmma.cu.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention (body _fa_kernel), the fused form of models/
@@ -10,18 +12,19 @@
 //             window > 0 and qpos - kpos >= window
 //     m_new = max(m, rowmax s);  alpha = exp(m - m_new);  p = exp(s - m_new)
 //     l     = l alpha + rowsum p;  acc = acc alpha + p v;  m = m_new
-//     out   = acc / max(l, 1e-30), in q's dtype
+//     out   = acc / max(l, 1e-30)
 //
 // with query head h reading KV head h / (H / KV).  The tensors keep the
 // model's layout, q (B, Sq, H, D) and k, v (B, Sk, KV, D), so nothing is
 // transposed or padded around the launch.
 //
 // What bounds it on this card: at Zamba2-7B's prefill (S = 2048,
-// D = 112, 32 heads, batch 4, causal) a call is ~6 G multiply-adds on
-// ~120 MB, so it is operations; with the products on CUDA cores out of
-// shared memory (two shared loads per multiply-add) the shared-memory
-// port bounds it far below the tensor cores' rate (wgmma and TMA tiles
-// are later work).  The design is the TPU grid translated: one block per
+// D = 112, 32 heads, batch 4, causal) a call is ~60 G multiply-adds on
+// ~470 MB, so it is operations (1.8 ms at 67 TFLOP/s, the float32 rate
+// without TF32, which the port never uses); with the products on CUDA
+// cores out of shared memory (two shared loads per multiply-add) the
+// shared-memory port bounds it far below that rate.  The design is the
+// TPU grid translated: one block per
 // (batch * head, block of BQ query rows) walks the key blocks in order,
 // since CUDA blocks cannot carry (m, l, acc) across a grid axis.  The
 // query block, the accumulator, one key and one value block, the score
@@ -34,7 +37,6 @@
 // window are skipped: every score in them is masked, and a row that has
 // seen a visible key gives a masked score the weight exp(-1e30 - m) = 0,
 // so skipping them leaves every row with a visible key unchanged.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -45,24 +47,10 @@ constexpr int kThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, int D, int BQ, int BK, float scale,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq,
+                 int Sk, int H, int KV, int D, int BQ, int BK, float scale,
                  int causal, int window, float cap) {
   extern __shared__ __align__(16) float smem[];
   const int bh = blockIdx.x;  // b * H + h
@@ -88,7 +76,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int d = idx - i * D;
     const int qp = q0 + i;
     s_q[idx] = qp < Sq
-        ? to_float(q[((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d])
+        ? q[((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d]
         : 0.0f;
     s_acc[idx] = 0.0f;
   }
@@ -112,8 +100,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = idx - j * D;
       const int kp = k0 + j;
       const size_t at = ((static_cast<size_t>(b) * Sk + kp) * KV + kvh) * D + d;
-      s_k[j * sk + d] = kp < Sk ? to_float(k[at]) : 0.0f;
-      s_v[idx] = kp < Sk ? to_float(v[at]) : 0.0f;
+      s_k[j * sk + d] = kp < Sk ? k[at] : 0.0f;
+      s_v[idx] = kp < Sk ? v[at] : 0.0f;
     }
     __syncthreads();
     for (int idx = tid; idx < BQ * BK; idx += kThreads) {
@@ -163,35 +151,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + i;
     if (qp < Sq)
       o[((static_cast<size_t>(b) * Sq + qp) * H + h) * D + d] =
-          from_float<T>(s_acc[idx] / fmaxf(s_l[i], 1e-30f));
+          s_acc[idx] / fmaxf(s_l[i], 1e-30f);
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Sk, int H, int KV, int D, int BQ, int BK, float scale,
-           int causal, int window, float cap, int smem, void* stream) {
-  if (static_cast<size_t>(smem) > kDefaultSmem) {  // opt in above 48 KB
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, D, BQ, BK,
-      scale, causal, window, cap);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Contiguous device buffers of the function's type: q and o (B, Sq, H, D),
-// k and v (B, Sk, KV, D), H % KV == 0.  BQ, BK and smem (bytes) as
+// Contiguous float32 device buffers: q and o (B, Sq, H, D), k and v
+// (B, Sk, KV, D), H % KV == 0.  BQ, BK and smem (bytes) as
 // kernel.py::flash_plan gives them; scale = 1 / sqrt(D); window 0 = none;
 // cap 0 = no soft-cap.  Enqueued on `stream`; returns the cudaError_t of
 // the launch (0 = launched).
@@ -199,16 +168,18 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int B, int Sq, int Sk, int H, int KV, int D, int BQ,
                         int BK, float scale, int causal, int window,
                         float cap, int smem, void* stream) {
-  return launch<float>(q, k, v, o, B, Sq, Sk, H, KV, D, BQ, BK, scale,
-                       causal, window, cap, smem, stream);
-}
-
-int flash_attention_bf16(const void* q, const void* k, const void* v,
-                         void* o, int B, int Sq, int Sk, int H, int KV, int D,
-                         int BQ, int BK, float scale, int causal, int window,
-                         float cap, int smem, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, D, BQ, BK, scale,
-                               causal, window, cap, smem, stream);
+  if (static_cast<size_t>(smem) > kDefaultSmem) {  // opt in above 48 KB
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV, D,
+      BQ, BK, scale, causal, window, cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* flash_error_string(int code) {

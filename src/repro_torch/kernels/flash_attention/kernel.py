@@ -1,7 +1,15 @@
-"""CUDA flash attention (forward): build, ctypes binding, launch plan and
-the checked wrapper.
+"""CUDA flash attention (forward): builds, ctypes bindings, launch plans
+and the checked wrappers of two kernels, one per input type.
 
-:func:`flash_attention_cuda` (``csrc/flash_attention.cu``) replaces
+:func:`flash_attention_wgmma` (``csrc/flash_attention_wgmma.cu``) takes
+bfloat16: both products on the tensor cores (wgmma, float32
+accumulation), K and V brought by TMA into a two-stage ring, one block
+per (batch * head, 128 query rows).  :func:`wgmma_plan` is its plan, a
+function of the head dim D alone; the source is built for the head dims
+of :data:`WGMMA_HEAD_DIMS`.
+
+:func:`flash_attention_cuda` (``csrc/flash_attention.cu``) takes float32
+on the CUDA cores.  Both replace
 ``repro/kernels/flash_attention/kernel.py::flash_attention``: GQA with a
 causal mask, a sliding window and a tanh soft-cap, the online softmax in
 float32, one block per (batch * head, block of BQ query rows) walking
@@ -14,11 +22,12 @@ key and score rows padded by one value) must fit in the 227 KB a block
 may use; the first tile of :data:`TILES` that leaves room for two blocks
 per SM is taken, else the first that fits one.
 
-The library is compiled from the source at first use
-(:mod:`repro_torch.kernels.build`), never at import.  The wrapper
+The libraries are compiled from the sources at first use
+(:mod:`repro_torch.kernels.build`), never at import.  Each wrapper
 launches on the current stream without synchronising, raises on a bad
 device, dtype, shape or contiguity and on a failed launch, and counts its
-launches in ``flash_attention_cuda.launches``.
+launches (``flash_attention_wgmma.launches``,
+``flash_attention_cuda.launches``).
 """
 from __future__ import annotations
 
@@ -31,8 +40,9 @@ import torch
 
 from ..build import bind, build_libraries, launch
 
-SOURCES = {"flash": Path(__file__).resolve().parent / "csrc"
-           / "flash_attention.cu"}
+_CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"flash": _CSRC / "flash_attention.cu",
+           "flash_wgmma": _CSRC / "flash_attention_wgmma.cu"}
 
 # shared memory one block may use on an H100 (232,448 bytes), and what
 # each of two blocks on one SM may use (228 KB per SM, 1 KB per block)
@@ -43,17 +53,31 @@ TILES = ((64, 64), (64, 32), (32, 32), (32, 16), (16, 16), (8, 8))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = [_P] * 4 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
-_FUNCTIONS = {"flash_attention_f32": _ARGS, "flash_attention_bf16": _ARGS}
+_FUNCTIONS = {"flash_attention_f32": _ARGS}
 _ERROR = "flash_error_string"
-_lib: list = []
+_WGMMA_FUNCTIONS = {"flash_attention_wgmma_bf16": [_P] * 4 + [_I] * 6
+                    + [_F, _I, _I, _F, _I, _P]}
+_WGMMA_ERROR = "flash_wgmma_error_string"
+_libs: dict = {}
+
+
+def _load(name: str, functions: dict, error: str) -> ctypes.CDLL:
+    if name not in _libs:
+        path, = build_libraries([SOURCES[name]])
+        _libs[name] = bind(path, functions, error)
+    return _libs[name]
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the flash-attention library."""
-    if not _lib:
-        path, = build_libraries([SOURCES["flash"]])
-        _lib.append(bind(path, _FUNCTIONS, _ERROR))
-    return _lib[0]
+    """Build (once per source hash) and load the CUDA-core kernel's
+    library."""
+    return _load("flash", _FUNCTIONS, _ERROR)
+
+
+def load_wgmma_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the tensor-core kernel's
+    library."""
+    return _load("flash_wgmma", _WGMMA_FUNCTIONS, _WGMMA_ERROR)
 
 
 class FlashPlan(NamedTuple):
@@ -99,19 +123,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Forward attention as one CUDA launch, the value of
     ``kernels/flash_attention/ref.py::attention_ref``.
 
-    q (B, Sq, H, D) and k, v (B, Sk, KV, D): float32 or bfloat16, one
-    dtype, contiguous, on one CUDA device, H % KV == 0.  Returns
-    (B, Sq, H, D) in q's dtype.  ``plan`` overrides :func:`flash_plan`."""
+    q (B, Sq, H, D) and k, v (B, Sk, KV, D): float32, contiguous, on one
+    CUDA device, H % KV == 0.  Returns (B, Sq, H, D) float32.  ``plan``
+    overrides :func:`flash_plan`."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _require(t.is_cuda, f"needs CUDA tensors ({name} is on {t.device})")
         _require(t.is_contiguous(), f"{name} must be contiguous")
         _require(t.ndim == 4, f"{name} must be 4-D, not {tuple(t.shape)}")
     _require(q.device == k.device == v.device, "tensors on several devices")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention_cuda: q, k, v must share one dtype, "
-                        f"float32 or bfloat16 (got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype})")
+    if not all(t.dtype == torch.float32 for t in (q, k, v)):
+        raise TypeError("flash_attention_cuda: q, k, v must be float32 "
+                        f"(bfloat16 goes to flash_attention_wgmma; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype})")
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     _require(k.shape == (B, Sk, KV, D) and v.shape == k.shape,
@@ -122,14 +145,100 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require(window >= 0, f"window must be >= 0, not {window}")
     plan = plan or flash_plan(D)
     out = torch.empty_like(q)
-    launch(load_library(), "flash_attention_bf16"
-           if q.dtype == torch.bfloat16 else "flash_attention_f32", _ERROR,
-           q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-           out.data_ptr(), B, Sq, Sk, H, KV, D, plan.bq, plan.bk,
-           1.0 / math.sqrt(D), int(causal), int(window), float(softcap),
-           plan.smem_bytes)
+    launch(load_library(), "flash_attention_f32", _ERROR, q.device,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+           Sk, H, KV, D, plan.bq, plan.bk, 1.0 / math.sqrt(D), int(causal),
+           int(window), float(softcap), plan.smem_bytes)
     flash_attention_cuda.launches += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 on the tensor cores
+# ---------------------------------------------------------------------------
+
+# the head dims csrc/flash_attention_wgmma.cu is built for: the smoke
+# configs' 16, the kernel tests' 64/128/256 and Zamba2-7B's 112
+WGMMA_HEAD_DIMS = (16, 64, 112, 128, 256)
+WGMMA_BQ = 128          # query rows per block: two warpgroups of 64
+_ROW_BYTES = 128        # one swizzled row: 64 bf16 columns
+_ALIGN = 1024           # the 128-byte swizzle's 8-row atom
+
+
+class WgmmaPlan(NamedTuple):
+    bq: int                # query rows per block
+    bk: int                # keys per tile
+    stages: int            # K/V tiles in the ring
+    smem_bytes: int
+
+
+def wgmma_plan(D: int) -> WgmmaPlan:
+    """The tensor-core kernel's plan for head dim D: keys per tile 128 up
+    to D = 128 and 64 above (D = 256, whose O accumulator alone is 128
+    floats a thread), two stages.  Its bytes are the source's
+    ``Layout<D>``: the alignment slack, Q and ``stages`` K and V tiles as
+    64-column chunks of 128-byte rows, and the mbarriers (Q full, one
+    full and one empty per stage); the launcher refuses any other count.
+    Pure: the CPU tests plan every D.  Raises ValueError for a D the
+    kernel is not built for."""
+    if D not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention_wgmma: head dim D={D} is not "
+                         f"built (one of {WGMMA_HEAD_DIMS})")
+    bk, stages, chunks = (128 if D <= 128 else 64), 2, -(-D // 64)
+    smem = (_ALIGN + chunks * WGMMA_BQ * _ROW_BYTES
+            + stages * 2 * chunks * bk * _ROW_BYTES + 8 * (1 + 2 * stages))
+    return WgmmaPlan(WGMMA_BQ, bk, stages, smem)
+
+
+def flash_attention_wgmma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """Forward attention in bfloat16 as one tensor-core launch, the value
+    of ``kernels/flash_attention/ref.py::attention_ref`` with P rounded to
+    bfloat16 before P V.
+
+    q (B, Sq, H, D) and k, v (B, Sk, KV, D): bfloat16, contiguous,
+    16-byte aligned, on one CUDA device, H % KV == 0, D one of
+    :data:`WGMMA_HEAD_DIMS`.  Returns (B, Sq, H, D) bfloat16."""
+    if not all(t.dtype == torch.bfloat16 for t in (q, k, v)):
+        raise TypeError("flash_attention_wgmma: q, k, v must be bfloat16 "
+                        f"(got {q.dtype}, {k.dtype}, {v.dtype})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.ndim != 4:
+            raise ValueError(f"flash_attention_wgmma: {name} must be 4-D, "
+                             f"not {tuple(t.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    plan = wgmma_plan(D)
+    if k.shape != (B, Sk, KV, D) or v.shape != k.shape:
+        raise ValueError("flash_attention_wgmma: k, v must be (B, Sk, KV, "
+                         f"D) matching q, not {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if min(B, Sq, Sk, H, KV) <= 0 or H % KV:
+        raise ValueError(f"flash_attention_wgmma: empty shape or H={H} not "
+                         f"a multiple of KV={KV}")
+    if window < 0:
+        raise ValueError(f"flash_attention_wgmma: window must be >= 0, not "
+                         f"{window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError("flash_attention_wgmma: needs CUDA tensors "
+                             f"({name} is on {t.device})")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_wgmma: {name} must be "
+                             "contiguous and 16-byte aligned")
+    if not q.device == k.device == v.device:
+        raise ValueError("flash_attention_wgmma: tensors on several devices")
+    out = torch.empty_like(q)
+    launch(load_wgmma_library(), "flash_attention_wgmma_bf16", _WGMMA_ERROR,
+           q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+           out.data_ptr(), B, Sq, Sk, H, KV, D, 1.0 / math.sqrt(D),
+           int(causal), int(window), float(softcap), plan.smem_bytes)
+    flash_attention_wgmma.launches += 1
+    return out
+
+
+flash_attention_wgmma.launches = 0

@@ -1,13 +1,15 @@
 """Flash-attention entry, as ``repro/kernels/flash_attention/ops.py::
-attention_op``: a CUDA tensor goes to the hand-written kernel, a CPU
-tensor to the plain oracle.  It is the kernel's one entry on the model
-path (``models/attention.py``'s chunked branch on the card).  Nothing
-falls back: a CUDA tensor the kernel refuses raises."""
+attention_op``: a CUDA tensor goes to a hand-written kernel chosen by its
+dtype before any launch (bfloat16 to the tensor-core kernel, any other to
+the CUDA-core kernel, which takes float32), a CPU tensor to the plain
+oracle.  It is the kernels' one entry on the model path
+(``models/attention.py``'s chunked branch on the card).  Nothing falls
+back: a CUDA tensor a kernel refuses raises."""
 from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_cuda, flash_attention_wgmma
 from .ref import attention_ref
 
 
@@ -16,8 +18,9 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  softcap: float = 0.0) -> torch.Tensor:
     """q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D) in q's dtype."""
     if q.is_cuda:
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal,
-                                    window=window, softcap=softcap)
+        kernel = flash_attention_wgmma if q.dtype == torch.bfloat16 \
+            else flash_attention_cuda
+        return kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                      causal=causal, window=window, softcap=softcap)
     return attention_ref(q, k, v, causal=causal, window=window,
                          softcap=softcap)

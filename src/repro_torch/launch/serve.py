@@ -24,14 +24,19 @@ import torch
 
 from .. import resolve_device
 from ..configs import get_config, get_smoke
-from ..kernels.flash_attention.kernel import flash_attention_cuda
+from ..kernels.flash_attention.kernel import (flash_attention_cuda,
+                                              flash_attention_wgmma)
 from ..kernels.ssd.kernel import ssd_cuda
 from ..models.model import init_model
 from ..serve.steps import generate
 
 
 def _launches() -> Dict[str, int]:
-    return {"ssd": ssd_cuda.launches, "flash": flash_attention_cuda.launches}
+    """Kernel launches so far; "flash" counts both attention kernels (the
+    tensor-core one takes bfloat16, the CUDA-core one float32)."""
+    return {"ssd": ssd_cuda.launches,
+            "flash": flash_attention_cuda.launches
+            + flash_attention_wgmma.launches}
 
 
 def serve(cfg, params: Dict, tokens: torch.Tensor, gen: int) -> Dict:

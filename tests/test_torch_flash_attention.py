@@ -7,8 +7,10 @@ JAX ``attention_ref`` and the Pallas ``flash_attention`` in interpret
 mode, over ``tests/test_kernels.py``'s sweep (every causal, window and
 soft-cap case, GQA, a ragged 130) plus Zamba2-7B's head dim 112.
 Tolerances are the JAX kernel test's: 2e-5 in float32, 2e-2 in bfloat16.
-The CUDA kernel itself is held to these plain versions on the card
-(``tests/test_torch_model_cuda.py``); here its launch plan is checked.
+The CUDA kernels themselves (the tensor-core one for bfloat16, the
+CUDA-core one for float32) are held to these plain versions on the card
+(``tests/test_torch_model_cuda.py``); here their launch plans and the
+wrappers' refusals are checked.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -90,3 +92,35 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
     (_, (q, k, v)) = _inputs(1, 8, 8, 2, 1, 16, jnp.float32, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         fa_kernel.flash_attention_cuda(q, k, v)
+
+
+@pytest.mark.parametrize("D", [16, 64, 112, 128, 256])
+def test_wgmma_plan_takes_every_head_dim(D):
+    """Every head dim the tests and configs use gets the tensor-core
+    plan: 128 query rows, keys per tile 128 up to D = 128 and 64 above,
+    two stages, in the 227 KB a block may use.  That its bytes are the
+    kernel's own layout, the launcher checks at every launch on the card
+    (``tests/test_torch_model_cuda.py`` launches every D)."""
+    plan = fa_kernel.wgmma_plan(D)
+    assert plan[:3] == (128, 128 if D <= 128 else 64, 2)
+    assert 0 < plan.smem_bytes <= fa_kernel.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("D", [8, 32, 96, 100, 192, 512])
+def test_wgmma_plan_refuses_other_head_dims(D):
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.wgmma_plan(D)
+
+
+def test_wgmma_wrapper_refuses_cpu_float32_and_other_head_dims():
+    """Checked before any launch: the dtype (TypeError), the head dim and
+    the device (ValueError)."""
+    (_, (q, k, v)) = _inputs(1, 8, 8, 2, 1, 16, jnp.float32, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa_kernel.flash_attention_wgmma(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention_wgmma(*(t.bfloat16() for t in (q, k, v)))
+    (_, wide) = _inputs(1, 8, 8, 2, 1, 96, jnp.float32, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_wgmma(*wide)
+    assert fa_kernel.flash_attention_wgmma.launches == 0

@@ -7,19 +7,26 @@ on a machine that has the card but no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_model_cuda.py
 
-Tolerances: each kernel computes in float32 from the same inputs as its
-plain version (bfloat16 inputs are widened exactly), so only the order
-of the float32 sums differs: SSD 1e-3 (the JAX kernel test's float32
-bound), flash attention 2e-5 in float32 and 2e-2 where the output is
-rounded to bfloat16 (the JAX kernel test's bounds); the float32 bound is
-also held at Zamba2-7B's prompt length, 2048.
+Tolerances: the SSD kernel computes in float32 from the same inputs as
+its plain version (bfloat16 inputs are widened exactly), so only the
+order of the float32 sums differs: 1e-3, the JAX kernel test's float32
+bound.  Flash attention has two kernels.  The CUDA-core one takes
+float32 and sums in another order only: 2e-5 (the JAX kernel test's
+float32 bound), also held at Zamba2-7B's prompt length, 2048.  The
+tensor-core one takes bfloat16, rounds P to bfloat16 before P V, as the
+tensor cores take it, and sums in another order: 2e-2 (the JAX kernel
+test's bfloat16 bound) against the float32 plain version, at every test
+shape and head dim and at Zamba2-7B's prompt length and head dim, and
+5e-3 on the relative norm of the whole error (``WGMMA_REL_NORM``).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.configs import get_smoke
+from repro_torch.kernels.build import launch
 from repro_torch.kernels.flash_attention import kernel as fa
+from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.kernels.ssd.ops import ssd_op
@@ -151,22 +158,21 @@ def flash_plans(D):
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
-@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
-def test_flash_kernel_matches_plain_every_plan(card, shape, dtype, causal,
-                                               window, cap):
-    q, k, v = flash_inputs(*shape, dtype)
-    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
-                         window=window, softcap=cap)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+def test_flash_kernel_matches_plain_every_plan(card, shape, causal, window,
+                                               cap):
+    """The CUDA-core kernel (float32 only; bfloat16 is the tensor-core
+    kernel's, below) in every launch plan."""
+    q, k, v = flash_inputs(*shape, torch.float32)
+    want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
     for plan in flash_plans(shape[-1]):
         before = fa.flash_attention_cuda.launches
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                       softcap=cap, plan=plan)
         torch.cuda.synchronize()
         assert fa.flash_attention_cuda.launches == before + 1
-        assert got.dtype == dtype and got.shape == q.shape
-        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol,
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5,
                                    msg=lambda m: f"{plan}: {m}")
 
 
@@ -196,6 +202,89 @@ def test_flash_kernel_refuses_what_it_cannot_launch(card):
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_cuda(q[:, :, :1].contiguous(),
                                 torch.cat([k, k, k], 2), torch.cat([v] * 3, 2))
+
+
+# Zamba2-7B's prompt length and head dim, with GQA and with H = KV: 16
+# query blocks, up to 16 key tiles each, the skipped and the masked tiles
+FLASH_LONG = [(1, 2048, 2048, 4, 2, 112), (1, 2048, 2048, 4, 4, 112)]
+# ||got - want|| / ||want|| of the tensor-core kernel: rounding the output
+# to bfloat16 alone gives ~1.6e-3 (an ulp of 2^-8..2^-7 relative, over
+# sqrt 12) and rounding P adds less; one key tile of 16 dropped or read
+# from the wrong stage moves a row by ~1e-1 of its norm at S = 2048,
+# where each element's error can stay under 2e-2
+WGMMA_REL_NORM = 5e-3
+
+
+def rel_norm(got, want):
+    return float((got.float() - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES + FLASH_LONG, ids=str)
+@pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
+def test_flash_wgmma_matches_plain(card, shape, causal, window, cap):
+    """The tensor-core kernel at every test shape (GQA, ragged 130 and
+    200, D = 64/112/128/256, S = 2048) and mask, one launch counted per
+    call: each element within 2e-2 and the whole within WGMMA_REL_NORM."""
+    q, k, v = flash_inputs(*shape, torch.bfloat16)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                         window=window, softcap=cap)
+    before = fa.flash_attention_wgmma.launches
+    got = fa.flash_attention_wgmma(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_wgmma.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+    assert rel_norm(got, want) <= WGMMA_REL_NORM
+
+
+def test_attention_op_routes_by_dtype(card):
+    """bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core
+    kernel, each one launch."""
+    for dtype, kernel, other in (
+            (torch.bfloat16, fa.flash_attention_wgmma,
+             fa.flash_attention_cuda),
+            (torch.float32, fa.flash_attention_cuda,
+             fa.flash_attention_wgmma)):
+        q, k, v = flash_inputs(2, 200, 200, 4, 2, 112, dtype)
+        before = kernel.launches, other.launches
+        got = attention_op(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert (kernel.launches, other.launches) == (before[0] + 1,
+                                                     before[1])
+        assert got.dtype == dtype
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+def test_flash_wgmma_launcher_refuses_another_layout(card, D):
+    """The launcher takes the plan's shared-memory bytes (which every
+    launch above passes) and refuses any other count: the plan and the
+    kernel's layout cannot drift apart unseen."""
+    q, k, v = flash_inputs(1, 64, 64, 2, 2, D, torch.bfloat16)
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 64,
+            64, 2, 2, D, 1.0 / D ** 0.5, 1, 0, 0.0)
+    with pytest.raises(RuntimeError, match="layout"):
+        launch(fa.load_wgmma_library(), "flash_attention_wgmma_bf16",
+               fa._WGMMA_ERROR, q.device, *args,
+               fa.wgmma_plan(D).smem_bytes + 8)
+
+
+def test_flash_wgmma_refuses_what_it_cannot_launch(card):
+    q, k, v = flash_inputs(1, 64, 64, 2, 2, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_wgmma(q.cpu(), k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_wgmma(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_wgmma(q.transpose(1, 2).contiguous().transpose(
+            1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_wgmma(*flash_inputs(1, 64, 64, 2, 2, 96,
+                                               torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention_wgmma(q[:, :, :1].contiguous(),
+                                 torch.cat([k] * 3, 2), torch.cat([v] * 3, 2))
 
 
 def _rel(got, want):
@@ -231,9 +320,13 @@ def test_smoke_serve_on_card_matches_cpu(card, arch):
 
 
 def test_launcher_on_card_counts_prefill_launches(card):
+    """The smoke config computes in bfloat16: its attention launches are
+    the tensor-core kernel's."""
+    before = fa.flash_attention_wgmma.launches
     res = serve_launch.main(["--arch", "zamba2_7b", "--smoke", "--batch",
                              "2", "--prompt-len", "300", "--gen", "3",
                              "--warmup", "0"])
     assert res["prefill_launches"] == {"ssd": 5, "flash": 2}
     assert res["decode_launches"] == {"ssd": 0, "flash": 0}
+    assert fa.flash_attention_wgmma.launches - before == 2
     assert res["tokens"].shape == (2, 3) and res["device"] != "cpu"
