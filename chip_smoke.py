@@ -10,8 +10,11 @@ scale, then drives the main paths — ``repro_torch.sim.engine.run`` with
 ``core="whole"`` and ``core="tiled"`` — at the repo's 10x instance
 (T=500, 100+100 servers, 2000 full-size jobs, seed 0, quantum=0), each
 with the kernel counts set to 0 just before it and read just after: every
-DP decision of the whole route went through the CUDA sweep, every live
-slot of the tiled route through the one-slot or the plateau kernel.
+DP decision of the whole route went through the CUDA sweep, every chain
+tile of the tiled route through one launch of the sweep kernel from a
+carry-in (the chain tile) and every live slot of a plateau tile through
+the plateau kernel.  The one-slot kernel is the one-slot entry's
+(``ops.minplus``), driven on its own with its count set to 0.
 Unquantized full-size jobs (d1 up to 20480) then go through both routes.
 
 The model stack's slice follows: the Mamba2 SSD scan and both flash
@@ -53,10 +56,12 @@ from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.minplus import kernel as minplus_kernel  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_op  # noqa: E402
+from repro_torch.kernels.minplus import ops as minplus_ops  # noqa: E402
 from repro_torch.kernels.minplus.monotone import (  # noqa: E402
     plateau_step, run_count)
 from repro_torch.kernels.minplus.ref import (  # noqa: E402
     minplus_ref, minplus_sweep_ref)
+from repro_torch.kernels.minplus.tiled import TILE, minplus_tile  # noqa: E402
 from repro_torch.core import schedule_torch  # noqa: E402
 from repro_torch.core.pricing import price_params_from_jobs  # noqa: E402
 from repro_torch.core.schedule_torch import _shape_bucket  # noqa: E402
@@ -170,11 +175,14 @@ def _self_device_ms(event):
 def _device_table(prof):
     """{kernel or device op: (device ms, launches)} from a profile, device
     self time summed by name; ``aten::`` entries are left out, since each
-    carries the time of the kernels it launched, which have their own."""
+    carries the time of the kernels it launched, which have their own, and
+    so are the CUDA runtime's calls (``cudaLaunchKernel``, ...), which the
+    tracer may credit with a sliver of the device time of the kernels they
+    launched and would count every launch twice."""
     table = {}
     for e in prof.key_averages():
         ms = _self_device_ms(e)
-        if ms > 0 and not e.key.startswith("aten::"):
+        if ms > 0 and not e.key.startswith(("aten::", "cuda")):
             t = table.get(e.key, (0.0, 0))
             table[e.key] = (t[0] + ms, t[1] + e.count)
     return table
@@ -272,12 +280,13 @@ def _row_prev(dc1, d1, dtype, runs=None):
 
 
 def _slot_bounds(row, d1, dtype, plateau):
-    """(ms over the ops peak, ms over HBM) for one cost-only slot on these
-    inputs.  One-slot kernel: an add and a compare per candidate
-    ``j <= min(DC, d)``.  Plateau kernel: the doubling table's minima up
-    to the level the longest run needs over the D+1+DC window, then an
-    add and two minima per run and output.  Bytes: row and carry read,
-    output written, once."""
+    """(ms over the ops peak, ms over HBM) for one slot on these inputs.
+    One-slot kernel (``ops.minplus``: cost and argmin): an add and a
+    compare per candidate ``j <= min(DC, d)``.  Plateau kernel (cost
+    only): the doubling table's minima up to the level the longest run
+    needs over the D+1+DC window, then an add and two minima per run and
+    output.  Bytes: row and carry read, outputs (and the int32 argmin)
+    written, once."""
     dc1 = row.numel()
     size = dtype.itemsize
     if plateau:
@@ -288,7 +297,7 @@ def _slot_bounds(row, d1, dtype, plateau):
         ops = levels * (d1 + dc1) + 3.0 * len(starts) * d1
     else:
         ops = 2.0 * _band_candidates(dc1, d1)
-    nbytes = (dc1 + 2 * d1) * size
+    nbytes = (dc1 + 2 * d1) * size + (0 if plateau else 4 * d1)
     return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -296,7 +305,9 @@ def slot_phase():
     """The one-slot kernel (cost + argmin, and cost only) and the plateau
     kernel (run counts 1, r_max - 1, r_max) == their plain versions
     bitwise, f32 and f64; at the main path's shapes each timed (device
-    time per launch) against its plain version."""
+    time per launch) against its plain version on the entry that runs it:
+    the one-slot kernel through ``ops.minplus`` (cost and argmin), the
+    plateau kernel cost only, as the tiled route calls it."""
     max_err = {"slot": 0.0, "plateau": 0.0}
     timings = {}
     cases = 0
@@ -332,8 +343,7 @@ def slot_phase():
             out = torch.empty_like(prev)
             prow, _ = _row_prev(dc1, d1, dtype, runs=min(R_MAX, dc1))
             for kind, fn, plain, x_row in (
-                    ("slot", lambda: minplus_kernel.minplus_cuda(
-                        row, prev, want_arg=False, out=out),
+                    ("slot", lambda: minplus_ops.minplus(row, prev),
                      lambda: minplus_ref(row, prev), row),
                     ("plateau", lambda: minplus_kernel.minplus_plateau_cuda(
                         prow, prev, r_max=R_MAX, out=out),
@@ -353,10 +363,126 @@ def slot_phase():
                       "bitwise=True")
     print(f"slot phase ok: {cases} one-slot and plateau shape/dtype/run "
           f"cases bitwise equal, max_abs_err={max_err!r}")
-    return max_err, timings
+    # the one-slot entry's own path: ops.minplus (cost and first-index
+    # argmin) chained over a tile's slots at each 10x bucket, counts set
+    # to 0 just before and read just after
+    chains = []
+    for dc1 in M_PADS:
+        rows = _rows(TILE, dc1, 1280, torch.float64)
+        prev = torch.full((1280,), float("inf"), dtype=torch.float64,
+                          device="cuda")
+        prev[0] = 0.0
+        chains.append((rows, prev))
+    _reset_counts()
+    outs = []
+    for rows, prev in chains:
+        for row in rows:
+            prev, arg = minplus_ops.minplus(row, prev)
+            outs.append((prev, arg))
+    torch.cuda.synchronize()
+    entry_launches = minplus_kernel.minplus_cuda.launches
+    it = iter(outs)
+    for rows, prev in chains:
+        for row in rows:
+            prev, arg = minplus_ref(row, prev)
+            got, got_arg = next(it)
+            if not (torch.equal(got, prev) and torch.equal(got_arg, arg)):
+                raise AssertionError("ops.minplus on the card differs from "
+                                     "the plain slot")
+    print(f"one-slot entry (ops.minplus over {TILE} slots at each 10x "
+          f"bucket, float64): minplus_slot_launches={entry_launches} "
+          "bitwise=True")
+    if entry_launches != TILE * len(M_PADS):
+        raise AssertionError(f"{entry_launches} one-slot launches for "
+                             f"{TILE * len(M_PADS)} slots")
+    return max_err, timings, entry_launches
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (+0 and -0 differ, +inf equals +inf)."""
+    view = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view))
+
+
+def _identity(d1, dtype):
+    prev = torch.full((d1,), float("inf"), dtype=dtype, device="cuda")
+    prev[0] = 0.0
+    return prev
+
+
+def _tile_bounds(rows, d1, dtype):
+    """(ms over the ops peak, ms over HBM) for one cost-only tile: the
+    sum of its slots' operation bounds (an add and a min per candidate
+    ``j <= min(DC, d)``); rows and carry read, the tile's columns written,
+    once."""
+    n, dc1 = rows.shape
+    size = dtype.itemsize
+    ops = 2.0 * n * _band_candidates(dc1, d1)
+    nbytes = (n * dc1 + d1 + n * d1) * size
+    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def tile_phase():
+    """The chain tile (``minplus_sweep_cuda`` from a carry-in, one launch
+    per tile) == ``minplus_tile`` bitwise at each 10x bucket and the wide
+    bands, f32 and f64, tiles of 1, 17 and 64 slots from the identity and
+    from a real DP column, written at a row offset of a larger table whose
+    other rows stay untouched.  64-slot float64 tiles from a DP column
+    timed (device time per launch) against the plain version."""
+    max_err, cases = 0.0, 0
+    for dc1, d1 in SLOT_SCALE_SHAPES + SLOT_WIDE_SHAPES:
+        wide = (dc1, d1) in SLOT_WIDE_SHAPES
+        for dtype in (torch.float32, torch.float64):
+            rows = _rows(TILE, dc1, d1, dtype)
+            carry = minplus_sweep_ref(_rows(3, dc1, d1, dtype) + 1.0,
+                                      d1 - 1)[0][-1].contiguous()
+            for n in (1, 17, TILE):
+                for prev in (_identity(d1, dtype), carry):
+                    out = torch.full((n + 4, d1), float("nan"), dtype=dtype,
+                                     device="cuda")
+                    minplus_kernel.minplus_sweep_cuda(
+                        rows[:n], d1 - 1, prev=prev, out=out[2:n + 2])
+                    want = minplus_tile(rows[:n, None, :], prev[None])[1][:, 0]
+                    torch.cuda.synchronize()
+                    got = out[2:n + 2]
+                    fin = torch.isfinite(want)
+                    if fin.any():
+                        max_err = max(max_err, float(
+                            (got[fin] - want[fin]).abs().max()))
+                    if not (_same_bits(got, want)
+                            and bool(torch.isnan(out[:2]).all())
+                            and bool(torch.isnan(out[n + 2:]).all())):
+                        raise AssertionError(
+                            f"minplus_tile {n} slots m_pad={dc1} d1={d1} "
+                            f"{dtype}: kernel differs from the plain version "
+                            "or wrote outside its rows")
+                    cases += 1
+            if dtype != torch.float64:
+                continue
+            out = torch.empty((TILE, d1), dtype=dtype, device="cuda")
+            reps = 3 if wide else 50
+            plan = minplus_kernel.sweep_plan(dc1, d1, dtype)
+            k_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+                rows, d1 - 1, prev=carry, out=out), reps)
+            p_ms = _time_ms(lambda: minplus_tile(rows[:, None, :],
+                                                 carry[None]),
+                            reps=1 if wide else 3)
+            op_ms, byte_ms = _tile_bounds(rows, d1, dtype)
+            print(f"tile {TILE} slots m_pad={dc1} d1={d1} float64 plan: "
+                  f"{_plan_str(plan)}: kernel_device_ms={k_ms!r} "
+                  f"per_slot_ms={k_ms / TILE!r} plain_ms={p_ms!r} "
+                  f"bound_ms={max(op_ms, byte_ms)!r} "
+                  f"({'operations' if op_ms >= byte_ms else 'bytes'}) "
+                  "bitwise=True")
+    print(f"tile phase ok: {cases} tile shape/dtype/length/carry cases "
+          f"bitwise equal, max_abs_err={max_err!r}")
+    return max_err
 
 
 def _counted():
+    """(sweep kernel, one-slot, plateau) launches so far: on the tiled
+    route every sweep-kernel launch is a chain tile's."""
     return (minplus_kernel.minplus_sweep_cuda.launches,
             minplus_kernel.minplus_cuda.launches,
             minplus_kernel.minplus_plateau_cuda.launches)
@@ -367,6 +493,15 @@ def _reset_counts():
     minplus_kernel.minplus_cuda.launches = 0
     minplus_kernel.minplus_plateau_cuda.launches = 0
     schedule_torch.monotone_counters_reset()
+
+
+def _tiled_launches_ok(snap, counts):
+    """The tiled route's launches: no one-slot launch, one sweep-kernel
+    launch per chain tile (every visited tile has live slots), one
+    plateau launch per live slot of a plateau tile."""
+    c_n, a_n, b_n = counts
+    return (a_n == 0 and c_n == snap["chain"]
+            and b_n == snap["plateau_slots"])
 
 
 def paper_phase():
@@ -400,7 +535,8 @@ def paper_phase():
         _reset_counts()
         tgpu = engine.run(cluster, jobs, quantum=0, core="tiled")
         snap = schedule_torch.monotone_counters_snapshot()
-        _, a_n, b_n = _counted()
+        counts = _counted()
+        c_n, _, b_n = counts
         tcpu = engine.run(cluster, jobs, quantum=0, core="tiled",
                           device="cpu")
         rels = [abs(tgpu.total_utility - x.total_utility)
@@ -410,10 +546,10 @@ def paper_phase():
               f"cpu={tcpu.total_utility!r} rel_diff_cpu={rels[0]!r} "
               f"rel_diff_whole_gpu={rels[1]!r} plateau_tiles="
               f"{snap['plateau']} chain_tiles={snap['chain']} "
-              f"slot_launches={a_n} plateau_launches={b_n}")
+              f"tile_launches={c_n} plateau_launches={b_n}")
         if not (tgpu.completion == tcpu.completion == gpu.completion
                 and max(rels) <= 1e-9 and snap["plateau"] > 0
-                and a_n + b_n == snap["slots"] and b_n > 0):
+                and _tiled_launches_ok(snap, counts) and b_n > 0):
             raise AssertionError(f"seed {seed}: the tiled route on the card "
                                  "differs from the CPU's or the whole "
                                  "route's, or took no plateau tile")
@@ -462,41 +598,63 @@ def scale_phase():
 
 
 def tiled_scale_phase(whole_utility):
-    """The tiled route at the 10x instance, counting slot launches: one
-    launch of the one-slot or the plateau kernel per live visited slot."""
+    """The tiled route at the 10x instance, counting launches: one
+    sweep-kernel launch per chain tile, one plateau launch per live slot of
+    a plateau tile, no one-slot launch.  The route's ``minplus_chain`` is
+    wrapped to record each chain tile's shape (live slots, band, columns,
+    dtype), so the kernels line can time the tile on this run's own mix
+    (:func:`tile_mix_phase`).  Returns (tile launches, plateau launches,
+    the tiles' shapes)."""
     cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
     jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
     live = [engine._with_quantum(j, 0) for j in jobs if j.arrival < cluster.T]
     dp_decisions = sum(_shape_bucket(j) is not None for j in live)
-    _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = engine.run(cluster, jobs, quantum=0, core="tiled", check=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sweeps, a_n, b_n = _counted()
+    shapes = []
+    chain = schedule_torch.minplus_chain
+
+    def recorded(rows, prev, out):
+        shapes.append((*rows.shape, prev.numel(), rows.dtype))
+        return chain(rows, prev, out)
+
+    schedule_torch.minplus_chain = recorded
+    try:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.run(cluster, jobs, quantum=0, core="tiled", check=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counted()
+    finally:
+        schedule_torch.minplus_chain = chain
+    c_n, a_n, b_n = counts
     snap = schedule_torch.monotone_counters_snapshot()
     ds = np.asarray(res.decision_seconds) * 1e3
     tiles = snap["plateau"] + snap["chain"]
+    n_dec = max(snap["decisions"], 1)
     print(f"10x instance, tiled route: wall_s={wall!r} decisions={len(ds)} "
           f"decisions_per_s={len(ds) / wall!r} "
           f"decision_p50_ms={float(np.percentile(ds, 50))!r} "
           f"decision_p95_ms={float(np.percentile(ds, 95))!r} "
           f"total_utility={res.total_utility!r} accepted={res.accepted} "
           f"device_uploads={res.device_uploads} "
-          f"minplus_slot_launches={a_n} minplus_plateau_launches={b_n} "
-          f"live_slots={snap['slots']} tiles_visited={tiles} "
-          f"tiles_per_decision={tiles / max(snap['decisions'], 1)!r} "
-          f"slot_launches_per_decision="
-          f"{(a_n + b_n) / max(snap['decisions'], 1)!r} "
+          f"minplus_tile_launches={c_n} minplus_plateau_launches={b_n} "
+          f"minplus_slot_launches={a_n} live_slots={snap['slots']} "
+          f"plateau_slots={snap['plateau_slots']} "
+          f"chain_slots_per_tile_launch="
+          f"{(snap['slots'] - snap['plateau_slots']) / max(c_n, 1)!r} "
+          f"tiles_visited={tiles} tiles_per_decision={tiles / n_dec!r} "
+          f"tile_launches_per_decision={c_n / n_dec!r} "
+          f"dp_launches_per_decision={(b_n + c_n) / n_dec!r} "
           f"paths={{'plateau': {snap['plateau']}, 'chain': {snap['chain']}}}")
     print(f"10x utility: tiled route {res.total_utility!r}, whole route "
           f"{whole_utility!r}, reference tiled engine on a CPU "
           f"{JAX_TILED_UTILITY!r}")
-    if (a_n + b_n != snap["slots"] or sweeps or a_n == 0
+    if (not _tiled_launches_ok(snap, counts) or c_n == 0 or b_n == 0
             or snap["decisions"] != dp_decisions):
-        raise AssertionError(f"{a_n} + {b_n} slot launches for "
-                             f"{snap['slots']} live slots, {sweeps} sweeps, "
+        raise AssertionError(f"launches (sweep kernel, one-slot, plateau) "
+                             f"{counts} for {snap['chain']} chain tiles and "
+                             f"{snap['plateau_slots']} plateau slots, "
                              f"{snap['decisions']} of {dp_decisions} DP "
                              "decisions")
     if len(ds) != len(live) or res.device_uploads != 1:
@@ -505,7 +663,47 @@ def tiled_scale_phase(whole_utility):
             and 0 < res.accepted <= len(live)):
         raise AssertionError(f"implausible result: {res.total_utility} "
                              f"utility, {res.accepted} accepted")
-    return a_n, b_n
+    if len(shapes) != c_n:
+        raise AssertionError(f"{len(shapes)} chain tiles recorded for {c_n} "
+                             "launches")
+    return c_n, b_n, shapes
+
+
+def tile_mix_phase(shapes):
+    """The chain tile on the tiled route's own 10x mix: every distinct
+    tile shape the route launched (live slots, band, columns, dtype) timed
+    once (device time per launch, from a DP column) against the plain
+    tile, each weighted by its launches; the bound is each tile's, the sum
+    of its slots' operation bounds.  Returns (ms, plain ms, bound ms, ops
+    ms, bytes ms), launch-weighted means."""
+    mix = {}
+    for key in shapes:
+        mix[key] = mix.get(key, 0) + 1
+    carries = {}
+    total = [0.0] * 5
+    for (n, dc1, d1, dtype), count in mix.items():
+        if (dc1, d1, dtype) not in carries:
+            carries[(dc1, d1, dtype)] = minplus_sweep_ref(
+                _rows(3, dc1, d1, dtype) + 1.0, d1 - 1)[0][-1].contiguous()
+        carry = carries[(dc1, d1, dtype)]
+        rows = _rows(n, dc1, d1, dtype)
+        out = torch.empty((n, d1), dtype=dtype, device="cuda")
+        k_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+            rows, d1 - 1, prev=carry, out=out), 10)
+        p_ms = _time_ms(lambda: minplus_tile(rows[:, None, :], carry[None]),
+                        reps=1)
+        op_ms, byte_ms = _tile_bounds(rows, d1, dtype)
+        for i, x in enumerate((k_ms, p_ms, max(op_ms, byte_ms), op_ms,
+                               byte_ms)):
+            total[i] += count * x
+    mean = [x / len(shapes) for x in total]
+    slots = sum(n for n, *_ in shapes) / len(shapes)
+    print(f"tile over the tiled route's own 10x mix ({len(shapes)} chain "
+          f"tiles, {len(mix)} distinct shapes, {slots!r} live slots a tile, "
+          f"m_pad {sorted({k[1] for k in mix})}): launch-weighted "
+          f"kernel_device_ms={mean[0]!r} per_slot_ms={mean[0] / slots!r} "
+          f"plain_ms={mean[1]!r} bound_ms={mean[2]!r}")
+    return mean
 
 
 def wide_phase():
@@ -524,8 +722,9 @@ def wide_phase():
         print(f"wide jobs (T=100, H=K=20, 40 full-size jobs, seed 1, "
               f"quantum=None; {wide} with d1=20480), {core} route: "
               f"wall_s={wall!r} accepted={res.accepted} "
-              f"total_utility={res.total_utility!r} sweep_launches={sweeps} "
-              f"slot_launches={a_n} plateau_launches={b_n}")
+              f"total_utility={res.total_utility!r} "
+              f"sweep_kernel_launches={sweeps} plateau_launches={b_n} "
+              f"slot_launches={a_n}")
         if not (np.isfinite(res.total_utility) and res.accepted > 0):
             raise AssertionError(f"wide jobs, {core} route: implausible "
                                  "result")
@@ -552,12 +751,15 @@ def profile_phase(core, n_jobs=400):
     dev = _device_table(prof)
     busy = sum(ms for ms, _ in dev.values())
     kernels = {}
-    for name in ("minplus_sweep_kernel", "minplus_slot_kernel",
-                 "minplus_plateau_kernel"):
+    # the tiled route's chain tiles run the sweep kernel from a carry-in
+    sweep = "minplus_tile" if core == "tiled" else "minplus_sweep"
+    for label, name in ((sweep, "minplus_sweep_kernel"),
+                        ("minplus_slot", "minplus_slot_kernel"),
+                        ("minplus_plateau", "minplus_plateau_kernel")):
         keys = [k for k in dev if name in k]
         if keys:
-            kernels[name] = (sum(dev[k][0] for k in keys),
-                             sum(dev[k][1] for k in keys))
+            kernels[label] = (sum(dev[k][0] for k in keys),
+                              sum(dev[k][1] for k in keys))
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"profile ({core} route, 10x trace, first {n_jobs} jobs, traced): "
           f"decisions={len(res.decision_seconds)} wall_ms={wall_ms!r} "
@@ -568,6 +770,18 @@ def profile_phase(core, n_jobs=400):
               for k, v in kernels.items()))
     for k, (ms, n) in top:
         print(f"  device {ms!r} ms ({n} launches): {k[:90]}")
+    # where the host's time goes: device launches per decision, and the
+    # host-side entries with the most self time (CUDA runtime calls, such
+    # as launches and the syncs that wait for the device, and aten ops)
+    launches = sum(n for _, n in dev.values())
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    print(f"  device launches={launches} per_decision="
+          f"{launches / max(len(res.decision_seconds), 1)!r} "
+          f"host_ops_self_ms={sum(h[0] for h in host)!r} (the rest of the "
+          "wall is Python outside any traced op)")
+    for ms, n, k in host[:6]:
+        print(f"  host self {ms!r} ms ({n} calls): {k[:90]}")
     return kernels
 
 
@@ -1072,10 +1286,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     max_err, timings = kernel_phase()
-    slot_err, slot_timings = slot_phase()
+    slot_err, slot_timings, a_launches = slot_phase()
+    tile_err = tile_phase()
     paper_phase()
     launches, hist, whole_utility = scale_phase()
-    a_launches, b_launches = tiled_scale_phase(whole_utility)
+    c_launches, b_launches, tile_shapes = tiled_scale_phase(whole_utility)
+    tile = tile_mix_phase(tile_shapes)
     wide_phase()
     profile_phase("whole")
     profile_phase("tiled")
@@ -1086,9 +1302,12 @@ def main() -> int:
     ssd_launches, wgmma_launches = serve_phase()
     serve_profile_phase()
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
-    # (f64, cost only); one-slot kernel: means over the same m_pad mix at
-    # d1 = 1280 (f64, cost only, device time per launch); plateau kernel:
-    # its one 10x shape (m_pad 64, d1 1280, r_max runs)
+    # (f64, cost only); chain tile: launch-weighted over the tiled route's
+    # own tiles (tile_mix_phase); one-slot kernel: ops.minplus (cost and
+    # argmin, f64, device time per launch) averaged over the 10x buckets
+    # at d1 = 1280, one each, as its own run launches it (64 slots at each
+    # bucket); plateau kernel: its one 10x shape (m_pad 64, d1 1280,
+    # r_max runs)
     n = sum(hist.values())
     mean = [sum(hist[m] * timings[(SCALE["T"], m, 1280, torch.float64)][i]
                 for m in hist) / n for i in range(5)]
@@ -1096,13 +1315,15 @@ def main() -> int:
           f"kernel_device_ms={mean[0]!r} bound_ms={mean[2]!r}; per m_pad " +
           " ".join(f"{m}:{timings[(SCALE['T'], m, 1280, torch.float64)][0]!r}"
                    f"x{hist[m]}" for m in sorted(hist)))
-    slot = [sum(hist[m] * slot_timings[("slot", m, 1280)][i]
-                for m in hist) / n for i in range(5)]
+    slot = [sum(slot_timings[("slot", m, 1280)][i] for m in M_PADS)
+            / len(M_PADS) for i in range(5)]
     plat = slot_timings[("plateau", 64, 1280)]
     src = "src/repro_torch/kernels/minplus/csrc/"
     ref = "src/repro/kernels/minplus/kernel.py:"
     rows = [("minplus_sweep", "minplus_sweep.cu", "125", launches, max_err,
              mean),
+            ("minplus_tile", "minplus_sweep.cu", "54", c_launches,
+             tile_err, tile),
             ("minplus_slot", "minplus_slot.cu", "54", a_launches,
              slot_err["slot"], slot),
             ("minplus_plateau", "minplus_plateau.cu", "207", b_launches,

@@ -28,11 +28,12 @@ the reference takes everywhere but the TPU (one lane at a time):
 2. from the job's arrival tile on, per ``TILE``-slot tile: the tile's
    COST rows (``_tile_rows``, batched prefix tables), the monotone
    dispatch (plateau when every row of the tile has at most ``r_max``
-   runs and ``m_pad <= MONO_BAND``, else chain), and one slot-kernel
-   launch per live slot — the plateau kernel or the one-slot kernel, cost
-   only, writing straight into that slot's row of the cost table; dead
-   slots (before arrival, past the horizon) carry the DP unchanged and
-   launch nothing;
+   runs and ``m_pad <= MONO_BAND``, else chain), and the tile's live slots
+   stepped, cost only, straight into their rows of the cost table: a
+   chain tile in ONE launch of the sweep kernel from the carry the
+   previous tile left (``ops.minplus_chain``), a plateau tile in one
+   plateau-kernel launch per live slot; dead slots (before arrival, past
+   the horizon) carry the DP unchanged and launch nothing;
 3. per tile, one copy of the tile's ``cost[t, d_tot]`` values to the host,
    where the payoff scan (``> best + _PAY_EPS`` in slot order) and the
    exact early exit run: the loop stops once the utility's suffix maximum
@@ -55,11 +56,11 @@ import torch
 import weakref
 
 from .. import DEFAULT_DTYPE
-from ..kernels.minplus.kernel import minplus_cuda, minplus_plateau_cuda
+from ..kernels.minplus.kernel import minplus_plateau_cuda
 from ..kernels.minplus.monotone import (PATH_CHAIN, PATH_PLATEAU,
                                         plateau_step, run_count)
-from ..kernels.minplus.ops import minplus_sweep
-from ..kernels.minplus.tiled import TILE, minplus_chain_step
+from ..kernels.minplus.ops import minplus_chain, minplus_sweep
+from ..kernels.minplus.tiled import TILE
 from .pricing import PriceState
 from .subroutine import workload_tables
 from .types import Job, R, Schedule
@@ -432,19 +433,14 @@ def _live_floor(pmin_h: np.ndarray, jd, T: int) -> float:
     return lb * floor_sum if lb > 0 else 0.0
 
 
-def _slot_step(branch: int, row: torch.Tensor, prev: torch.Tensor,
-               out: torch.Tensor, r_max: int) -> None:
-    """One live DP slot into ``out`` (cost only): the plateau kernel or
-    the one-slot kernel on the card, their plain versions on the CPU."""
+def _plateau_slot(row: torch.Tensor, prev: torch.Tensor, out: torch.Tensor,
+                  r_max: int) -> None:
+    """One live DP slot of a plateau tile into ``out`` (cost only): the
+    plateau kernel on the card, its plain version on the CPU."""
     if out.is_cuda:
-        if branch == PATH_PLATEAU:
-            minplus_plateau_cuda(row, prev, r_max=r_max, out=out)
-        else:
-            minplus_cuda(row, prev, want_arg=False, out=out)
-    elif branch == PATH_PLATEAU:
-        out.copy_(plateau_step(row, prev))
+        minplus_plateau_cuda(row, prev, r_max=r_max, out=out)
     else:
-        out.copy_(minplus_chain_step(row[None], prev[None])[0])
+        out.copy_(plateau_step(row, prev))
 
 
 def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
@@ -464,7 +460,9 @@ def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
     (T_pad, d1), k0, k_end, paths, live)``: the device tables hold the
     visited tiles' rows and the live slots' DP columns; [k0, k_end) is the
     visited tile range, ``paths`` the per-branch tile counts [dnc,
-    plateau, chain] and ``live`` the number of slot launches."""
+    plateau, chain] and ``live`` the live slots stepped per branch (on
+    the card: one plateau launch per plateau slot, one sweep-kernel launch
+    per chain tile)."""
     sdev, pmin_h = psd
     u, usmax, meta = jd[3], jd[4], jd[5]
     a, _, d_tot, _ = meta
@@ -483,7 +481,7 @@ def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
     prev[0] = 0.0
     best, best_t = 0.0, -1
     paths = [0, 0, 0]
-    live = 0
+    live = [0, 0, 0]
     k0 = k = a // TILE
     while k < n_tiles and usmax[min(k * TILE, T_pad - 1)] > \
             best + _PAY_EPS + lb:
@@ -497,11 +495,15 @@ def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
                 branch = PATH_PLATEAU
         paths[branch] += 1
         lo, hi = max(a, t0), min(T, t0 + TILE)
-        for t in range(lo, hi):
-            _slot_step(branch, rows[t - t0], prev, cost_buf[t], r_max)
-            prev = cost_buf[t]
-        live += max(hi - lo, 0)
         if hi > lo:
+            if branch == PATH_PLATEAU:
+                for t in range(lo, hi):
+                    _plateau_slot(rows[t - t0], prev, cost_buf[t], r_max)
+                    prev = cost_buf[t]
+            else:
+                minplus_chain(rows[lo - t0:hi - t0], prev, cost_buf[lo:hi])
+                prev = cost_buf[hi - 1]
+            live[branch] += hi - lo
             cost_d = cost_buf[lo:hi, d_tot].cpu().numpy()
             for t in range(lo, hi):
                 c = cost_d[t - lo]
@@ -600,11 +602,11 @@ def _materialize(job: Job, state: PriceState, best_t: int, rows_buf,
                     cost=cost, payoff=utility - cost, utility=utility)
 
 
-# tiles per branch, live slot launches and decisions of the tiled route
-# since the last reset (the reference's monotone fallback counters plus
-# the route's own)
+# tiles per branch, live slots stepped (all, and those of plateau tiles)
+# and decisions of the tiled route since the last reset (the reference's
+# monotone fallback counters plus the route's own)
 _monotone_counters = {"dnc": 0, "plateau": 0, "chain": 0, "slots": 0,
-                      "decisions": 0}
+                      "plateau_slots": 0, "decisions": 0}
 
 
 def monotone_counters_reset() -> None:
@@ -615,8 +617,10 @@ def monotone_counters_reset() -> None:
 def monotone_counters_snapshot() -> dict:
     """Tiles processed per min-plus branch since the last reset: ``dnc``
     (not ported, always 0), ``plateau``, ``chain``; with ``slots``, the
-    live slots the tiled route stepped (one kernel launch each on the
-    card), and ``decisions``, the tiled decisions that ran the DP."""
+    live slots the tiled route stepped, ``plateau_slots``, those of
+    plateau tiles (one plateau launch each on the card; a chain tile is
+    one sweep-kernel launch), and ``decisions``, the tiled decisions that ran the
+    DP."""
     return dict(_monotone_counters)
 
 
@@ -632,7 +636,8 @@ def _decide_tiled(job: Job, state: PriceState, m_pad: int, d1: int
         psd, jd, T=T, d1=d1, mono=mono)
     for key, n in zip(("dnc", "plateau", "chain"), paths):
         _monotone_counters[key] += n
-    _monotone_counters["slots"] += live
+    _monotone_counters["slots"] += sum(live)
+    _monotone_counters["plateau_slots"] += live[PATH_PLATEAU]
     _monotone_counters["decisions"] += 1
     return _materialize(job, state, best_t, rows_buf, cost_buf, W, Z, jd[0])
 

@@ -1,13 +1,35 @@
-// Whole-horizon banded min-plus DP sweep for Hopper (sm_90a): one
-// thread-block cluster per sweep, the carry in distributed shared memory.
-//
-// Replaces the TPU kernel src/repro/kernels/minplus/kernel.py::
-// minplus_sweep_pallas (body _minplus_sweep_kernel):
+// Banded min-plus DP over consecutive slots for Hopper (sm_90a): one
+// thread-block cluster per launch, the carry in distributed shared memory.
 //
 //     cost_t[d]  = min_{j <= min(DC, d)} rows[t, j] + cost_{t-1}[d - j]
 //     split_t[d] = the first j that attains the minimum
 //
-// from the carry cost_{-1} = [0, inf, ...], all T slots in ONE launch.
+// for t = 0 .. n_slots-1 in ONE launch, from a carry cost_{-1} that is
+// either the identity [0, inf, ...] (carry == NULL) or a column given in
+// device memory.  Two callers, two TPU kernels:
+//
+// * the whole-horizon sweep (kernel.py::minplus_sweep_cuda, NULL carry)
+//   replaces src/repro/kernels/minplus/kernel.py::minplus_sweep_pallas
+//   (body _minplus_sweep_kernel): all T slots of a decision;
+// * the tiled route's chain tile (the same wrapper given `prev`, through
+//   ops.minplus_chain; cost only, from the carry the previous tile left)
+//   replaces ::minplus_pallas (body _minplus_kernel) as that route runs
+//   it: the reference scans a tile's
+//   slots inside one device program (core/schedule_jax.py's tile body), and
+//   here a tile's live slots are one launch, where the port used to make
+//   one launch of csrc/minplus_slot.cu per slot.  minplus_slot.cu stays the
+//   one-slot entry with its argmin (ops.minplus).
+//
+// Why the tile is this kernel with a carry-in and not a minplus_tile.cu of
+// its own: a tile is this recurrence over at most 64 slots from a given
+// column; the cluster design below was measured best for it (PERF.md),
+// and the carry-in costs one branch in the prologue, where a second
+// kernel would repeat the whole handoff and be longer.  The tile's launch
+// plan (kernel.py::sweep_plan) was timed on its own at C = 4, 8 and 16
+// blocks (tools/tile_cluster_probe.py): 16 won at every 10x bucket, as for
+// the sweep.  On the card a 64-slot float64 tile takes 1.39-3.36 us a slot
+// at m_pad 64-640 (NVIDIA H100 80GB HBM3, 700 W), a 500-slot sweep's
+// rate, where one one-slot launch per slot took 3.6-12.2 us.
 //
 // What bounds it on this card.  A slot evaluates the band's
 // (DC+1)(D+1) - DC(DC+1)/2 candidates, an add and a min each, on values
@@ -61,7 +83,11 @@
 // Cost only, a thread takes the min (FMNMX in f32; in f64 a compare and a
 // select, which run faster than DMNMX): min and the first-index select
 // differ only on a tie of +0 and -0, and no candidate is -0, since the
-// carry starts at +0 and a sum is -0 only when both addends are.  So
+// carry holds no -0 and a sum is -0 only when both addends are.  The
+// identity carry starts at +0; a carry-in that the tiled route passes is
+// always a DP column of this recurrence started from the identity (the
+// previous tile's last column), so by the same argument it holds no -0
+// either, and each new column inherits that.  So
 // cost and split equal the plain PyTorch version (kernels/minplus/ref.py)
 // bit for bit in f32 and f64, for rows without NaN.  Candidates with
 // j > d read the window's +inf left pad and those with j > DC the row's
@@ -161,9 +187,10 @@ __device__ __forceinline__ double min_of<double>(double a, double b) {
 //   part_arg[S][K][w/K]  their first argmins (S > 1 and split only)
 template <typename T, bool kSplit>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
-                     int32_t* __restrict__ split, int n_slots, int dc1,
-                     int d1, int w, int jpad, int n_jgroups) {
+minplus_sweep_kernel(const T* __restrict__ rows, const T* __restrict__ carry,
+                     T* __restrict__ cost, int32_t* __restrict__ split,
+                     int n_slots, int dc1, int d1, int w, int jpad,
+                     int n_jgroups) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* slice = reinterpret_cast<T*>(smem_raw);
@@ -188,8 +215,15 @@ minplus_sweep_kernel(const T* __restrict__ rows, T* __restrict__ cost,
   const int jlo = s * j_step;
   const int jhi = min(min(jlo + j_step, j_block), col0 + c0 + K);
 
-  for (int c = tid; c < w; c += nthreads)
-    slice[c] = col0 + c == 0 ? T(0) : inf;
+  // cost_{-1}: the carry-in, or the identity; +inf past D (never read by
+  // a column below D+1)
+  for (int c = tid; c < w; c += nthreads) {
+    const int col = col0 + c;
+    if (carry != nullptr)
+      slice[c] = col < d1 ? carry[col] : inf;
+    else
+      slice[c] = col == 0 ? T(0) : inf;
+  }
   for (int j = dc1 + tid; j < jpad; j += nthreads) row_buf[j] = inf;
   cluster.sync();  // every block's slice of the carry is in place
 
@@ -382,9 +416,9 @@ cudaError_t prepare(const cudaLaunchConfig_t& cfg, int cluster) {
 }
 
 template <typename T, bool kSplit>
-int launch_split(const void* rows, void* cost, void* split, int n_slots,
-                 int dc1, int d1, int cluster, int w, int jpad, int n_jgroups,
-                 void* stream) {
+int launch_split(const void* rows, const void* carry, void* cost, void* split,
+                 int n_slots, int dc1, int d1, int cluster, int w, int jpad,
+                 int n_jgroups, void* stream) {
   auto kern = minplus_sweep_kernel<T, kSplit>;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -401,16 +435,17 @@ int launch_split(const void* rows, void* cost, void* split, int n_slots,
   cudaError_t err = prepare<T, kSplit>(cfg, cluster);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(rows),
-                           static_cast<T*>(cost), static_cast<int32_t*>(split),
-                           n_slots, dc1, d1, w, jpad, n_jgroups);
+                           static_cast<const T*>(carry), static_cast<T*>(cost),
+                           static_cast<int32_t*>(split), n_slots, dc1, d1, w,
+                           jpad, n_jgroups);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch(const void* rows, void* cost, void* split, int n_slots, int dc1,
-           int d1, int cluster, int w, int jpad, int n_jgroups,
-           void* stream) {
+int launch(const void* rows, const void* carry, void* cost, void* split,
+           int n_slots, int dc1, int d1, int cluster, int w, int jpad,
+           int n_jgroups, void* stream) {
   // the plan's invariants (kernel.py::sweep_plan); anything else is refused
   if (cluster < 1 || cluster > kMaxCluster || w < K || w % K != 0 ||
       jpad < dc1 || jpad % K != 0 ||
@@ -418,33 +453,35 @@ int launch(const void* rows, void* cost, void* split, int n_slots, int dc1,
       (w / K) * n_jgroups > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   if (split != nullptr)
-    return launch_split<T, true>(rows, cost, split, n_slots, dc1, d1, cluster,
-                                 w, jpad, n_jgroups, stream);
-  return launch_split<T, false>(rows, cost, split, n_slots, dc1, d1, cluster,
-                                w, jpad, n_jgroups, stream);
+    return launch_split<T, true>(rows, carry, cost, split, n_slots, dc1, d1,
+                                 cluster, w, jpad, n_jgroups, stream);
+  return launch_split<T, false>(rows, carry, cost, split, n_slots, dc1, d1,
+                                cluster, w, jpad, n_jgroups, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows (n_slots, dc1), cost (n_slots, d1) contiguous on the device;
-// split (n_slots, d1) int32 or NULL for a cost-only sweep; the launch
-// plan (kernel.py::sweep_plan): cluster size, columns per block w, padded
-// band jpad, j groups.  Enqueued on `stream`; returns the
-// cudaError_t of the launch (0 = launched).
-int minplus_sweep_f32(const void* rows, void* cost, void* split, int n_slots,
-                      int dc1, int d1, int cluster, int w, int jpad,
-                      int n_jgroups, void* stream) {
-  return launch<float>(rows, cost, split, n_slots, dc1, d1, cluster, w, jpad,
-                       n_jgroups, stream);
+// rows (n_slots, dc1), cost (n_slots, d1) contiguous on the device
+// (cost may be rows of a larger table); carry (d1,) the column entering
+// slot 0, or NULL for the identity [0, inf, ...]; split (n_slots, d1)
+// int32 or NULL for cost only; the launch plan (kernel.py::sweep_plan):
+// cluster size, columns per block w, padded band jpad, j
+// groups.  Enqueued on `stream`; returns the cudaError_t of the launch
+// (0 = launched).
+int minplus_sweep_f32(const void* rows, const void* carry, void* cost,
+                      void* split, int n_slots, int dc1, int d1, int cluster,
+                      int w, int jpad, int n_jgroups, void* stream) {
+  return launch<float>(rows, carry, cost, split, n_slots, dc1, d1, cluster, w,
+                       jpad, n_jgroups, stream);
 }
 
-int minplus_sweep_f64(const void* rows, void* cost, void* split, int n_slots,
-                      int dc1, int d1, int cluster, int w, int jpad,
-                      int n_jgroups, void* stream) {
-  return launch<double>(rows, cost, split, n_slots, dc1, d1, cluster, w, jpad,
-                        n_jgroups, stream);
+int minplus_sweep_f64(const void* rows, const void* carry, void* cost,
+                      void* split, int n_slots, int dc1, int d1, int cluster,
+                      int w, int jpad, int n_jgroups, void* stream) {
+  return launch<double>(rows, carry, cost, split, n_slots, dc1, d1, cluster, w,
+                        jpad, n_jgroups, stream);
 }
 
 const char* minplus_error_string(int code) {

@@ -11,8 +11,12 @@ Three kernels, each in its own ``csrc/*.cu`` with its design notes:
   picks the cluster size (up to 16 blocks) and the split of the j range
   over thread groups, and refuses a band whose buffers
   cannot fit the 227 KB (232,448 bytes) a block may use.
-* :func:`minplus_cuda` (``minplus_slot.cu``) replaces ``minplus_pallas``:
-  one slot with the first-index argmin (or cost only).  Grid of
+  From a carry-in (``prev``), cost only, the same launch replaces
+  ``minplus_pallas`` as the tiled route runs it: the live slots of one
+  chain tile in one launch, under the same plan.
+* :func:`minplus_cuda` (``minplus_slot.cu``), the one-slot entry behind
+  ``ops.minplus``: one slot with the first-index argmin (or cost only),
+  the function of ``minplus_pallas``.  Grid of
   ``ceil((D+1) / 256)`` blocks of 256 threads, one output each; the row
   and the block's window of the carry (``2 (DC+1) + 255`` values) are
   staged in shared memory when they fit (:func:`slot_plan`), else read
@@ -66,7 +70,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sweep": ("minplus_sweep", [_P, _P, _P] + [_I] * 7 + [_P],
+    "sweep": ("minplus_sweep", [_P, _P, _P, _P] + [_I] * 7 + [_P],
               "minplus_error_string"),
     "slot": ("minplus_slot", [_P, _P, _P, _P, _I, _I, _I, _P],
              "minplus_slot_error_string"),
@@ -162,13 +166,16 @@ def _sweep_plan_at(dc1: int, d1: int, size: int,
 
 
 def sweep_plan(dc1: int, d1: int, dtype: torch.dtype) -> SweepPlan:
-    """The sweep's launch plan for a (DC+1)-wide band over D+1 columns
-    (module docstring).  Pure: the CPU tests call it on every shape
-    bucket.  The cluster is the largest of :data:`SWEEP_CLUSTERS` that
-    leaves every block at least :data:`SWEEP_MIN_COLUMNS` columns (so
-    d1 = 64 C takes C blocks), or the next larger one where that does not
-    fit.  Raises ValueError where no plan fits shared memory or the
-    threads of a block."""
+    """The kernel's launch plan for a (DC+1)-wide band over D+1 columns
+    (module docstring), for the whole-horizon sweep and the chain tile
+    alike: the layout holds one slot's row and the carry, whatever the
+    number of slots.  Pure: the CPU tests call it on every shape bucket.
+    The cluster is the largest of :data:`SWEEP_CLUSTERS` that leaves every
+    block at least :data:`SWEEP_MIN_COLUMNS` columns (so d1 = 64 C takes C
+    blocks), or the next larger one where that does not fit (64-slot
+    tiles timed at C = 4, 8 and 16 keep the rule: PERF.md,
+    ``tools/tile_cluster_probe.py``).  Raises ValueError where no plan
+    fits shared memory or the threads of a block."""
     size = torch.empty((), dtype=dtype).element_size()
     first = min(SWEEP_CLUSTERS[-1], _pow2_floor(d1 // SWEEP_MIN_COLUMNS))
     for c in SWEEP_CLUSTERS:
@@ -185,18 +192,29 @@ def sweep_plan(dc1: int, d1: int, dtype: torch.dtype) -> SweepPlan:
 
 def minplus_sweep_cuda(rows: torch.Tensor, d_total: int, *,
                        want_split: bool = True,
+                       prev: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None,
                        plan: Optional[SweepPlan] = None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The DP sweep of :func:`..ref.minplus_sweep_ref` as one CUDA launch
-    of one thread-block cluster.
+    of one thread-block cluster, from the identity carry [0, inf, ...];
+    or, given the carry ``prev`` (D+1,), cost only from it: ``cost[i, d]
+    = min_j rows[i, j] + cost[i-1, d-j]`` with ``cost[-1] = prev``, the
+    value of :func:`.tiled.minplus_tile` bit for bit where ``prev`` holds
+    no -0 (a DP column started from the identity never does).  The
+    tiled core steps the live slots of a chain tile so.
 
-    rows: (T, DC+1) float32 or float64, contiguous, on a CUDA device.
-    Returns ``(cost (T, D+1), split (T, D+1) int32 or None)``; the split
-    is skipped when ``want_split`` is False.  ``plan`` overrides
-    :func:`sweep_plan` (a test may force a plan of its own).  Launches on
-    the current stream without synchronising;
-    ``minplus_sweep_cuda.launches`` counts the launches."""
-    _check("minplus_sweep_cuda", rows=rows)
+    rows: (T, DC+1) float32 or float64, contiguous, on a CUDA device;
+    ``prev`` and ``out`` likewise, on the same device.  Returns ``(cost
+    (T, D+1), split (T, D+1) int32 or None)``; ``out`` (T, D+1), when
+    given, receives the cost (the tiled core passes rows of its cost
+    table); the split is skipped when ``want_split`` is False or a carry
+    is given.  ``plan`` overrides :func:`sweep_plan` (a test may force a
+    plan of its own).  Launches on the current stream without
+    synchronising; ``minplus_sweep_cuda.launches`` counts the launches;
+    T = 0 launches nothing."""
+    given = {k: t for k, t in (("prev", prev), ("out", out)) if t is not None}
+    _check("minplus_sweep_cuda", rows=rows, **given)
     if rows.ndim != 2:
         raise ValueError("rows must be a (T, DC+1) tensor")
     T, dc1 = rows.shape
@@ -204,24 +222,32 @@ def minplus_sweep_cuda(rows: torch.Tensor, d_total: int, *,
     if dc1 < 1 or d1 < 1:
         raise ValueError(f"empty band: rows {tuple(rows.shape)}, "
                          f"d_total {d_total}")
-    plan = plan or sweep_plan(dc1, d1, rows.dtype)
-    cost = torch.empty((T, d1), dtype=rows.dtype, device=rows.device)
+    if prev is not None and prev.shape != (d1,):
+        raise ValueError(f"minplus_sweep_cuda: prev {tuple(prev.shape)} "
+                         f"must be {(d1,)}")
+    if out is None:
+        out = torch.empty((T, d1), dtype=rows.dtype, device=rows.device)
+    elif out.shape != (T, d1):
+        raise ValueError(f"minplus_sweep_cuda: out {tuple(out.shape)} must "
+                         f"be {(T, d1)}")
     split = (torch.empty((T, d1), dtype=torch.int32, device=rows.device)
-             if want_split else None)
+             if want_split and prev is None else None)
     if T == 0:
-        return cost, split
+        return out, split
+    plan = plan or sweep_plan(dc1, d1, rows.dtype)
     _launch("sweep", rows.dtype, rows.device, rows.data_ptr(),
-            cost.data_ptr(), split.data_ptr() if split is not None else None,
+            prev.data_ptr() if prev is not None else None, out.data_ptr(),
+            split.data_ptr() if split is not None else None,
             T, dc1, d1, plan.cluster, plan.w, plan.jpad, plan.jgroups)
     minplus_sweep_cuda.launches += 1
-    return cost, split
+    return out, split
 
 
 minplus_sweep_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# One slot with its argmin (the tiled core's chain step)
+# One slot with its argmin (the one-slot entry, ops.minplus)
 # ---------------------------------------------------------------------------
 
 def slot_plan(dc1: int, dtype: torch.dtype) -> bool:
@@ -248,18 +274,16 @@ def _slot_args(name: str, row: torch.Tensor, prev: torch.Tensor,
 
 
 def minplus_cuda(row: torch.Tensor, prev: torch.Tensor, *,
-                 want_arg: bool = True, out: Optional[torch.Tensor] = None,
-                 staged: Optional[bool] = None
+                 want_arg: bool = True, staged: Optional[bool] = None
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One slot of :func:`..ref.minplus_ref` as one CUDA launch:
     ``new[d] = min_j row[j] + prev[d - j]`` and the first-index argmin
     (skipped when ``want_arg`` is False).
 
     row (DC+1,), prev (D+1,): float32 or float64, contiguous, one CUDA
-    device.  ``out`` (D+1,) receives ``new`` when given (the tiled core
-    passes its cost-table row).  ``staged`` overrides :func:`slot_plan`.
+    device.  ``staged`` overrides :func:`slot_plan`.
     Returns ``(new, arg int32 or None)``."""
-    dtype, out = _slot_args("minplus_cuda", row, prev, out)
+    dtype, out = _slot_args("minplus_cuda", row, prev, None)
     if staged is None:
         staged = slot_plan(row.numel(), dtype)
     arg = (torch.empty(prev.shape, dtype=torch.int32, device=prev.device)
@@ -318,8 +342,9 @@ def minplus_plateau_cuda(row: torch.Tensor, prev: torch.Tensor, *,
     Fast for rows of at most ``r_max`` runs of bitwise-equal values (the
     caller's gate, :func:`.monotone.run_count`); a row with more takes the
     kernel's direct loop and is still right.  No lane padding, so no
-    padding run is added.  Shapes, dtypes and ``out`` as
-    :func:`minplus_cuda`; ``plan`` overrides :func:`plateau_plan`."""
+    padding run is added.  Shapes and dtypes as :func:`minplus_cuda`;
+    ``out`` (D+1,) receives the result when given (the tiled core passes
+    its cost-table row); ``plan`` overrides :func:`plateau_plan`."""
     dtype, out = _slot_args("minplus_plateau_cuda", row, prev, out)
     if r_max < 1:
         raise ValueError(f"r_max must be >= 1, not {r_max}")

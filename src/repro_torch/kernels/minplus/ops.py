@@ -10,6 +10,7 @@ import torch
 from .kernel import minplus_cuda, minplus_plateau_cuda, minplus_sweep_cuda
 from .monotone import plateau_step, run_count
 from .ref import minplus_ref, minplus_sweep_ref
+from .tiled import minplus_tile
 
 
 def minplus(row: torch.Tensor, prev: torch.Tensor
@@ -46,3 +47,15 @@ def minplus_sweep(rows: torch.Tensor, d_total: int, *,
         return minplus_sweep_cuda(rows, d_total, want_split=want_split)
     cost, split = minplus_sweep_ref(rows, d_total)
     return cost, split if want_split else None
+
+
+def minplus_chain(rows: torch.Tensor, prev: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """Cost-only DP columns of the slots ``rows`` (n, DC+1) from the carry
+    ``prev`` (D+1,), written into ``out`` (n, D+1): one launch of the
+    sweep kernel from that carry on the card, :func:`.tiled.minplus_tile`
+    on the CPU."""
+    if rows.is_cuda:
+        return minplus_sweep_cuda(rows, prev.numel() - 1, prev=prev,
+                                  out=out)[0]
+    return out.copy_(minplus_tile(rows[:, None, :], prev[None])[1][:, 0])

@@ -1,6 +1,7 @@
 """The port's CUDA min-plus kernels on the card, against their plain
-versions: the DP sweep, the one-slot kernel (A) and the plateau kernel
-(B), and both decision routes on the card against the CPU.
+versions: the DP sweep, the chain tile (the sweep from a carry-in),
+the one-slot kernel (A) and the plateau kernel (B), and both
+decision routes on the card against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
 on a machine that has the card but no JAX:
@@ -24,6 +25,7 @@ from repro_torch.kernels.minplus.kernel import (minplus_cuda,
                                                 minplus_sweep_cuda)
 from repro_torch.kernels.minplus.monotone import plateau_step, run_count
 from repro_torch.kernels.minplus.ref import minplus_ref, minplus_sweep_ref
+from repro_torch.kernels.minplus.tiled import minplus_tile
 from repro_torch.sim import engine, workload
 
 # tests/test_kernels.py's sweep shapes, the slice's (m_pad, d1) buckets,
@@ -143,12 +145,11 @@ def test_cuda_sweep_every_cluster_size(card, cluster, dtype):
 def test_cuda_slot_kernel_equals_plain_version(card, dc1, d1, dtype):
     row, prev = _row_prev(dc1, d1, dtype)
     new, arg = minplus_cuda(row, prev)
-    out = torch.empty_like(prev)
-    cost_only, none = minplus_cuda(row, prev, want_arg=False, out=out)
+    cost_only, none = minplus_cuda(row, prev, want_arg=False)
     unstaged, _ = minplus_cuda(row, prev, staged=False)
     ref_new, ref_arg = minplus_ref(row, prev)
     torch.cuda.synchronize()
-    assert none is None and cost_only is out and arg.dtype == torch.int32
+    assert none is None and arg.dtype == torch.int32
     assert _bits(new, ref_new) and torch.equal(arg, ref_arg)
     assert _bits(cost_only, ref_new) and _bits(unstaged, ref_new)
 
@@ -170,18 +171,119 @@ def test_cuda_plateau_kernel_equals_plain_version(card, dc1, d1, dtype):
         assert _bits(got, want) and _bits(glob, want) and _bits(got, chain)
 
 
+def _dp_carry(dc1, d1, dtype, seed, slots=5):
+    """A real DP column on the card: the sweep's last column after
+    ``slots`` seeded slots from the identity, as one tile hands the next."""
+    rows = _rows(slots, dc1, d1, 0.3)
+    rows = np.round(rows * 8) / 8 + seed % 3
+    rows[:, 0] = 0.0
+    return minplus_sweep_ref(torch.tensor(rows, dtype=dtype, device="cuda"),
+                             d1 - 1)[0][-1].contiguous()
+
+
+def _identity(d1, dtype):
+    prev = torch.full((d1,), float("inf"), dtype=dtype, device="cuda")
+    prev[0] = 0.0
+    return prev
+
+
+def _tile_equals_plain(rows, prev):
+    """One tile launch into rows [2, n+2) of a NaN-filled table: bitwise
+    the plain tile's columns, every other row untouched."""
+    n, d1 = rows.shape[0], prev.numel()
+    table = torch.full((n + 4, d1), float("nan"), dtype=prev.dtype,
+                       device="cuda")
+    before = minplus_sweep_cuda.launches
+    got, split = minplus_sweep_cuda(rows, d1 - 1, prev=prev,
+                                    out=table[2:n + 2])
+    want = minplus_tile(rows[:, None, :], prev[None])[1][:, 0]
+    torch.cuda.synchronize()
+    assert minplus_sweep_cuda.launches == before + 1 and split is None
+    assert got.data_ptr() == table[2].data_ptr()
+    assert _bits(table[2:n + 2], want)
+    assert torch.isnan(table[:2]).all() and torch.isnan(table[n + 2:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 17, 64])
+@pytest.mark.parametrize("dc1", [64, 128, 256, 384, 512, 640])
+def test_cuda_tile_equals_minplus_tile(card, dc1, n, dtype):
+    """At each 10x bucket (d1 = 1280), tiles of 1, 17 and 64 slots from
+    the identity and from a real DP column: bitwise ``minplus_tile``, on
+    random rows with +inf cells and on staircase rows full of ties."""
+    d1 = 1280
+    for rows in (_rows(n, dc1, d1, 0.4), _stair_rows(n, dc1, d1)):
+        rows = torch.tensor(rows, dtype=dtype, device="cuda")
+        for prev in (_identity(d1, dtype), _dp_carry(dc1, d1, dtype, n)):
+            _tile_equals_plain(rows, prev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster", [4, 8, 16])
+@pytest.mark.parametrize("dc1", [64, 640])
+def test_cuda_tile_every_cluster_size(card, dc1, cluster, dtype):
+    """64-slot tiles under clusters of 4, 8 and 16 blocks, reached
+    through d1 = 64 C columns, with the narrowest and the widest 10x band
+    (cut to d1): bitwise ``minplus_tile``."""
+    d1 = 64 * cluster
+    dc1 = min(dc1, d1)
+    assert kernel.sweep_plan(dc1, d1, dtype).cluster == cluster
+    rows = torch.tensor(_rows(64, dc1, d1, 0.4), dtype=dtype, device="cuda")
+    _tile_equals_plain(rows, _dp_carry(dc1, d1, dtype, cluster))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dc1", [64, 2688, 8960])
+def test_cuda_tile_wide_shapes(card, dc1, dtype):
+    """The wide jobs' d1 = 20480 with the narrowest band and the widest of
+    the T=100 and the 10x traces: three slots from a real DP column."""
+    d1 = 20480
+    rows = torch.tensor(_rows(3, dc1, d1, 0.4), dtype=dtype, device="cuda")
+    _tile_equals_plain(rows, _dp_carry(dc1, d1, dtype, 2, slots=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_sweep_null_carry_unchanged(card, dtype):
+    """The whole route's sweep passes no carry: it equals the plain sweep
+    and a tile launched from the identity column, bit for bit, and a
+    carry-in launch refuses a mismatched ``out`` on the card."""
+    T, dc1, d1 = 500, 256, 1280
+    rows = torch.tensor(_rows(T, dc1, d1, 0.4), dtype=dtype, device="cuda")
+    cost, _ = minplus_sweep_cuda(rows, d1 - 1, want_split=False)
+    tile, _ = minplus_sweep_cuda(rows, d1 - 1, prev=_identity(d1, dtype))
+    ref_cost, _ = minplus_sweep_ref(rows, d1 - 1)
+    torch.cuda.synchronize()
+    assert _bits(cost, ref_cost) and _bits(tile, ref_cost)
+    with pytest.raises(ValueError, match="out"):
+        minplus_sweep_cuda(rows, d1 - 1, prev=_identity(d1, dtype),
+                           out=torch.empty((T - 1, d1), dtype=dtype,
+                                           device="cuda"))
+
+
 @pytest.mark.cuda
 def test_tiled_route_on_card_equals_cpu_one_launch_per_live_slot(card):
+    """The tiled route on the card: one tile launch per chain tile (every
+    visited tile has live slots), one plateau launch per live slot of a
+    plateau tile, and no one-slot launch; the same trajectory as on the
+    CPU."""
     cluster = workload.make_cluster(T=100, H=20, K=20)
     jobs = workload.make_jobs(40, T=100, seed=1)
-    before = (minplus_cuda.launches, minplus_plateau_cuda.launches)
+    before = (minplus_cuda.launches, minplus_plateau_cuda.launches,
+              minplus_sweep_cuda.launches)
     schedule_torch.monotone_counters_reset()
     gpu = engine.run(cluster, jobs, quantum=0, core="tiled")
     snap = schedule_torch.monotone_counters_snapshot()
-    launched = (minplus_cuda.launches - before[0]
-                + minplus_plateau_cuda.launches - before[1])
-    assert launched == snap["slots"] > 0
-    assert snap["plateau"] > 0 and snap["chain"] > 0
+    slot, plateau, tile = (x - y for x, y in zip(
+        (minplus_cuda.launches, minplus_plateau_cuda.launches,
+         minplus_sweep_cuda.launches), before))
+    assert slot == 0
+    assert tile == snap["chain"] > 0
+    assert plateau == snap["plateau_slots"] > 0
+    assert snap["plateau"] > 0 and snap["slots"] > snap["plateau_slots"]
     cpu = engine.run(cluster, jobs, quantum=0, core="tiled", device="cpu")
     assert gpu.completion == cpu.completion
     assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)

@@ -13,7 +13,14 @@ package, and the sweep's launch plan.
   reference ``plateau_step`` bit for bit in float32, for every run count
   up to ``r_max`` and with +inf runs; ``ops.minplus_monotone`` must equal
   ``ops.minplus``'s cost on every row kind of ``tests/test_monotone.py``.
-* The tiled building blocks equal the reference's.
+* The tiled building blocks equal the reference's, and the chain tile
+  (``minplus_sweep_cuda`` from a carry-in, replacing ``minplus_pallas``
+  on the tiled route): its plain version ``tiled.minplus_tile`` from a
+  carry that is not the identity equals the per-slot chain step and the
+  reference's ``minplus_tile`` bit for bit, its launch plan
+  (``sweep_plan``) takes every trace bucket at every tile length, and
+  the kernel's decomposition replayed from a carry-in equals it under
+  every cluster size a tile can take.
 * ``sweep_plan`` takes every (m_pad, d1) shape bucket of the repo's
   unquantized traces: the sweep refuses no shape the reference decides.
   A numpy replay of the CUDA sweep's decomposition (the cluster's carry
@@ -205,6 +212,118 @@ def test_slot_wrappers_refuse_cpu_tensors(fn):
     with pytest.raises(ValueError):
         fn(torch.zeros(3, dtype=torch.float64),
            torch.zeros(7, dtype=torch.float64))
+
+
+def test_tile_wrapper_refuses_cpu_tensors():
+    rows = torch.zeros((4, 3), dtype=torch.float64)
+    prev = torch.zeros(7, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel.minplus_sweep_cuda(rows, 6, prev=prev,
+                                  out=torch.zeros((4, 7),
+                                                  dtype=torch.float64))
+
+
+def _dp_carry(dc1, d1, dtype, seed, slots=5):
+    """A carry that is a real DP column: the sweep's last column after
+    ``slots`` seeded slots from the identity (finite and +inf cells, no
+    -0), as the tiled core hands one tile to the next."""
+    rng = np.random.default_rng(seed)
+    rows = np.round(rng.random((slots, dc1)) * 8) / 8
+    rows[rng.random((slots, dc1)) < 0.3] = np.inf
+    rows[:, 0] = 0.0
+    return minplus_sweep_ref(torch.tensor(rows.astype(dtype)), d1 - 1)[0][-1]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,dc1,d1", [(1, 17, 33), (17, 65, 300),
+                                      (64, 64, 1280), (5, 640, 1280)])
+def test_minplus_tile_from_carry_equals_chain_steps(jax_shims, n, dc1, d1,
+                                                    dtype):
+    """From a DP column and from an arbitrary carry (ties, +inf cells),
+    the plain tile equals the per-slot chain step column by column, the
+    reference's ``minplus_tile`` bit for bit, and ``ops.minplus_chain``
+    (the route's dispatch) writes the same columns into rows of a larger
+    table, leaving the others untouched and launching nothing."""
+    import jax
+    rng = np.random.default_rng(n * d1 + dc1)
+    rows = _stair_rows(rng, n, dc1, dtype)
+    rows[rng.random(rows.shape) < 0.2] = np.inf
+    rows[:, 0] = 0.0
+    rand = (np.round(rng.random(d1) * 8) / 8).astype(dtype)
+    rand[rng.random(d1) < 0.3] = np.inf
+    for prev in (_dp_carry(dc1, d1, dtype, n + dc1), torch.tensor(rand)):
+        rows_t = torch.tensor(rows)
+        carry, cols = tiled.minplus_tile(rows_t[:, None, :], prev[None])
+        assert cols.shape == (n, 1, d1) and _bits(carry[0], cols[-1, 0])
+        step = prev
+        for t in range(n):
+            step = tiled.minplus_chain_step(rows_t[t][None], step[None])[0]
+            assert _bits(cols[t, 0].numpy(), step.numpy()), t
+        with jax.enable_x64(dtype == np.float64):
+            j_carry, j_cols = jax_tiled.minplus_tile(
+                jnp.asarray(rows)[:, None, :], jnp.asarray(prev.numpy())[None])
+            j_cols = np.asarray(j_cols)
+        assert _bits(cols.numpy(), j_cols)
+        table = torch.full((n + 3, d1), float("nan"),
+                           dtype=rows_t.dtype)
+        before = kernel.minplus_sweep_cuda.launches
+        got = ops.minplus_chain(rows_t, prev, table[2:n + 2])
+        assert kernel.minplus_sweep_cuda.launches == before
+        assert _bits(got.numpy(), cols[:, 0].numpy())
+        assert _bits(table[2:n + 2].numpy(), cols[:, 0].numpy())
+        assert torch.isnan(table[:2]).all() and torch.isnan(table[n + 2:]).all()
+
+
+def test_tile_plan_takes_every_trace_bucket():
+    """The chain tile plans a launch within the 227 KB of shared memory a
+    block may use on every shape bucket of the repo's unquantized traces,
+    in float32 and float64, whatever the tile's length (1 to 64 slots: the
+    kernel's buffers hold one slot's row and the carry, never the tile),
+    and refuses a band wider than shared memory."""
+    buckets = _trace_buckets()
+    k = kernel.SWEEP_K
+    for m_pad, d1 in buckets:
+        for dtype in (torch.float32, torch.float64):
+            size = 8 if dtype == torch.float64 else 4
+            plans = {n: kernel.sweep_plan(m_pad, d1, dtype)
+                     for n in range(1, tiled.TILE + 1)}
+            p = plans[tiled.TILE]
+            assert set(plans.values()) == {p}
+            assert p.cluster in kernel.SWEEP_CLUSTERS and p.cluster > 1
+            assert p.cluster * p.w >= d1 and p.w % k == 0
+            assert p.jpad >= m_pad and p.jpad % k == 0
+            assert p.threads == p.w // k * p.jgroups \
+                <= kernel.SWEEP_MAX_THREADS
+            part = p.jgroups * p.w if p.jgroups > 1 else 0
+            assert p.smem_bytes == size * (3 * p.w + 2 * p.jpad + part) \
+                + 4 * part <= kernel.SMEM_LIMIT
+    with pytest.raises(ValueError, match=str(kernel.SMEM_LIMIT)):
+        kernel.sweep_plan(20000, 20480, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dc1", [64, 128, 256, 384, 512, 640])
+def test_tile_replay_from_carry_equals_minplus_tile(dc1, dtype):
+    """The kernel's decomposition, replayed in numpy from a carry-in that
+    is a DP column (the kernel loads it into the blocks' slices in place
+    of the identity), equals the plain tile bit for bit over three slots:
+    at each 10x bucket (d1 = 1280, a cluster of 16) and under clusters of
+    4 and 8, reached through d1 = 64 C columns (the band cut to d1)."""
+    n = 3
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    for c, d1 in ((16, 1280), (4, 256), (8, 512)):
+        band = min(dc1, d1)
+        rng = np.random.default_rng(dc1 + d1)
+        rows = _stair_rows(rng, n, band, dtype)
+        prev = _dp_carry(band, d1, dtype, dc1)
+        want = tiled.minplus_tile(torch.tensor(rows)[:, None, :],
+                                  prev[None])[1][:, 0].numpy()
+        plan = kernel.sweep_plan(band, d1, tdt)
+        assert plan.cluster == c
+        col = prev.numpy()
+        for t in range(n):
+            col, _ = _replay_slot(rows[t], col, plan)
+            assert _bits(col, want[t]), (plan, t)
 
 
 def _trace_buckets():

@@ -84,7 +84,8 @@ def _core_parity(job, rjob, state, ref_state):
     assert (int(j_k0), int(j_kend)) == (k0, k_end)
     assert list(np.asarray(j_paths)) == paths
     lo, hi = max(job.arrival, k0 * TILE), min(T, k_end * TILE)
-    assert live == max(hi - lo, 0)
+    assert sum(live) == max(hi - lo, 0)
+    assert [n > 0 for n in live] == [n > 0 for n in paths]
     assert _bits(cost[lo:hi].numpy(), j_cost[0, lo:hi])
     if best_t >= 0:
         a, d_tot = job.arrival, job.workload
