@@ -17,9 +17,11 @@ the plateau kernel.  The one-slot kernel is the one-slot entry's
 (``ops.minplus``), driven on its own with its count set to 0.
 Unquantized full-size jobs (d1 up to 20480) then go through both routes.
 
-The model stack's slice follows: the Mamba2 SSD scan and both flash
-attention kernels (tensor cores for bfloat16, CUDA cores for float32)
-against their plain versions (test shapes and Zamba2-7B's prefill
+The model stack's slice follows: the Mamba2 SSD scan (chunks in
+parallel across a thread-block cluster, chunk products on the tensor
+cores) and both flash attention kernels (tensor cores for bfloat16, CUDA
+cores for float32) against their plain versions (test shapes, a row of
+several cluster segments from an initial state, and Zamba2-7B's prefill
 shapes, every launch plan), the Zamba2 smoke model on the card against
 the CPU, a full-width Zamba2-7B prefill in float32 against its own
 teacher-forced decode (the float32 path: 81 SSD and 13 CUDA-core flash
@@ -81,6 +83,7 @@ from repro_torch.sim.workload import make_cluster, make_jobs  # noqa: E402
 # the HBM3 bandwidth
 PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12,
             torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12             # the tensor cores' dense TF32 rate
 PEAK_BYTES = 3.35e12
 
 # tests/test_kernels.py's sweep shapes, then the slice's: T in {100, 500},
@@ -790,12 +793,16 @@ def profile_phase(core, n_jobs=400):
 # ---------------------------------------------------------------------------
 
 # (b, L, H, P, G, N, chunk): tests/test_kernels.py's SSD shapes, Zamba2's
-# per-head shape at a short ragged L, and Zamba2-7B's prefill shape (batch
-# 4, prompt 2048: 448 rows of L 2048, P = N = 64, Q 128)
+# per-head shape at a short ragged L and at one ragged chunk, and
+# Zamba2-7B's prefill shape (batch 4, prompt 2048: 448 rows of L 2048,
+# P = N = 64, Q 128); the plans take clusters of 1, 2, 4 and 8 blocks
 SSD_TEST_SHAPES = [(1, 32, 2, 16, 1, 16, 16), (2, 64, 4, 32, 2, 32, 32),
                    (1, 100, 4, 64, 1, 64, 64), (2, 256, 8, 64, 4, 128, 128),
-                   (1, 300, 4, 64, 1, 64, 128)]
+                   (1, 300, 4, 64, 1, 64, 128), (2, 40, 4, 64, 2, 64, 128)]
 SSD_ZAMBA = (4, 2048, 112, 64, 1, 64, 128)
+# a row of more chunks than one cluster holds (65 kernel chunks of 64:
+# nine segments of 8), G > 1, run from an initial state
+SSD_SEGMENTED = (2, 4133, 8, 64, 2, 64, 128)
 # (B, Sq, Sk, H, KV, D): tests/test_kernels.py's sweep plus D = 112, then
 # Zamba2-7B's shared attention at the prefill (causal; bf16 as served, and
 # float32, where 2e-5 holds every key block of the 32 query blocks)
@@ -829,76 +836,89 @@ def _ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
             rnd((b, L, G, N), 0.3).to(dtype))
 
 
-def _ssd_plans(P, N, Q):
-    """The planned score tile and a ragged one of ceil(Q/3) rows."""
-    return [ssd_kernel.ssd_plan(P, N, Q),
-            ssd_kernel.ssd_plan(P, N, Q, qb=(Q + 2) // 3)]
-
-
 def _ssd_bounds(b, L, H, P, G, N, Q, dtype):
-    """(ms over the ops peak, ms over HBM) for one scan: the multiply-adds
-    of the four chunk products over each chunk's real steps q (C B^T and
-    scores x over the q(q+1)/2 causal pairs, C state and the state update
-    over q P N each), two operations apiece at the inputs' type's peak;
-    x, dt, A, B, C read and y, the final state written once."""
+    """(ms over the float32 CUDA-core peak, ms over the tensor cores' peak
+    at the precision the kernel takes, ms over HBM) for one scan at the
+    chunk the kernel computes at (``ssd_plan``'s steps, not the model's
+    Q: the scan is the same function at any chunk, and a shorter chunk
+    has fewer causal pairs): the multiply-adds of the four chunk products
+    over each chunk's real steps q (C B^T and scores x over the q(q+1)/2
+    causal pairs, C state and the state update over q P N each), two
+    operations apiece; float32 inputs take three TF32 passes, bfloat16
+    ones are counted at the bf16 rate; x, dt, A, B, C read and y, the
+    final state written once."""
+    steps = ssd_kernel.ssd_plan(L, P, N, Q).steps
     macs = 0
-    for c0 in range(0, L, Q):
-        q = min(Q, L - c0)
+    for c0 in range(0, L, steps):
+        q = min(steps, L - c0)
         macs += q * (q + 1) // 2 * (N + P) + 2 * q * P * N
     ops = 2.0 * b * H * macs
+    tc = (3 * ops / PEAK_TF32 if dtype == torch.float32
+          else ops / PEAK_OPS[torch.bfloat16])
     size = dtype.itemsize
     nbytes = (b * L * H * P * size + b * L * H * 4 + H * 4
               + 2 * b * L * G * N * size + b * L * H * P * 4
               + b * H * P * N * 4)
-    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops / PEAK_OPS[torch.float32] * 1e3, tc * 1e3,
+            nbytes / PEAK_BYTES * 1e3)
 
 
 def ssd_phase():
     """The SSD kernel == its plain versions (the chunked model version and
     the sequential oracle) within 1e-3, y and final state, f32 and bf16,
-    at every launch plan; at Zamba2-7B's prefill shape in float32 (the
-    serving path's type: its causal conv, with float32 weights, hands the
-    scan float32 x, B and C) timed against the chunked plain version."""
+    at every cluster size the plan takes, also over a row of several
+    cluster segments from an initial state; at Zamba2-7B's prefill shape in
+    float32 (the serving path's type: its causal conv, with float32
+    weights, hands the scan float32 x, B and C) timed against the chunked
+    plain version."""
     max_err, cases, timing = 0.0, 0, None
-    for shape in SSD_TEST_SHAPES + [SSD_ZAMBA]:
+    for shape in SSD_TEST_SHAPES + [SSD_SEGMENTED, SSD_ZAMBA]:
         b, L, H, P, G, N, Q = shape
         for dtype in (torch.float32, torch.bfloat16):
             x, dt, A, B, C = _ssd_inputs(b, L, H, P, G, N, dtype)
-            want_y, want_s = ssd_chunked_plain(x, dt, A, B, C, Q)
-            if shape != SSD_ZAMBA:      # the sequential oracle too
+            init = None
+            if shape == SSD_SEGMENTED:
+                g = torch.Generator(device="cuda")
+                g.manual_seed(L)
+                init = torch.randn((b, H, P, N), generator=g,
+                                   device="cuda") * 0.2
+            want_y, want_s = ssd_chunked_plain(x, dt, A, B, C, Q, init)
+            if shape in SSD_TEST_SHAPES:    # the sequential oracle too
                 seq = ssd_op(x.float(), dt, A, B.float(), C.float())
                 torch.testing.assert_close(seq, want_y, atol=1e-3,
                                            rtol=1e-3)
-            for plan in _ssd_plans(P, N, Q):
-                y, fin = ssd_kernel.ssd_cuda(x, dt, A, B, C, chunk=Q,
-                                             plan=plan)
-                torch.cuda.synchronize()
-                err = max(float((y - want_y).abs().max()),
-                          float((fin - want_s).abs().max()))
-                max_err = max(max_err, err)
-                torch.testing.assert_close(
-                    y, want_y, atol=1e-3, rtol=1e-3,
-                    msg=lambda m: f"ssd {shape} {dtype} {plan}: {m}")
-                torch.testing.assert_close(
-                    fin, want_s, atol=1e-3, rtol=1e-3,
-                    msg=lambda m: f"ssd {shape} {dtype} {plan}: {m}")
-                cases += 1
+            plan = ssd_kernel.ssd_plan(L, P, N, Q)
+            y, fin = ssd_kernel.ssd_cuda(x, dt, A, B, C, chunk=Q,
+                                         init_state=init)
+            torch.cuda.synchronize()
+            err = max(float((y - want_y).abs().max()),
+                      float((fin - want_s).abs().max()))
+            max_err = max(max_err, err)
+            torch.testing.assert_close(
+                y, want_y, atol=1e-3, rtol=1e-3,
+                msg=lambda m: f"ssd {shape} {dtype} {plan}: {m}")
+            torch.testing.assert_close(
+                fin, want_s, atol=1e-3, rtol=1e-3,
+                msg=lambda m: f"ssd {shape} {dtype} {plan}: {m}")
+            cases += 1
             if shape == SSD_ZAMBA and dtype == torch.float32:
                 k_ms = _device_ms(lambda: ssd_kernel.ssd_cuda(
-                    x, dt, A, B, C, chunk=Q), 5)
+                    x, dt, A, B, C, chunk=Q), 10)
                 p_ms = _time_ms(lambda: ssd_chunked_plain(x, dt, A, B, C, Q),
                                 reps=2)
-                op_ms, byte_ms = _ssd_bounds(*shape, dtype)
-                timing = (k_ms, p_ms, max(op_ms, byte_ms), op_ms, byte_ms)
-                plan = ssd_kernel.ssd_plan(P, N, Q)
-                print(f"ssd_scan Zamba2-7B prefill (b={b}, L={L}, H={H}, "
+                cc_ms, tc_ms, byte_ms = _ssd_bounds(*shape, dtype)
+                timing = (k_ms, p_ms, max(tc_ms, byte_ms), tc_ms, byte_ms)
+                print(f"ssd_mma Zamba2-7B prefill (b={b}, L={L}, H={H}, "
                       f"P={P}, N={N}, Q={Q}) float32 plan={tuple(plan)}: "
                       f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} "
-                      f"bound_ms={max(op_ms, byte_ms)!r} (operations "
-                      f"{op_ms!r} ms at {PEAK_OPS[dtype]:.3g} op/s, bytes "
-                      f"{byte_ms!r} ms at {PEAK_BYTES:.3g} B/s)")
+                      f"bound_ms={timing[2]!r} (tensor-core operations, "
+                      f"TF32 x 3 at the kernel's chunk of {plan.steps}, "
+                      f"{tc_ms!r} ms at {PEAK_TF32:.3g} op/s; "
+                      f"bytes {byte_ms!r} ms at {PEAK_BYTES:.3g} B/s; "
+                      f"float32 CUDA-core operations {cc_ms!r} ms at "
+                      f"{PEAK_OPS[torch.float32]:.3g} op/s)")
             del x, dt, A, B, C, want_y, want_s
-    print(f"ssd phase ok: {cases} shape/dtype/plan cases within 1e-3 of the "
+    print(f"ssd phase ok: {cases} shape/dtype cases within 1e-3 of the "
           f"plain versions, max_abs_err={max_err!r}")
     return max_err, timing
 
@@ -1242,7 +1262,7 @@ def serve_profile_phase():
     busy = sum(v[0] for v in dev.values())
     kern = {name: tuple(map(sum, zip(*([v for k, v in dev.items()
                                         if name in k] or [(0.0, 0)]))))
-            for name in ("ssd_scan_kernel", "flash_wgmma_kernel",
+            for name in ("ssd_mma_kernel", "flash_wgmma_kernel",
                          "flash_fwd_kernel")}
     print(f"profile (one Zamba2-7B prefill, bf16, batch {SERVE['batch']}, "
           f"prompt {S}, traced): wall_ms={wall_ms!r} device_busy_ms={busy!r}"
@@ -1337,7 +1357,7 @@ def main() -> int:
     # consistency phase)
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
     fa_ref = "src/repro/kernels/flash_attention/kernel.py:71"
-    rows += [("ssd_scan", "src/repro_torch/kernels/ssd/csrc/ssd_scan.cu",
+    rows += [("ssd_mma", "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",
               "src/repro/kernels/ssd/kernel.py:57", ssd_launches, ssd_err,
               ssd_t, None),
              ("flash_attention_wgmma", fa_src + "flash_attention_wgmma.cu",

@@ -1,19 +1,25 @@
 """CUDA Mamba2 SSD chunk scan: build, ctypes binding, launch plan and the
 checked wrapper.
 
-:func:`ssd_cuda` (``csrc/ssd_scan.cu``) replaces
+:func:`ssd_cuda` (``csrc/ssd_mma.cu``) replaces
 ``repro/kernels/ssd/kernel.py::ssd_pallas``: one block per (batch, head)
-row walks the chunks in order with the (P, N) float32 state in shared
+row and chunk, the chunk products on the tensor cores (TF32, split in
+three passes for float32 inputs), and the state before each chunk formed
+across one thread-block cluster of the row's chunks in distributed shared
 memory, starting from an optional initial state and returning the state
 after the last chunk.  It reads the model's layout, x (b, L, H, P) and
 B, C (b, L, G, N), broadcasting groups to heads itself, and pads a ragged
 last chunk in shared memory, so nothing is copied around the launch.
 
-:func:`ssd_plan` places a chunk by size: the state, x, B, C, the
-per-step vectors and a (QB, Q) block of the score tile (all float32,
-rows padded by one value) must fit in the 227 KB a block may use.  It
-takes the largest QB of Q, Q/2, Q/4, ... that fits, and refuses a chunk
-where even QB = 1 does not.
+:func:`ssd_plan` sizes the launch.  The scan is the same function at any
+chunk length, so the kernel takes its own: the model's chunk Q, cut to
+64 steps, which a block of 4 warps holds (one per 16 steps) in ~53 KB of
+shared memory at Zamba2-7B's widths, four blocks to an SM.  A cluster
+takes the smallest power of two of blocks that holds the row's chunks,
+at most 8 (the portable cluster size; ``tools/ssd_variant_probe.py``
+times the caps, PERF.md), and the row is walked in as many segments of
+that many chunks as it needs.  A chunk whose arrays do not fit in the
+227 KB a block may use is refused.
 
 The library is compiled from the source at first use
 (:mod:`repro_torch.kernels.build`), never at import.  The wrapper
@@ -31,15 +37,19 @@ import torch
 
 from ..build import bind, build_libraries, launch
 
-SOURCES = {"ssd": Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"}
+SOURCES = {"ssd": Path(__file__).resolve().parent / "csrc" / "ssd_mma.cu"}
 
 # shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
+# the kernel's own chunk: one warp of a block per 16 steps
+MAX_STEPS = 64
+# blocks (chunks) a cluster holds at most: the portable cluster size
+MAX_CLUSTER = 8
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 8 + [_I] * 9 + [_P]
-_FUNCTIONS = {"ssd_scan_f32": _ARGS, "ssd_scan_bf16": _ARGS}
-_ERROR = "ssd_error_string"
+_FUNCTIONS = {"ssd_mma_f32": _ARGS, "ssd_mma_bf16": _ARGS}
+_ERROR = "ssd_mma_error_string"
 _lib: list = []
 
 
@@ -52,35 +62,41 @@ def load_library() -> ctypes.CDLL:
 
 
 class SsdPlan(NamedTuple):
-    qb: int                # query rows of the score tile per pass
+    steps: int             # the kernel's chunk
+    cluster: int           # blocks (chunks) per cluster
+    segments: int          # clusters' worth of chunks a row is walked in
     smem_bytes: int
 
 
-def ssd_smem_bytes(P: int, N: int, Q: int, qb: int) -> int:
-    """Dynamic shared memory of one block (csrc/ssd_scan.cu's layout)."""
-    return 4 * (P * (N + 1) + Q * (P + 1) + 2 * Q * (N + 1) + 4 * Q
-                + qb * (Q + 1))
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
-def ssd_plan(P: int, N: int, Q: int, *, qb: Optional[int] = None
-             ) -> SsdPlan:
-    """The launch plan for head dim P, state N and chunk Q (module
-    docstring); ``qb`` forces the score tile's rows.  Pure: the CPU tests
-    plan every shape.  Raises ValueError where the chunk does not fit."""
-    if qb is not None:
-        if not 1 <= qb <= Q:
-            raise ValueError(f"qb={qb} must lie in [1, Q={Q}]")
-        widths = [qb]
-    else:                               # Q, ceil(Q/2), ..., 1
-        widths = [Q]
-        while widths[-1] > 1:
-            widths.append((widths[-1] + 1) // 2)
-    for w in widths:
-        smem = ssd_smem_bytes(P, N, Q, w)
-        if smem <= SMEM_LIMIT:
-            return SsdPlan(w, smem)
-    raise ValueError(f"SSD chunk P={P} N={N} Q={Q} (qb={qb}) does not fit "
-                     f"in {SMEM_LIMIT} bytes of shared memory")
+def ssd_smem_bytes(P: int, N: int, Q: int) -> int:
+    """Dynamic shared memory of one block (csrc/ssd_mma.cu's layout) for a
+    kernel chunk of Q steps: x, B and C of the chunk, the state over C's
+    rows, four per-step vectors and the block's warp sums and decay.  P is
+    padded to the 64 columns of y a pass keeps, N to 32 and Q to 16."""
+    Pp, Np, Qp = _up(P, 64), _up(N, 32), _up(Q, 16)
+    return 4 * (Qp * (Pp + 4) + Qp * (Np + 4) + max(Qp, Pp) * (Np + 4)
+                + 4 * Qp + 8)
+
+
+def ssd_plan(L: int, P: int, N: int, Q: int) -> SsdPlan:
+    """The launch plan for a row of L steps, head dim P, state N and the
+    model's chunk Q (module docstring).  Pure: the CPU tests plan every
+    shape.  Raises ValueError where a chunk does not fit."""
+    if min(L, P, N, Q) < 1:
+        raise ValueError(f"empty SSD shape L={L} P={P} N={N} Q={Q}")
+    steps = min(Q, MAX_STEPS)
+    smem = ssd_smem_bytes(P, N, steps)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"SSD chunk P={P} N={N} of {steps} steps needs "
+                         f"{smem} bytes of shared memory, over the "
+                         f"{SMEM_LIMIT} a block may use")
+    chunks = -(-L // steps)
+    cluster = min(MAX_CLUSTER, 1 << (chunks - 1).bit_length())
+    return SsdPlan(steps, cluster, -(-chunks // cluster), smem)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -90,8 +106,7 @@ def _require(cond: bool, msg: str) -> None:
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int,
-             init_state: Optional[torch.Tensor] = None,
-             plan: Optional[SsdPlan] = None
+             init_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The SSD chunk scan as one CUDA launch.
 
@@ -99,8 +114,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dt (b, L, H) and A (H,): float32; init_state (b, H, P, N) float32 or
     None (zeros).  All contiguous on one CUDA device, H % G == 0.  Returns
     ``(y (b, L, H, P) float32, final_state (b, H, P, N) float32)`` — the
-    value of ``models.mamba2.ssd_chunked`` without the D skip term.
-    ``plan`` overrides :func:`ssd_plan`."""
+    value of ``models.mamba2.ssd_chunked`` without the D skip term."""
     tensors = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
     if init_state is not None:
         tensors["init_state"] = init_state
@@ -131,15 +145,15 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if init_state is not None:
         _require(init_state.shape == (b, H, P, N),
                  f"init_state must be {(b, H, P, N)}")
-    plan = plan or ssd_plan(P, N, chunk)
+    plan = ssd_plan(L, P, N, chunk)
     y = torch.empty((b, L, H, P), dtype=torch.float32, device=x.device)
     final = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
-    launch(load_library(), "ssd_scan_bf16" if x.dtype == torch.bfloat16
-           else "ssd_scan_f32", _ERROR, x.device, x.data_ptr(),
+    launch(load_library(), "ssd_mma_bf16" if x.dtype == torch.bfloat16
+           else "ssd_mma_f32", _ERROR, x.device, x.data_ptr(),
            dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
            init_state.data_ptr() if init_state is not None else None,
-           y.data_ptr(), final.data_ptr(), b * H, L, H, P, G, N, chunk,
-           plan.qb, plan.smem_bytes)
+           y.data_ptr(), final.data_ptr(), b * H, L, H, P, G, N, plan.steps,
+           plan.cluster, plan.smem_bytes)
     ssd_cuda.launches += 1
     return y, final
 

@@ -7,11 +7,15 @@ on a machine that has the card but no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_model_cuda.py
 
-Tolerances: the SSD kernel computes in float32 from the same inputs as
-its plain version (bfloat16 inputs are widened exactly), so only the
-order of the float32 sums differs: 1e-3, the JAX kernel test's float32
-bound.  Flash attention has two kernels.  The CUDA-core one takes
-float32 and sums in another order only: 2e-5 (the JAX kernel test's
+Tolerances: the SSD kernel takes its products on the tensor cores in
+TF32, each float32 operand split in two TF32 parts and multiplied in
+three passes (bfloat16 inputs are exact in TF32 and skip the passes over
+their zero lo parts), which keeps about float32's accuracy, and sums in
+another order: 1e-3, the JAX kernel test's float32 bound
+(``tests/test_torch_ssd.py`` shows on the CPU that the split stays
+inside it where one TF32 pass would not).  Flash attention has two
+kernels.  The CUDA-core one takes float32 and sums in another order
+only: 2e-5 (the JAX kernel test's
 float32 bound), also held at Zamba2-7B's prompt length, 2048.  The
 tensor-core one takes bfloat16, rounds P to bfloat16 before P V, as the
 tensor cores take it, and sums in another order: 2e-2 (the JAX kernel
@@ -32,16 +36,25 @@ from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models.layers import tree_map
+from repro_torch.models.mamba2 import ssd_chunked_plain
 from repro_torch.models.model import init_model
 from repro_torch.serve import steps
 
 pytestmark = pytest.mark.cuda
 
 # (b, L, H, P, G, N, chunk): tests/test_kernels.py's four SSD shapes,
-# Zamba2-7B's per-head shape at a short ragged L, and its prefill shape
+# Zamba2-7B's per-head shape at a short ragged L, its prefill shape, and
+# one ragged chunk (G > 1); the plans take clusters of 1, 2, 4 and 8
 SSD_SHAPES = [(1, 32, 2, 16, 1, 16, 16), (2, 64, 4, 32, 2, 32, 32),
               (1, 100, 4, 64, 1, 64, 64), (2, 256, 8, 64, 4, 128, 128),
-              (1, 300, 4, 64, 1, 64, 128), (4, 2048, 112, 64, 1, 64, 128)]
+              (1, 300, 4, 64, 1, 64, 128), (4, 2048, 112, 64, 1, 64, 128),
+              (2, 40, 4, 64, 2, 64, 128)]
+# rows of several cluster segments: 65 kernel chunks of 64 (G > 1), and
+# 40 chunks of 16 at a ragged L with P, N neither multiples of the tiles
+# nor of 4 (the float32 inputs then go through registers, not cp.async,
+# and the scan moves the state one element at a time)
+SSD_SEGMENT_SHAPES = [(2, 4133, 8, 64, 2, 64, 128),
+                      (1, 630, 4, 22, 1, 18, 16)]
 # (B, Sq, Sk, H, KV, D): tests/test_kernels.py's sweep, then D = 112
 FLASH_SHAPES = [(1, 64, 64, 2, 2, 64), (2, 128, 128, 4, 2, 64),
                 (1, 130, 130, 4, 1, 128), (2, 96, 96, 8, 4, 256),
@@ -87,28 +100,45 @@ def ssd_plain(x, dt, A, B, C):
     return ssd_op(x.float(), dt, A, B.float(), C.float()), state
 
 
-def ssd_plans(P, N, Q):
-    """The planned score tile and one of QB = ceil(Q/3) rows, which leaves
-    a ragged last row block."""
-    return [ssd.ssd_plan(P, N, Q), ssd.ssd_plan(P, N, Q, qb=(Q + 2) // 3)]
-
-
 @pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_ssd_kernel_matches_plain_every_plan(card, shape, dtype):
+    """Every cluster size the plan takes (the shapes' L reach 1, 2, 4
+    and 8 blocks), against the sequential oracle."""
     b, L, H, P, G, N, Q = shape
     x, dt, A, B, C = ssd_inputs(b, L, H, P, G, N, dtype)
     want_y, want_s = ssd_plain(x, dt, A, B, C)
-    for plan in ssd_plans(P, N, Q):
-        before = ssd.ssd_cuda.launches
-        y, s = ssd.ssd_cuda(x, dt, A, B, C, chunk=Q, plan=plan)
-        torch.cuda.synchronize()
-        assert ssd.ssd_cuda.launches == before + 1
-        assert y.dtype == torch.float32 and y.shape == (b, L, H, P)
-        torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3,
-                                   msg=lambda m: f"{plan}: {m}")
-        torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3,
-                                   msg=lambda m: f"{plan}: {m}")
+    plan = ssd.ssd_plan(L, P, N, Q)
+    before = ssd.ssd_cuda.launches
+    y, s = ssd.ssd_cuda(x, dt, A, B, C, chunk=Q)
+    torch.cuda.synchronize()
+    assert ssd.ssd_cuda.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == (b, L, H, P)
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3,
+                               msg=lambda m: f"{plan}: {m}")
+    torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3,
+                               msg=lambda m: f"{plan}: {m}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SSD_SEGMENT_SHAPES, ids=str)
+def test_ssd_kernel_segments_carry_init_state(card, shape, dtype):
+    """Rows of more chunks than one cluster holds (65 and 40 chunks: nine
+    and five segments of 8), from a given initial state, against the
+    chunked plain version."""
+    b, L, H, P, G, N, Q = shape
+    x, dt, A, B, C = ssd_inputs(b, L, H, P, G, N, dtype, seed=11)
+    init = torch.tensor(np.random.default_rng(L).standard_normal(
+        (b, H, P, N)) * 0.2, dtype=torch.float32).cuda()
+    want_y, want_s = ssd_chunked_plain(x, dt, A, B, C, Q, init)
+    plan = ssd.ssd_plan(L, P, N, Q)
+    assert plan.segments > 1
+    y, s = ssd.ssd_cuda(x, dt, A, B, C, chunk=Q, init_state=init)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, atol=1e-3, rtol=1e-3,
+                               msg=lambda m: f"{plan}: {m}")
+    torch.testing.assert_close(s, want_s, atol=1e-3, rtol=1e-3,
+                               msg=lambda m: f"{plan}: {m}")
 
 
 def test_ssd_kernel_init_state_carries(card):
@@ -138,6 +168,24 @@ def test_ssd_kernel_refuses_what_it_cannot_launch(card):
         ssd.ssd_cuda(x, dt.double(), A, B, C, chunk=16)
     with pytest.raises(ValueError, match="contiguous"):
         ssd.ssd_cuda(x.transpose(1, 2), dt, A, B, C, chunk=16)
+    # a state too wide for a block's shared memory
+    wide = torch.zeros((1, 32, 1, 2048), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd.ssd_cuda(x, dt, A, wide, wide, chunk=16)
+    # a plan for another shape disagrees with the kernel's layout, and a
+    # cluster that is no power of two up to 8: the launch is refused,
+    # nothing runs
+    y = torch.empty_like(x)
+    fin = torch.empty((1, 2, 16, 16), device="cuda")
+    good = ssd.ssd_plan(32, 16, 16, 16)
+    other = ssd.ssd_plan(32, 16, 64, 16)
+    for cluster, smem in ((good.cluster, other.smem_bytes),
+                          (3, good.smem_bytes), (16, good.smem_bytes)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            launch(ssd.load_library(), "ssd_mma_f32", ssd._ERROR, x.device,
+                   x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                   C.data_ptr(), None, y.data_ptr(), fin.data_ptr(), 2, 32,
+                   2, 16, 1, 16, good.steps, cluster, smem)
 
 
 def flash_inputs(B, Sq, Sk, H, KV, D, dtype):

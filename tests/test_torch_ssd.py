@@ -10,7 +10,8 @@ bfloat16 (``tests/test_kernels.py::test_ssd_sweep``), 1e-4 between the
 two chunked versions (``test_model_chunked_ssd_matches_kernel``).  The
 CUDA kernel itself is held to these plain versions on the card
 (``tests/test_torch_model_cuda.py``); here its launch plan is checked on
-every shape the tests and ``chip_smoke.py`` use.
+every shape the tests and ``chip_smoke.py`` use, and the three-pass TF32
+split of its tensor-core products is emulated on a Zamba2-7B chunk.
 """
 import jax
 import jax.numpy as jnp
@@ -142,38 +143,110 @@ def test_ssd_chunked_plain_matches_sequential_oracle():
 
 # every (P, N, Q) the tests and chip_smoke.py run: the shapes above, the
 # smoke configs (16, 16, 16), Zamba2-7B (64, 64, 128), Mamba2-370M
-# (64, 128, 128)
+# (64, 128, 128), and the card tests' segmented row at odd widths
 PLAN_SHAPES = sorted({(s[3], s[5], s[6]) for s in SHAPES}
-                     | {(16, 16, 16), (64, 64, 128), (64, 128, 128)})
+                     | {(16, 16, 16), (64, 64, 128), (64, 128, 128),
+                        (22, 18, 16)})
 
 
 @pytest.mark.parametrize("P,N,Q", PLAN_SHAPES)
 def test_ssd_launch_plan_takes_every_shape(P, N, Q):
-    """No shape of the tests or the smoke run is refused for shared
-    memory: the default plan fits, and so does the ragged score tile the
-    card's test forces."""
-    for plan in (ssd_kernel.ssd_plan(P, N, Q),
-                 ssd_kernel.ssd_plan(P, N, Q, qb=max(1, (Q + 2) // 3))):
-        assert 1 <= plan.qb <= Q
+    """No shape of the tests or the smoke run is refused: the kernel's
+    chunk is the model's, cut to 64 steps, and the plan takes the
+    smallest power-of-two cluster, at most 8 blocks, that covers the
+    row's chunks, walked in as few segments as that allows, within the
+    shared memory a block may use, for rows of 1 to 40 model chunks (a
+    ragged last one included): clusters of 1, 2, 4 and 8 all occur."""
+    steps = min(Q, ssd_kernel.MAX_STEPS)
+    clusters = set()
+    for L in (1, steps + 1, 3 * steps, Q, 16 * Q, 16 * Q + 1, 33 * Q - 5,
+              40 * Q):
+        chunks = -(-L // steps)
+        plan = ssd_kernel.ssd_plan(L, P, N, Q)
+        assert plan.steps == steps
+        assert plan.cluster == min(8, 1 << (chunks - 1).bit_length())
+        assert plan.segments == -(-chunks // plan.cluster)
         assert plan.smem_bytes == ssd_kernel.ssd_smem_bytes(
-            P, N, Q, plan.qb) <= ssd_kernel.SMEM_LIMIT
+            P, N, steps) <= ssd_kernel.SMEM_LIMIT
+        clusters.add(plan.cluster)
+    assert clusters == {1, 2, 4, 8}
 
 
-def test_ssd_plan_shrinks_the_score_tile_then_unstages():
-    """At Mamba2-370M's chunk (P=64, N=128, Q=128) the full score tile
-    does not fit beside the staged B and C (~256 KB in all): the plan
-    takes a smaller QB.  A chunk where even QB=1 does not fit, or a
-    forced QB outside [1, Q], is refused, not placed some other way."""
-    plan = ssd_kernel.ssd_plan(64, 128, 128)
-    assert plan.qb < 128
-    assert ssd_kernel.ssd_smem_bytes(64, 128, 128, 128) \
-        > ssd_kernel.SMEM_LIMIT
-    assert ssd_kernel.ssd_plan(64, 128, 128, qb=plan.qb) == plan
-    for P, N, Q in ((64, 256, 256), (256, 256, 256)):
-        with pytest.raises(ValueError, match="shared memory"):
-            ssd_kernel.ssd_plan(P, N, Q)
-    with pytest.raises(ValueError, match="must lie"):
-        ssd_kernel.ssd_plan(64, 64, 128, qb=0)
+def test_ssd_plan_segments_long_rows_and_refuses_what_does_not_fit():
+    """Zamba2-7B's prefill row (2048 steps, model chunk 128) runs as 32
+    kernel chunks of 64 in four segments of an 8-block cluster, and its
+    block fits four times on an SM; a row of 4133 steps takes nine
+    segments.  A state too wide for shared memory is refused, not placed
+    some other way; a longer model chunk is cut to 64 steps like any
+    other."""
+    smem = ssd_kernel.ssd_smem_bytes(64, 64, 64)
+    assert ssd_kernel.ssd_plan(2048, 64, 64, 128) == (64, 8, 4, smem)
+    assert 4 * (smem + 1024) <= 228 * 1024
+    assert ssd_kernel.ssd_plan(4133, 64, 64, 128)[:3] == (64, 8, 9)
+    assert ssd_kernel.ssd_plan(2048, 64, 64, 256)[:3] == (64, 8, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_kernel.ssd_plan(2048, 256, 256, 128)
+    with pytest.raises(ValueError, match="empty"):
+        ssd_kernel.ssd_plan(0, 64, 64, 128)
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as the TF32 tensor cores read a float32: the low 13 mantissa
+    bits dropped."""
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_one_pass(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _mm_three_pass(a, b):
+    """The kernel's product: a = hi + lo with hi = tf32(a) and lo =
+    tf32(a - hi), likewise b, summed as lo_a hi_b + hi_a lo_b + hi_a hi_b
+    (TF32 products are exact in float32; the sums are float32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _chunk(x, dt, A, B, C, state, mm):
+    """One chunk of the SSD scan through its four products, each taken by
+    ``mm``: y (Q, P) and the state after the chunk (P, N)."""
+    a = torch.cumsum(dt * A, 0)
+    causal = torch.ones(len(a), len(a), dtype=torch.bool).tril()
+    decay = torch.exp((a[:, None] - a[None, :]).masked_fill(~causal,
+                                                            float("-inf")))
+    scores = mm(C, B.T) * decay * dt[None, :]
+    y = mm(scores, x) + torch.exp(a)[:, None] * mm(C, state.T)
+    w = torch.exp(a[-1] - a) * dt
+    return y, state * torch.exp(a[-1]) + mm((x * w[:, None]).T, B)
+
+
+def test_tf32_three_pass_split_keeps_float32_tolerance():
+    """The precision argument for the kernel's tensor-core products, on a
+    Zamba2-7B chunk (P = N = 64, Q = 128, a carried state): the three-pass
+    TF32 split stays within the float32 tolerance (1e-3) of the float32
+    products, and well inside it; one TF32 pass does not stay well
+    inside it.  Both errors are printed (pytest -s)."""
+    x, dt, A, B, C = (torch.from_numpy(a) for a in
+                      _inputs(1, 128, 1, 64, 1, 64, seed=19))
+    x, dt, B, C = x[0, :, 0], dt[0, :, 0], B[0, :, 0], C[0, :, 0]
+    state = torch.from_numpy((np.random.default_rng(19).standard_normal(
+        (64, 64)) * 0.2).astype(np.float32))
+    want = _chunk(x, dt, A[0], B, C, state, torch.matmul)
+    err = {}
+    for name, mm in (("three_pass", _mm_three_pass),
+                     ("one_pass", _mm_one_pass)):
+        got = _chunk(x, dt, A[0], B, C, state, mm)
+        err[name] = max(float(((g - w).abs() / (1e-3 + 1e-3 * w.abs())
+                               ).max()) for g, w in zip(got, want))
+        if name == "three_pass":
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, atol=1e-3, rtol=1e-3)
+    print(f"TF32 error over the 1e-3 float32 tolerance (1.0 = at the "
+          f"bound): three_pass={err['three_pass']:.3g} "
+          f"one_pass={err['one_pass']:.3g}")
+    assert err["three_pass"] < 0.01 < err["one_pass"]
 
 
 def test_ssd_kernel_wrapper_refuses_cpu_tensors():
