@@ -19,16 +19,17 @@ Unquantized full-size jobs (d1 up to 20480) then go through both routes.
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
-cores) and both flash attention kernels (tensor cores for bfloat16, CUDA
-cores for float32) against their plain versions (test shapes, a row of
-several cluster segments from an initial state, and Zamba2-7B's prefill
-shapes, every launch plan), the Zamba2 smoke model on the card against
+cores) and both flash attention kernels (both on the tensor cores:
+wgmma for bfloat16, TF32 mma.sync in three passes for float32) against
+their plain versions (test shapes, a row of several cluster segments
+from an initial state, and Zamba2-7B's prefill shapes, every launch
+plan), the Zamba2 smoke model on the card against
 the CPU, a full-width Zamba2-7B prefill in float32 against its own
-teacher-forced decode (the float32 path: 81 SSD and 13 CUDA-core flash
+teacher-forced decode (the float32 path: 81 SSD and 13 float32 flash
 launches), and the serving path ``repro_torch.launch.serve`` at full
 width in bfloat16 (batch 4, prompt 2048, 32 new tokens), each with the
 kernel counts set to 0 just before it and read just after: every prefill
-ran 81 SSD and 13 tensor-core flash launches, no decode step ran any.
+ran 81 SSD and 13 bfloat16 flash launches, no decode step ran any.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -931,17 +932,20 @@ def _flash_inputs(B, Sq, Sk, H, KV, D, dtype):
 
 
 def _flash_plans(D):
-    plans = [flash_kernel.flash_plan(D)]
-    for bq, bk in flash_kernel.TILES:
-        if flash_kernel.flash_smem_bytes(D, bq, bk) <= flash_kernel.SMEM_LIMIT:
-            plans.append(flash_kernel.flash_plan(D, bq=bq, bk=bk))
-    return list(dict.fromkeys(plans))
+    """Every plan of the float32 kernel for head dim D: one per warp
+    count."""
+    return [flash_kernel.mma_plan(D, warps)
+            for warps in flash_kernel.MMA_WARPS]
 
 
 def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
-    """(ms over the ops peak, ms over HBM): q k^T and p v over the visible
-    (query, key) pairs of this mask, two operations per multiply-add at
-    the inputs' type's peak; q, k, v read and the output written once."""
+    """(ms over the float32 CUDA-core peak, ms over the tensor cores' peak
+    at the precision the kernel takes, ms over HBM): q k^T and p v over
+    the visible (query, key) pairs of this mask, two operations per
+    multiply-add; float32 inputs take three TF32 passes on the tensor
+    cores (the card's fastest route at float32's accuracy), bfloat16 ones
+    are counted at the bf16 rate; q, k, v read and the output written
+    once."""
     qp = np.arange(Sq)[:, None]
     kp = np.arange(Sk)[None, :]
     vis = np.ones((Sq, Sk), bool)
@@ -950,15 +954,18 @@ def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
     if window > 0:
         vis &= qp - kp < window
     ops = 2.0 * 2 * B * H * int(vis.sum()) * D
+    tc = (3 * ops / PEAK_TF32 if dtype == torch.float32
+          else ops / PEAK_OPS[torch.bfloat16])
     nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KV * D) * dtype.itemsize
-    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops / PEAK_OPS[torch.float32] * 1e3, tc * 1e3,
+            nbytes / PEAK_BYTES * 1e3)
 
 
 def _time_flash(shape, dtype, q, k, v, kernel, reps):
-    """(kernel ms, plain ms, bound ms, ops ms, bytes ms, library ms) at
-    ``shape``, causal: device time per launch of ``kernel``, the model's
-    chunked plain version, and torch's scaled_dot_product_attention as a
-    yardstick the port never calls."""
+    """(kernel ms, plain ms, bound ms, tensor-core ops ms, bytes ms,
+    library ms, CUDA-core ops ms) at ``shape``, causal: device time per
+    launch of ``kernel``, the model's chunked plain version, and torch's
+    scaled_dot_product_attention as a yardstick the port never calls."""
     B, Sq, Sk, H, KV, D = shape
     k_ms = _device_ms(lambda: kernel(q, k, v, causal=True), reps)
     qg = q.reshape(B, Sq, KV, H // KV, D)
@@ -969,21 +976,21 @@ def _time_flash(shape, dtype, q, k, v, kernel, reps):
     lib_ms = _device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 5)
-    op_ms, byte_ms = _flash_bounds(*shape, True, 0, dtype)
-    return k_ms, p_ms, max(op_ms, byte_ms), op_ms, byte_ms, lib_ms
+    cc_ms, tc_ms, byte_ms = _flash_bounds(*shape, True, 0, dtype)
+    return k_ms, p_ms, max(tc_ms, byte_ms), tc_ms, byte_ms, lib_ms, cc_ms
 
 
 def flash_phase():
     """Both flash kernels == their plain versions (the model's chunked
     recurrence and the naive oracle) over every mask case, Zamba2-7B's
-    prefill shape included (causal): the CUDA-core kernel (f32) at every
-    launch plan within 2e-5, the tensor-core kernel (bf16) within 2e-2
-    and within WGMMA_REL_NORM on the relative norm of the whole error
-    against the float32 oracle.  At the prefill shape, bf16 on the
-    tensor-core kernel and f32 on the CUDA-core kernel are timed against
-    the chunked plain version and torch's scaled_dot_product_attention.
-    Returns (max err, timing) of the f32 kernel over its f32 cases and of
-    the bf16 kernel."""
+    prefill shape included (causal): the TF32 mma.sync kernel (f32) at
+    every launch plan within 2e-5 of both, the wgmma kernel (bf16) within
+    2e-2 and within WGMMA_REL_NORM on the relative norm of the whole
+    error against the float32 oracle.  At the prefill shape, bf16 on the
+    wgmma kernel and f32 on the mma.sync kernel are timed against the
+    chunked plain version, torch's scaled_dot_product_attention and the
+    bound.  Returns (max err, timing) of the f32 kernel over its f32
+    cases and of the bf16 kernel."""
     err = {"f32": 0.0, "wgmma": 0.0}
     cases, timing, worst_rel = 0, {}, 0.0
     for shape in FLASH_TEST_SHAPES + [FLASH_ZAMBA]:
@@ -1003,7 +1010,7 @@ def flash_phase():
                                       softcap=cap)
                 torch.testing.assert_close(want, naive, atol=tol, rtol=tol)
                 if dtype == torch.float32:
-                    runs = [(f"cuda {plan}", "f32",
+                    runs = [(f"mma {plan}", "f32",
                              lambda plan=plan:
                              flash_kernel.flash_attention_cuda(
                                  q, k, v, causal=causal, window=window,
@@ -1023,6 +1030,14 @@ def flash_phase():
                         got.float(), want, atol=tol, rtol=tol,
                         msg=lambda m: f"flash {shape} {dtype} causal="
                         f"{causal} window={window} cap={cap} {label}: {m}")
+                    if kind == "f32":
+                        e = max(e, float((got - naive).abs().max()))
+                        err[kind] = max(err[kind], e)
+                        torch.testing.assert_close(
+                            got, naive, atol=tol, rtol=tol,
+                            msg=lambda m: f"flash {shape} causal={causal} "
+                            f"window={window} cap={cap} {label} against "
+                            f"the naive oracle: {m}")
                     cases += 1
                     if kind == "wgmma":
                         rel = float((got.float() - naive).norm()
@@ -1039,16 +1054,16 @@ def flash_phase():
                             f"cap={cap} {label}: rel_norm_err {rel!r} > "
                             f"{WGMMA_REL_NORM}")
                     if shape == FLASH_ZAMBA and dtype == torch.float32:
-                        print(f"flash_attention float32 at Zamba2-7B's "
+                        print(f"flash_attention_mma float32 at Zamba2-7B's "
                               f"prefill shape (B={B}, S={Sq}, H=KV={H}, "
                               f"D={D}, causal), {label}: max_abs_err={e!r} "
-                              "(bound 2e-5)")
+                              "(bound 2e-5; chunked and naive plain)")
             if shape == FLASH_ZAMBA:
                 kernel, name = ((flash_kernel.flash_attention_wgmma,
                                  "flash_attention_wgmma") if dtype ==
                                 torch.bfloat16 else
                                 (flash_kernel.flash_attention_cuda,
-                                 "flash_attention (CUDA cores)"))
+                                 "flash_attention_mma"))
                 t = _time_flash(shape, dtype, q, k, v, kernel,
                                 20 if dtype == torch.bfloat16 else 5)
                 timing[dtype] = t
@@ -1056,20 +1071,25 @@ def flash_phase():
                       f"D={D}, causal) {str(dtype).split('.')[-1]}: "
                       f"kernel_device_ms={t[0]!r} plain_ms={t[1]!r} "
                       f"library_ms (torch scaled_dot_product_attention)="
-                      f"{t[5]!r} bound_ms={t[2]!r} (operations {t[3]!r} ms "
-                      f"at {PEAK_OPS[dtype]:.3g} op/s, bytes {t[4]!r} ms at "
-                      f"{PEAK_BYTES:.3g} B/s)")
+                      f"{t[5]!r} bound_ms={t[2]!r} (tensor-core "
+                      f"operations {t[3]!r} ms, "
+                      + ("TF32 x 3 at " + f"{PEAK_TF32:.3g}"
+                         if dtype == torch.float32 else
+                         f"at {PEAK_OPS[dtype]:.3g}")
+                      + f" op/s; bytes {t[4]!r} ms at {PEAK_BYTES:.3g} B/s; "
+                      f"float32 CUDA-core operations {t[6]!r} ms at "
+                      f"{PEAK_OPS[torch.float32]:.3g} op/s)")
             del q, k, v
     print(f"flash phase ok: {cases} shape/dtype/mask/kernel/plan cases "
-          f"within tolerance of the plain versions, max_abs_err CUDA cores "
-          f"f32={err['f32']!r}, tensor cores bf16={err['wgmma']!r} "
+          f"within tolerance of the plain versions, max_abs_err mma.sync "
+          f"TF32 x 3 f32={err['f32']!r}, wgmma bf16={err['wgmma']!r} "
           f"(rel_norm_err max {worst_rel!r}, bound {WGMMA_REL_NORM})")
     return ((err["f32"], timing[torch.float32]),
             (err["wgmma"], timing[torch.bfloat16]))
 
 
 def _model_counts():
-    """(SSD, CUDA-core flash, tensor-core flash) launches so far."""
+    """(SSD, float32 flash, bfloat16 flash) launches so far."""
     return (ssd_kernel.ssd_cuda.launches,
             flash_kernel.flash_attention_cuda.launches,
             flash_kernel.flash_attention_wgmma.launches)
@@ -1151,11 +1171,11 @@ def model_parity_phase():
 
 def consistency_phase():
     """Zamba2-7B at full width in float32 compute, one request: the
-    prefill of 320 prompt tokens (the SSD and the CUDA-core flash kernel)
+    prefill of 320 prompt tokens (the SSD and the float32 flash kernel)
     against the teacher-forced decode of the same tokens (no kernel),
     last-position logits within relative 2e-2 (the JAX package's bound
     for decode against a full forward).  Counts set to 0 just before the
-    prefill and read just after; returns the CUDA-core flash kernel's
+    prefill and read just after; returns the float32 flash kernel's
     launches there (the float32 path's)."""
     cfg = get_config("zamba2_7b").scaled(dtype="float32")
     t0 = time.perf_counter()
@@ -1263,7 +1283,7 @@ def serve_profile_phase():
     kern = {name: tuple(map(sum, zip(*([v for k, v in dev.items()
                                         if name in k] or [(0.0, 0)]))))
             for name in ("ssd_mma_kernel", "flash_wgmma_kernel",
-                         "flash_fwd_kernel")}
+                         "flash_mma_kernel")}
     print(f"profile (one Zamba2-7B prefill, bf16, batch {SERVE['batch']}, "
           f"prompt {S}, traced): wall_ms={wall_ms!r} device_busy_ms={busy!r}"
           f" device_idle_share={1.0 - busy / wall_ms!r} " + " ".join(
@@ -1352,9 +1372,9 @@ def main() -> int:
             for name, file, line, n_launch, err, t in rows]
     # the model kernels: device time per launch at Zamba2-7B's prefill
     # shapes; SSD (float32) and the tensor-core flash kernel (bf16):
-    # launches over the serve phase's two prefills; the CUDA-core flash
-    # kernel (float32): launches over the float32 path's prefill (the
-    # consistency phase)
+    # launches over the serve phase's two prefills; the float32 flash
+    # kernel (TF32 mma.sync): launches over the float32 path's prefill
+    # (the consistency phase)
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
     fa_ref = "src/repro/kernels/flash_attention/kernel.py:71"
     rows += [("ssd_mma", "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",
@@ -1362,8 +1382,8 @@ def main() -> int:
               ssd_t, None),
              ("flash_attention_wgmma", fa_src + "flash_attention_wgmma.cu",
               fa_ref, wgmma_launches, wgmma_err, wgmma_t, wgmma_t[5]),
-             ("flash_attention", fa_src + "flash_attention.cu", fa_ref,
-              flash_launches, flash_err, flash_t, flash_t[5])]
+             ("flash_attention_mma", fa_src + "flash_attention_mma.cu",
+              fa_ref, flash_launches, flash_err, flash_t, flash_t[5])]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n_launch, "max_abs_err": err,

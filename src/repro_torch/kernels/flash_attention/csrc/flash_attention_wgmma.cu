@@ -4,8 +4,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py::
 // flash_attention (body _fa_kernel, pallas_call at :95) for bfloat16
-// inputs; float32 inputs stay on the CUDA-core kernel of
-// flash_attention.cu.  The function is the same:
+// inputs; float32 inputs go to the TF32 mma.sync kernel of
+// flash_attention_mma.cu.  The function is the same:
 //
 //     s     = (q . k) / sqrt(D),  soft-capped cap tanh(s / cap) if cap > 0
 //     s     = -1e30 where kpos >= Sk, or causal and qpos < kpos, or

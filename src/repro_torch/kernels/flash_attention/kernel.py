@@ -1,33 +1,33 @@
 """CUDA flash attention (forward): builds, ctypes bindings, launch plans
-and the checked wrappers of two kernels, one per input type.
-
-:func:`flash_attention_wgmma` (``csrc/flash_attention_wgmma.cu``) takes
-bfloat16: both products on the tensor cores (wgmma, float32
-accumulation), K and V brought by TMA into a two-stage ring, one block
-per (batch * head, 128 query rows).  :func:`wgmma_plan` is its plan, a
-function of the head dim D alone; the source is built for the head dims
-of :data:`WGMMA_HEAD_DIMS`.
-
-:func:`flash_attention_cuda` (``csrc/flash_attention.cu``) takes float32
-on the CUDA cores.  Both replace
+and the checked wrappers of two kernels, one per input type, both on
+Hopper's tensor cores.  Both replace
 ``repro/kernels/flash_attention/kernel.py::flash_attention``: GQA with a
 causal mask, a sliding window and a tanh soft-cap, the online softmax in
-float32, one block per (batch * head, block of BQ query rows) walking
-the key blocks in order.  It reads q (B, Sq, H, D) and k, v
-(B, Sk, KV, D) in the model's layout and masks the ragged edges itself.
+float32, one block per (batch * head, block of query rows) walking the
+key tiles in order, the heaviest causal query blocks first.  They read q
+(B, Sq, H, D) and k, v (B, Sk, KV, D) in the model's layout and mask the
+ragged edges themselves.
 
-:func:`flash_plan` picks (BQ, BK) by the head dim D: the query block,
-the accumulator, one key and one value block and the score tile (float32,
-key and score rows padded by one value) must fit in the 227 KB a block
-may use; the first tile of :data:`TILES` that leaves room for two blocks
-per SM is taken, else the first that fits one.
+:func:`flash_attention_cuda` (``csrc/flash_attention_mma.cu``) takes
+float32: both products as TF32 ``mma.sync`` in three passes (each
+operand split in a hi and a lo part), which keeps float32's accuracy,
+one warp per 32 query rows (16 at D = 256), K and V brought by
+``cp.async`` into a ring.
+:func:`mma_plan` is its plan, a function of the head dim D and the warps
+a block.
 
+:func:`flash_attention_wgmma` (``csrc/flash_attention_wgmma.cu``) takes
+bfloat16: both products on wgmma (float32 accumulation), K and V brought
+by TMA into a two-stage ring, one block per (batch * head, 128 query
+rows).  :func:`wgmma_plan` is its plan, a function of D alone.
+
+Both sources are built for the head dims of :data:`WGMMA_HEAD_DIMS`.
 The libraries are compiled from the sources at first use
 (:mod:`repro_torch.kernels.build`), never at import.  Each wrapper
 launches on the current stream without synchronising, raises on a bad
-device, dtype, shape or contiguity and on a failed launch, and counts its
-launches (``flash_attention_wgmma.launches``,
-``flash_attention_cuda.launches``).
+device, dtype, shape, head dim or contiguity and on a failed launch, and
+counts its launches (``flash_attention_cuda.launches``,
+``flash_attention_wgmma.launches``).
 """
 from __future__ import annotations
 
@@ -41,20 +41,19 @@ import torch
 from ..build import bind, build_libraries, launch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash": _CSRC / "flash_attention.cu",
+SOURCES = {"flash_mma": _CSRC / "flash_attention_mma.cu",
            "flash_wgmma": _CSRC / "flash_attention_wgmma.cu"}
 
-# shared memory one block may use on an H100 (232,448 bytes), and what
-# each of two blocks on one SM may use (228 KB per SM, 1 KB per block)
+# shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
-SMEM_TWO_PER_SM = 113 * 1024
-# (BQ, BK) candidates, largest first
-TILES = ((64, 64), (64, 32), (32, 32), (32, 16), (16, 16), (8, 8))
+# the head dims both sources are built for: the smoke configs' 16, the
+# kernel tests' 64/128/256 and Zamba2-7B's 112
+WGMMA_HEAD_DIMS = (16, 64, 112, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 4 + [_I] * 8 + [_F, _I, _I, _F, _I, _P]
-_FUNCTIONS = {"flash_attention_f32": _ARGS}
-_ERROR = "flash_error_string"
+_FUNCTIONS = {"flash_attention_mma_f32": [_P] * 4 + [_I] * 7
+              + [_F, _I, _I, _F, _I, _P]}
+_ERROR = "flash_mma_error_string"
 _WGMMA_FUNCTIONS = {"flash_attention_wgmma_bf16": [_P] * 4 + [_I] * 6
                     + [_F, _I, _I, _F, _I, _P]}
 _WGMMA_ERROR = "flash_wgmma_error_string"
@@ -69,46 +68,55 @@ def _load(name: str, functions: dict, error: str) -> ctypes.CDLL:
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the CUDA-core kernel's
+    """Build (once per source hash) and load the float32 kernel's
     library."""
-    return _load("flash", _FUNCTIONS, _ERROR)
+    return _load("flash_mma", _FUNCTIONS, _ERROR)
 
 
 def load_wgmma_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the tensor-core kernel's
+    """Build (once per source hash) and load the bfloat16 kernel's
     library."""
     return _load("flash_wgmma", _WGMMA_FUNCTIONS, _WGMMA_ERROR)
 
 
-class FlashPlan(NamedTuple):
+# ---------------------------------------------------------------------------
+# float32: TF32 mma.sync in three passes
+# ---------------------------------------------------------------------------
+
+MMA_WARPS = (4, 8)      # warps a block
+
+
+class MmaPlan(NamedTuple):
     bq: int                # query rows per block
-    bk: int                # key rows per step
+    bk: int                # keys per tile
+    warps: int
+    stages: int            # K/V tiles in the ring
     smem_bytes: int
 
 
-def flash_smem_bytes(D: int, bq: int, bk: int) -> int:
-    """Dynamic shared memory of one block (csrc/flash_attention.cu's
-    layout)."""
-    return 4 * (2 * bq * D + bk * (D + 1) + bk * D + bq * (bk + 1) + 3 * bq)
-
-
-def flash_plan(D: int, *, bq: Optional[int] = None,
-               bk: Optional[int] = None) -> FlashPlan:
-    """The launch plan for head dim D (module docstring); ``bq`` and
-    ``bk`` together force a tile.  Pure: the CPU tests plan every shape.
-    Raises ValueError for a D no tile fits."""
-    if bq is not None and bk is not None:
-        smem = flash_smem_bytes(D, bq, bk)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"flash tile {bq}x{bk} at D={D} needs {smem} "
-                             "bytes of shared memory")
-        return FlashPlan(bq, bk, smem)
-    for limit in (SMEM_TWO_PER_SM, SMEM_LIMIT):
-        for tq, tk in TILES:
-            smem = flash_smem_bytes(D, tq, tk)
-            if smem <= limit:
-                return FlashPlan(tq, tk, smem)
-    raise ValueError(f"head dim D={D} does not fit in shared memory")
+def mma_plan(D: int, warps: Optional[int] = None) -> MmaPlan:
+    """The float32 kernel's plan for head dim D on ``warps`` warps (by
+    default 8 up to D = 128 and 4 above): 32 query rows a warp (two
+    16-row tiles that share every K and V fragment) up to D = 128, 16 at
+    D = 256, whose O accumulator alone is 128 floats a thread; keys per
+    tile 64 up to D = 64, 32 up to D = 128 and at D = 256 on 4 warps, 16
+    at D = 256 on 8; two stages.  Its bytes are the source's
+    ``Plan<D, warps>``: Q and ``stages`` K and V tiles, every row D + 4
+    floats; the launcher refuses any other count.  Pure: the CPU tests
+    plan every D.  Raises ValueError for a D or a warp count the kernel
+    is not built for."""
+    if D not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head dim D={D} is not "
+                         f"built (one of {WGMMA_HEAD_DIMS})")
+    warps = warps or (8 if D <= 128 else 4)
+    if warps not in MMA_WARPS:
+        raise ValueError(f"flash_attention_cuda: {warps} warps a block are "
+                         f"not built (one of {MMA_WARPS})")
+    rows = 32 if D <= 128 else 16
+    bk = 64 if D <= 64 else 32 if D <= 128 or warps == 4 else 16
+    bq, stages = rows * warps, 2
+    smem = 4 * (D + 4) * (bq + 2 * stages * bk)
+    return MmaPlan(bq, bk, warps, stages, smem)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -119,35 +127,38 @@ def _require(cond: bool, msg: str) -> None:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          softcap: float = 0.0,
-                         plan: Optional[FlashPlan] = None) -> torch.Tensor:
-    """Forward attention as one CUDA launch, the value of
-    ``kernels/flash_attention/ref.py::attention_ref``.
+                         plan: Optional[MmaPlan] = None) -> torch.Tensor:
+    """Forward attention in float32 as one tensor-core launch, the value
+    of ``kernels/flash_attention/ref.py::attention_ref``.
 
-    q (B, Sq, H, D) and k, v (B, Sk, KV, D): float32, contiguous, on one
-    CUDA device, H % KV == 0.  Returns (B, Sq, H, D) float32.  ``plan``
-    overrides :func:`flash_plan`."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.is_cuda, f"needs CUDA tensors ({name} is on {t.device})")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-        _require(t.ndim == 4, f"{name} must be 4-D, not {tuple(t.shape)}")
-    _require(q.device == k.device == v.device, "tensors on several devices")
+    q (B, Sq, H, D) and k, v (B, Sk, KV, D): float32, contiguous, 16-byte
+    aligned, on one CUDA device, H % KV == 0, D one of
+    :data:`WGMMA_HEAD_DIMS`.  Returns (B, Sq, H, D) float32.  ``plan``
+    overrides :func:`mma_plan`'s default for D."""
     if not all(t.dtype == torch.float32 for t in (q, k, v)):
         raise TypeError("flash_attention_cuda: q, k, v must be float32 "
                         f"(bfloat16 goes to flash_attention_wgmma; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype})")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.ndim == 4, f"{name} must be 4-D, not {tuple(t.shape)}")
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    plan = plan or mma_plan(D)
     _require(k.shape == (B, Sk, KV, D) and v.shape == k.shape,
              f"k, v must be (B, Sk, KV, D) matching q, not "
              f"{tuple(k.shape)} and {tuple(v.shape)}")
-    _require(min(B, Sq, Sk, H, KV, D) > 0 and H % KV == 0,
+    _require(min(B, Sq, Sk, H, KV) > 0 and H % KV == 0,
              f"empty shape or H={H} not a multiple of KV={KV}")
     _require(window >= 0, f"window must be >= 0, not {window}")
-    plan = plan or flash_plan(D)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.is_cuda, f"needs CUDA tensors ({name} is on {t.device})")
+        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                 f"{name} must be contiguous and 16-byte aligned")
+    _require(q.device == k.device == v.device, "tensors on several devices")
     out = torch.empty_like(q)
-    launch(load_library(), "flash_attention_f32", _ERROR, q.device,
+    launch(load_library(), "flash_attention_mma_f32", _ERROR, q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-           Sk, H, KV, D, plan.bq, plan.bk, 1.0 / math.sqrt(D), int(causal),
+           Sk, H, KV, D, plan.warps, 1.0 / math.sqrt(D), int(causal),
            int(window), float(softcap), plan.smem_bytes)
     flash_attention_cuda.launches += 1
     return out
@@ -160,9 +171,6 @@ flash_attention_cuda.launches = 0
 # bfloat16 on the tensor cores
 # ---------------------------------------------------------------------------
 
-# the head dims csrc/flash_attention_wgmma.cu is built for: the smoke
-# configs' 16, the kernel tests' 64/128/256 and Zamba2-7B's 112
-WGMMA_HEAD_DIMS = (16, 64, 112, 128, 256)
 WGMMA_BQ = 128          # query rows per block: two warpgroups of 64
 _ROW_BYTES = 128        # one swizzled row: 64 bf16 columns
 _ALIGN = 1024           # the 128-byte swizzle's 8-row atom

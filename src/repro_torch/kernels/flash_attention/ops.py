@@ -1,10 +1,12 @@
 """Flash-attention entry, as ``repro/kernels/flash_attention/ops.py::
-attention_op``: a CUDA tensor goes to a hand-written kernel chosen by its
-dtype before any launch (bfloat16 to the tensor-core kernel, any other to
-the CUDA-core kernel, which takes float32), a CPU tensor to the plain
-oracle.  It is the kernels' one entry on the model path
-(``models/attention.py``'s chunked branch on the card).  Nothing falls
-back: a CUDA tensor a kernel refuses raises."""
+attention_op``: a CUDA tensor goes to a hand-written tensor-core kernel
+chosen by its dtype before any launch (bfloat16 to the wgmma kernel, any
+other to the TF32 kernel, which takes float32 and takes each product in
+three TF32 passes), a CPU tensor to the plain oracle.  It is the
+kernels' one entry on the model path (``models/attention.py``'s chunked
+branch on the card).  Nothing falls back: a CUDA tensor a kernel refuses
+raises; the plain versions (``ref.py::attention_ref``, the model's
+``_sdpa_chunked``) are the CPU path and the oracles."""
 from __future__ import annotations
 
 import torch

@@ -33,7 +33,7 @@ from ..serve.steps import generate
 
 def _launches() -> Dict[str, int]:
     """Kernel launches so far; "flash" counts both attention kernels (the
-    tensor-core one takes bfloat16, the CUDA-core one float32)."""
+    wgmma one takes bfloat16, the TF32 mma.sync one float32)."""
     return {"ssd": ssd_cuda.launches,
             "flash": flash_attention_cuda.launches
             + flash_attention_wgmma.launches}

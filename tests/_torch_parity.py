@@ -6,10 +6,16 @@ the names the reference package calls (``jax.experimental.enable_x64``,
 only for the test that asks for it: monkeypatch undoes both at teardown,
 and JAX's compilation caches are cleared so no executable traced under
 the shims outlives the test.
+
+``tf32``, ``mm_one_pass`` and ``mm_three_pass`` emulate on the CPU how
+the port's tensor-core kernels (the SSD scan and the float32 flash
+attention) take a float32 product in TF32: the precision argument both
+kernels rest on.
 """
 import jax
 import jax.experimental
 import pytest
+import torch
 from jax.experimental.pallas import tpu as pltpu
 
 
@@ -23,3 +29,22 @@ def jax_shims(monkeypatch):
                             raising=False)
     yield
     jax.clear_caches()
+
+
+def tf32(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as the TF32 tensor cores read a float32: the low 13 mantissa
+    bits dropped."""
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mm_one_pass(a, b):
+    return tf32(a) @ tf32(b)
+
+
+def mm_three_pass(a, b):
+    """The kernels' product: a = hi + lo with hi = tf32(a) and lo =
+    tf32(a - hi), likewise b, summed as lo_a hi_b + hi_a lo_b + hi_a hi_b
+    (TF32 products are exact in float32; the sums are float32)."""
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh

@@ -7,16 +7,18 @@ JAX ``attention_ref`` and the Pallas ``flash_attention`` in interpret
 mode, over ``tests/test_kernels.py``'s sweep (every causal, window and
 soft-cap case, GQA, a ragged 130) plus Zamba2-7B's head dim 112.
 Tolerances are the JAX kernel test's: 2e-5 in float32, 2e-2 in bfloat16.
-The CUDA kernels themselves (the tensor-core one for bfloat16, the
-CUDA-core one for float32) are held to these plain versions on the card
-(``tests/test_torch_model_cuda.py``); here their launch plans and the
-wrappers' refusals are checked.
+The CUDA kernels themselves (both on the tensor cores: wgmma for
+bfloat16, TF32 mma.sync in three passes for float32) are held to these
+plain versions on the card (``tests/test_torch_model_cuda.py``); here
+their launch plans, the wrappers' refusals and the precision argument of
+the float32 kernel's three TF32 passes are checked.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import mm_one_pass, mm_three_pass
 from repro.kernels.flash_attention.kernel import flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -72,20 +74,76 @@ def test_flash_attention_matches_jax(shape, dtype, causal, window, cap):
     np.testing.assert_allclose(_np(chunked), want_fa, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("D", [16, 64, 112, 128, 256])
+@pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
 def test_flash_launch_plan_takes_every_head_dim(D):
     """Every head dim the tests and chip_smoke.py run (the smoke configs'
-    16, the kernel tests' 64/128/256, Zamba2's 112) gets a tile that fits,
-    two blocks per SM up to D = 256; each forced tile the card's test
-    runs fits too."""
-    plan = fa_kernel.flash_plan(D)
-    assert plan.smem_bytes == fa_kernel.flash_smem_bytes(D, plan.bq, plan.bk)
-    assert plan.smem_bytes <= fa_kernel.SMEM_TWO_PER_SM
-    for bq, bk in fa_kernel.TILES:
-        if fa_kernel.flash_smem_bytes(D, bq, bk) <= fa_kernel.SMEM_LIMIT:
-            assert fa_kernel.flash_plan(D, bq=bq, bk=bk).bq == bq
-    with pytest.raises(ValueError, match="shared memory"):
-        fa_kernel.flash_plan(D, bq=512, bk=512)
+    16, the kernel tests' 64/128/256, Zamba2's 112) gets a float32 plan on
+    4 and on 8 warps: 32 query rows a warp (two 16-row tiles) up to
+    D = 128 and 16 at D = 256, keys per tile a multiple of the 8 keys one
+    product step takes, and the source's layout (Q and the K/V ring,
+    rows of D + 4 floats) in the 227 KB a block may use.
+    That its bytes are the kernel's own, the launcher checks at every
+    launch on the card (``tests/test_torch_model_cuda.py``)."""
+    default = fa_kernel.mma_plan(D)
+    assert default.warps == (8 if D <= 128 else 4)
+    for warps in fa_kernel.MMA_WARPS:
+        plan = fa_kernel.mma_plan(D, warps)
+        assert plan.bq == (32 if D <= 128 else 16) * warps
+        assert plan.warps == warps
+        assert plan.bk % 8 == 0 and plan.stages >= 2
+        assert plan.smem_bytes == 4 * (D + 4) * (plan.bq + 2 * plan.stages
+                                                 * plan.bk)
+        assert plan.smem_bytes <= fa_kernel.SMEM_LIMIT
+    with pytest.raises(ValueError, match="warps"):
+        fa_kernel.mma_plan(D, 2)
+
+
+@pytest.mark.parametrize("D", [8, 32, 96, 100, 192, 512])
+def test_flash_kernel_wrapper_refuses_other_head_dims(D):
+    """The float32 wrapper refuses a head dim its source is not built for
+    before any launch, as the bfloat16 one does."""
+    (_, (q, k, v)) = _inputs(1, 8, 8, 2, 1, D, jnp.float32, torch.float32)
+    before = fa_kernel.flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_kernel.mma_plan(D)
+    assert fa_kernel.flash_attention_cuda.launches == before
+
+
+def _attention_emulated(q, k, v, mm):
+    """One causal head, q/k/v (S, D) float32, with both products taken by
+    ``mm`` and the rest as the float32 kernel does it: p = exp(s - row
+    max), out = (p v) / rowsum p."""
+    s = mm(q, k.T) * (1.0 / q.shape[1] ** 0.5)
+    causal = torch.ones(len(q), len(k), dtype=torch.bool).tril()
+    s = s.masked_fill(~causal, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+def test_tf32_three_pass_split_keeps_float32_tolerance():
+    """The precision argument of the float32 kernel's tensor-core
+    products, on one causal Zamba2-7B head (D 112, S 1024, N(0, 1) q, k,
+    v): both products taken as three TF32 passes stay within the float32
+    tolerance (2e-5) of a float64 oracle, well inside it (< 0.2 of it);
+    one TF32 pass does not stay within it.  The errors are printed
+    (pytest -s)."""
+    rng = np.random.default_rng(20)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1024, 112)).astype(
+        np.float32)) for _ in range(3))
+    want = _attention_emulated(q.double(), k.double(), v.double(),
+                               torch.matmul)
+    err = {name: float((_attention_emulated(q, k, v, mm).double() - want)
+                       .abs().max())
+           for name, mm in (("float32", torch.matmul),
+                            ("three_pass", mm_three_pass),
+                            ("one_pass", mm_one_pass))}
+    print(f"TF32 max abs error against float64 (tolerance 2e-5): "
+          f"float32={err['float32']:.3g} three_pass={err['three_pass']:.3g} "
+          f"one_pass={err['one_pass']:.3g}")
+    assert err["three_pass"] < 0.2 * 2e-5
+    assert err["one_pass"] > 2e-5
 
 
 def test_flash_kernel_wrapper_refuses_cpu_tensors():

@@ -14,10 +14,12 @@ their zero lo parts), which keeps about float32's accuracy, and sums in
 another order: 1e-3, the JAX kernel test's float32 bound
 (``tests/test_torch_ssd.py`` shows on the CPU that the split stays
 inside it where one TF32 pass would not).  Flash attention has two
-kernels.  The CUDA-core one takes float32 and sums in another order
-only: 2e-5 (the JAX kernel test's
-float32 bound), also held at Zamba2-7B's prompt length, 2048.  The
-tensor-core one takes bfloat16, rounds P to bfloat16 before P V, as the
+kernels, both on the tensor cores.  The float32 one takes both products
+as TF32 in the same three passes and sums in another order: 2e-5 (the
+JAX kernel test's float32 bound; ``tests/test_torch_flash_attention.py``
+shows the split inside it on the CPU where one pass would not), in every
+plan (4 and 8 warps a block), also held at Zamba2-7B's prompt length,
+2048.  The bfloat16 one rounds P to bfloat16 before P V, as the
 tensor cores take it, and sums in another order: 2e-2 (the JAX kernel
 test's bfloat16 bound) against the float32 plain version, at every test
 shape and head dim and at Zamba2-7B's prompt length and head dim, and
@@ -198,18 +200,16 @@ def flash_inputs(B, Sq, Sk, H, KV, D, dtype):
 
 
 def flash_plans(D):
-    plans = [fa.flash_plan(D)]
-    for bq, bk in fa.TILES:
-        if fa.flash_smem_bytes(D, bq, bk) <= fa.SMEM_LIMIT:
-            plans.append(fa.flash_plan(D, bq=bq, bk=bk))
-    return list(dict.fromkeys(plans))
+    """Every plan of the float32 kernel for head dim D: one per warp
+    count."""
+    return [fa.mma_plan(D, warps) for warps in fa.MMA_WARPS]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
 @pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
 def test_flash_kernel_matches_plain_every_plan(card, shape, causal, window,
                                                cap):
-    """The CUDA-core kernel (float32 only; bfloat16 is the tensor-core
+    """The float32 kernel (TF32 in three passes; bfloat16 is the wgmma
     kernel's, below) in every launch plan."""
     q, k, v = flash_inputs(*shape, torch.float32)
     want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
@@ -227,9 +227,9 @@ def test_flash_kernel_matches_plain_every_plan(card, shape, causal, window,
 @pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
 def test_flash_kernel_long_sequence_float32(card, causal, window, cap):
     """Zamba2-7B's prompt length and head dim (S 2048, D 112; GQA here) in
-    float32 at 2e-5: a fault that shows only over many key blocks (block
-    skipping, the last key block, 32 query blocks) is not hidden by the
-    bfloat16 tolerance."""
+    float32 at 2e-5, every plan: a fault that shows only over many key
+    tiles (tile skipping, the last key tile, 16 or 32 query blocks) is
+    not hidden by the bfloat16 tolerance."""
     shape = (1, 2048, 2048, 4, 2, 112)
     q, k, v = flash_inputs(*shape, torch.float32)
     want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
@@ -250,6 +250,32 @@ def test_flash_kernel_refuses_what_it_cannot_launch(card):
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention_cuda(q[:, :, :1].contiguous(),
                                 torch.cat([k, k, k], 2), torch.cat([v] * 3, 2))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_cuda(*flash_inputs(1, 64, 64, 2, 2, 96,
+                                              torch.float32))
+    shifted = torch.empty(q.numel() + 1, device=q.device)[1:].view(q.shape)
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_cuda(shifted, k, v)
+
+
+@pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
+def test_flash_mma_launcher_refuses_another_layout(card, D):
+    """The float32 launcher takes the plan's shared-memory bytes for its
+    warp count (which every launch above passes) and refuses any other
+    count, and any warp count it is not built for."""
+    q, k, v = flash_inputs(1, 64, 64, 2, 2, D, torch.float32)
+    out = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 64,
+            64, 2, 2, D)
+    tail = (1.0 / D ** 0.5, 1, 0, 0.0)
+    for plan in flash_plans(D):
+        with pytest.raises(RuntimeError, match="layout"):
+            launch(fa.load_library(), "flash_attention_mma_f32", fa._ERROR,
+                   q.device, *args, plan.warps, *tail, plan.smem_bytes + 16)
+    with pytest.raises(RuntimeError, match="not built"):
+        launch(fa.load_library(), "flash_attention_mma_f32", fa._ERROR,
+               q.device, *args, 2, *tail, fa.mma_plan(D).smem_bytes)
 
 
 # Zamba2-7B's prompt length and head dim, with GQA and with H = KV: 16
@@ -287,7 +313,7 @@ def test_flash_wgmma_matches_plain(card, shape, causal, window, cap):
 
 
 def test_attention_op_routes_by_dtype(card):
-    """bfloat16 goes to the tensor-core kernel, float32 to the CUDA-core
+    """bfloat16 goes to the wgmma kernel, float32 to the TF32 mma.sync
     kernel, each one launch."""
     for dtype, kernel, other in (
             (torch.bfloat16, fa.flash_attention_wgmma,

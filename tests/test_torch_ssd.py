@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import mm_one_pass, mm_three_pass
 from repro.kernels.ssd.ops import ssd_op as jax_ssd_op
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
 from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
@@ -190,25 +191,6 @@ def test_ssd_plan_segments_long_rows_and_refuses_what_does_not_fit():
         ssd_kernel.ssd_plan(0, 64, 64, 128)
 
 
-def _tf32(a: torch.Tensor) -> torch.Tensor:
-    """``a`` as the TF32 tensor cores read a float32: the low 13 mantissa
-    bits dropped."""
-    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_one_pass(a, b):
-    return _tf32(a) @ _tf32(b)
-
-
-def _mm_three_pass(a, b):
-    """The kernel's product: a = hi + lo with hi = tf32(a) and lo =
-    tf32(a - hi), likewise b, summed as lo_a hi_b + hi_a lo_b + hi_a hi_b
-    (TF32 products are exact in float32; the sums are float32)."""
-    ah, bh = _tf32(a), _tf32(b)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return (al @ bh + ah @ bl) + ah @ bh
-
-
 def _chunk(x, dt, A, B, C, state, mm):
     """One chunk of the SSD scan through its four products, each taken by
     ``mm``: y (Q, P) and the state after the chunk (P, N)."""
@@ -235,8 +217,8 @@ def test_tf32_three_pass_split_keeps_float32_tolerance():
         (64, 64)) * 0.2).astype(np.float32))
     want = _chunk(x, dt, A[0], B, C, state, torch.matmul)
     err = {}
-    for name, mm in (("three_pass", _mm_three_pass),
-                     ("one_pass", _mm_one_pass)):
+    for name, mm in (("three_pass", mm_three_pass),
+                     ("one_pass", mm_one_pass)):
         got = _chunk(x, dt, A[0], B, C, state, mm)
         err[name] = max(float(((g - w).abs() / (1e-3 + 1e-3 * w.abs())
                                ).max()) for g, w in zip(got, want))
