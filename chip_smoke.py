@@ -22,12 +22,14 @@ parallel across a thread-block cluster, chunk products on the tensor
 cores) and both flash attention kernels (both on the tensor cores:
 wgmma for bfloat16, TF32 mma.sync in three passes for float32) against
 their plain versions (test shapes, a row of several cluster segments
-from an initial state, and Zamba2-7B's prefill shapes, every launch
-plan), the Zamba2 smoke model on the card against
-the CPU, a full-width Zamba2-7B prefill in float32 against its own
-teacher-forced decode (the float32 path: 81 SSD and 13 float32 flash
-launches), and the serving path ``repro_torch.launch.serve`` at full
-width in bfloat16 (batch 4, prompt 2048, 32 new tokens), each with the
+from an initial state, Zamba2-7B's prefill shapes and the float32
+consistency prefill's attention, every launch plan), the Zamba2 smoke
+model on the card against the CPU, a full-width Zamba2-7B prefill in
+float32 against its own teacher-forced decode (the float32 path: 81 SSD
+and 13 float32 flash launches, each flash launch also held to the plain
+versions on its recorded inputs), and the serving path
+``repro_torch.launch.serve`` at full width in bfloat16 (batch 4, prompt
+2048, 32 new tokens), each with the
 kernel counts set to 0 just before it and read just after: every prefill
 ran 81 SSD and 13 bfloat16 flash launches, no decode step ran any.
 Exits non-zero on any failure, and without a CUDA device before printing
@@ -55,6 +57,7 @@ import torch  # noqa: E402
 from repro_torch.kernels import build_all  # noqa: E402
 from repro_torch.kernels.build import library_path  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.kernels.minplus import kernel as minplus_kernel  # noqa: E402
 from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
@@ -812,7 +815,17 @@ FLASH_TEST_SHAPES = [(1, 64, 64, 2, 2, 64), (2, 128, 128, 4, 2, 64),
                      (2, 200, 200, 4, 2, 112)]
 FLASH_MASKS = [(True, 0, 0.0), (True, 32, 0.0), (True, 0, 50.0),
                (False, 0, 0.0)]
+# float32 only, every mask: the smoke configs' D = 16 on a small grid
+# (one row tile a warp, as the test shapes above and the consistency
+# prefill), then grids of 1.5x an H100's 132 SMs or more of 256-row
+# blocks, where the plan takes two, at every D up to 128
+FLASH_F32_SHAPES = [(2, 100, 100, 4, 2, 16), (2, 300, 300, 64, 16, 16),
+                    (2, 530, 530, 40, 8, 64), (1, 700, 700, 80, 16, 112),
+                    (3, 260, 260, 40, 40, 128)]
 FLASH_ZAMBA = (4, 2048, 2048, 32, 32, 112)
+# the float32 consistency prefill's attention (one request of
+# CONSISTENCY_LEN tokens at Zamba2-7B's width): float32 only, causal
+FLASH_CONSISTENCY = (1, 320, 320, 32, 32, 112)
 # the tensor-core kernel's ||got - want|| / ||want|| against the float32
 # plain version: bf16 output rounding alone gives ~1.6e-3; a key tile
 # dropped or read late moves long rows by ~1e-1 of their norm while each
@@ -931,13 +944,6 @@ def _flash_inputs(B, Sq, Sk, H, KV, D, dtype):
                  for s in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
 
 
-def _flash_plans(D):
-    """Every plan of the float32 kernel for head dim D: one per warp
-    count."""
-    return [flash_kernel.mma_plan(D, warps)
-            for warps in flash_kernel.MMA_WARPS]
-
-
 def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
     """(ms over the float32 CUDA-core peak, ms over the tensor cores' peak
     at the precision the kernel takes, ms over HBM): q k^T and p v over
@@ -983,20 +989,30 @@ def _time_flash(shape, dtype, q, k, v, kernel, reps):
 def flash_phase():
     """Both flash kernels == their plain versions (the model's chunked
     recurrence and the naive oracle) over every mask case, Zamba2-7B's
-    prefill shape included (causal): the TF32 mma.sync kernel (f32) at
-    every launch plan within 2e-5 of both, the wgmma kernel (bf16) within
+    prefill shape included (causal), and f32 only the FLASH_F32_SHAPES
+    shapes (every mask) and the consistency prefill's shape: the TF32
+    mma.sync kernel (f32) within 2e-5 of both in every plan
+    ``mma_plan`` gives (one and two row tiles a warp, reached through
+    the shapes' grids; checked), the wgmma kernel (bf16) within
     2e-2 and within WGMMA_REL_NORM on the relative norm of the whole
     error against the float32 oracle.  At the prefill shape, bf16 on the
     wgmma kernel and f32 on the mma.sync kernel are timed against the
     chunked plain version, torch's scaled_dot_product_attention and the
-    bound.  Returns (max err, timing) of the f32 kernel over its f32
+    bound, and f32 also at the consistency prefill's shape.  Returns (max
+    err, timing at the prefill shape) of the f32 kernel over its f32
     cases and of the bf16 kernel."""
     err = {"f32": 0.0, "wgmma": 0.0}
     cases, timing, worst_rel = 0, {}, 0.0
-    for shape in FLASH_TEST_SHAPES + [FLASH_ZAMBA]:
+    plans = set()
+    for shape in (FLASH_TEST_SHAPES + FLASH_F32_SHAPES
+                  + [FLASH_ZAMBA, FLASH_CONSISTENCY]):
         B, Sq, Sk, H, KV, D = shape
-        masks = [(True, 0, 0.0)] if shape == FLASH_ZAMBA else FLASH_MASKS
-        for dtype in (torch.float32, torch.bfloat16):
+        masks = (FLASH_MASKS if shape in FLASH_TEST_SHAPES + FLASH_F32_SHAPES
+                 else [(True, 0, 0.0)])
+        dtypes = ((torch.float32, torch.bfloat16)
+                  if shape in FLASH_TEST_SHAPES + [FLASH_ZAMBA]
+                  else (torch.float32,))
+        for dtype in dtypes:
             q, k, v = _flash_inputs(*shape, dtype)
             tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
             for causal, window, cap in masks:
@@ -1010,12 +1026,13 @@ def flash_phase():
                                       softcap=cap)
                 torch.testing.assert_close(want, naive, atol=tol, rtol=tol)
                 if dtype == torch.float32:
+                    plan = flash_kernel.mma_plan(
+                        D, B * H, Sq, flash_kernel._sms(q.device))
+                    plans.add((D, plan))
                     runs = [(f"mma {plan}", "f32",
-                             lambda plan=plan:
-                             flash_kernel.flash_attention_cuda(
+                             lambda: flash_kernel.flash_attention_cuda(
                                  q, k, v, causal=causal, window=window,
-                                 softcap=cap, plan=plan))
-                            for plan in _flash_plans(D)]
+                                 softcap=cap))]
                 else:
                     runs = [(f"wgmma {flash_kernel.wgmma_plan(D)}", "wgmma",
                              lambda: flash_kernel.flash_attention_wgmma(
@@ -1053,21 +1070,29 @@ def flash_phase():
                             f"flash {shape} causal={causal} window={window} "
                             f"cap={cap} {label}: rel_norm_err {rel!r} > "
                             f"{WGMMA_REL_NORM}")
-                    if shape == FLASH_ZAMBA and dtype == torch.float32:
-                        print(f"flash_attention_mma float32 at Zamba2-7B's "
-                              f"prefill shape (B={B}, S={Sq}, H=KV={H}, "
-                              f"D={D}, causal), {label}: max_abs_err={e!r} "
-                              "(bound 2e-5; chunked and naive plain)")
-            if shape == FLASH_ZAMBA:
+                    if kind == "f32" and shape in (FLASH_ZAMBA,
+                                                   FLASH_CONSISTENCY):
+                        where = ("Zamba2-7B's prefill shape"
+                                 if shape == FLASH_ZAMBA else
+                                 "the float32 consistency prefill's shape")
+                        print(f"flash_attention_mma float32 at {where} "
+                              f"(B={B}, S={Sq}, H=KV={H}, D={D}, causal), "
+                              f"{label}: max_abs_err={e!r} (bound 2e-5; "
+                              "chunked and naive plain)")
+            if shape in (FLASH_ZAMBA, FLASH_CONSISTENCY):
                 kernel, name = ((flash_kernel.flash_attention_wgmma,
                                  "flash_attention_wgmma") if dtype ==
                                 torch.bfloat16 else
                                 (flash_kernel.flash_attention_cuda,
                                  "flash_attention_mma"))
                 t = _time_flash(shape, dtype, q, k, v, kernel,
-                                20 if dtype == torch.bfloat16 else 5)
-                timing[dtype] = t
-                print(f"{name} Zamba2-7B prefill (B={B}, S={Sq}, H=KV={H}, "
+                                5 if shape == FLASH_ZAMBA and dtype ==
+                                torch.float32 else 20)
+                if shape == FLASH_ZAMBA:
+                    timing[dtype] = t
+                where = ("Zamba2-7B prefill" if shape == FLASH_ZAMBA else
+                         "float32 consistency prefill")
+                print(f"{name} {where} (B={B}, S={Sq}, H=KV={H}, "
                       f"D={D}, causal) {str(dtype).split('.')[-1]}: "
                       f"kernel_device_ms={t[0]!r} plain_ms={t[1]!r} "
                       f"library_ms (torch scaled_dot_product_attention)="
@@ -1080,6 +1105,10 @@ def flash_phase():
                       f"float32 CUDA-core operations {t[6]!r} ms at "
                       f"{PEAK_OPS[torch.float32]:.3g} op/s)")
             del q, k, v
+    every_plan = {(D, flash_kernel.mma_plan(D, bh, 320))
+                  for D in flash_kernel.WGMMA_HEAD_DIMS for bh in (1, 1024)}
+    assert plans == every_plan, (
+        f"float32 plans not reached: {sorted(every_plan - plans)}")
     print(f"flash phase ok: {cases} shape/dtype/mask/kernel/plan cases "
           f"within tolerance of the plain versions, max_abs_err mma.sync "
           f"TF32 x 3 f32={err['f32']!r}, wgmma bf16={err['wgmma']!r} "
@@ -1169,14 +1198,43 @@ def model_parity_phase():
                              "from the CPU, or the kernels were not taken")
 
 
+def _recorded_flash_err(seen):
+    """Max abs error of the float32 flash kernel's recorded launches
+    (q, k, v, keywords, output) against the model's chunked plain version
+    and the naive oracle on the same inputs; raises past 2e-5."""
+    err = 0.0
+    for q, k, v, kw, got in seen:
+        B, S, H, D = q.shape
+        KV = k.shape[2]
+        pos = torch.arange(S, device="cuda")
+        chunked = _sdpa_chunked(q.reshape(B, S, KV, H // KV, D), k, v, pos,
+                                pos, kw["causal"], kw["window"],
+                                kw["softcap"], None, 1024
+                                ).reshape(B, S, H, D)
+        naive = attention_ref(q, k, v, **kw)
+        errs = [float((got - want).abs().max()) for want in (chunked, naive)]
+        err = max(err, *errs)
+        for want, label in ((chunked, "chunked"), (naive, "naive")):
+            torch.testing.assert_close(
+                got, want, atol=2e-5, rtol=2e-5,
+                msg=lambda m: f"float32 flash kernel in the consistency "
+                f"prefill {tuple(q.shape)} {kw} against the {label} plain "
+                f"version (plain versions apart by "
+                f"{float((chunked - naive).abs().max())!r}): {m}")
+    return err
+
+
 def consistency_phase():
     """Zamba2-7B at full width in float32 compute, one request: the
     prefill of 320 prompt tokens (the SSD and the float32 flash kernel)
     against the teacher-forced decode of the same tokens (no kernel),
     last-position logits within relative 2e-2 (the JAX package's bound
-    for decode against a full forward).  Counts set to 0 just before the
-    prefill and read just after; returns the float32 flash kernel's
-    launches there (the float32 path's)."""
+    for decode against a full forward).  Those logits need not see the
+    flash kernel's last digits, so every float32 flash launch of the
+    prefill is recorded (inputs and output) and held within 2e-5 of the
+    chunked plain version and the naive oracle on its own inputs.
+    Counts set to 0 just before the prefill and read just after; returns
+    the float32 flash kernel's launches there (the float32 path's)."""
     cfg = get_config("zamba2_7b").scaled(dtype="float32")
     t0 = time.perf_counter()
     params = init_model(cfg, seed=0)
@@ -1187,11 +1245,25 @@ def consistency_phase():
     n = CONSISTENCY_LEN
     toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g,
                          device="cuda")
+    seen, kernel = [], flash_ops.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+
+    flash_ops.flash_attention_cuda = recorded
     _reset_model_counts()
+    try:
+        with torch.inference_mode():
+            lg_pre, _ = prefill(params, cfg, {"tokens": toks}, n)
+            torch.cuda.synchronize()
+            pre = _model_counts()
+    finally:
+        flash_ops.flash_attention_cuda = kernel
     with torch.inference_mode():
-        lg_pre, _ = prefill(params, cfg, {"tokens": toks}, n)
-        torch.cuda.synchronize()
-        pre = _model_counts()
+        n_seen, flash_err = len(seen), _recorded_flash_err(seen)
+        del seen
         cache = init_cache(cfg, 1, n, dtype=torch.float32)
         t0 = time.perf_counter()
         for i in range(n):
@@ -1206,9 +1278,12 @@ def consistency_phase():
     print(f"full-width consistency (Zamba2-7B, float32 compute, 1 x {n} "
           f"tokens): init_s={init_s!r} prefill launches ssd={pre[0]} flash="
           f"{pre[1]} flash_wgmma={pre[2]}; teacher-forced decode {tf_s!r} "
-          f"s, launches {dec}; last-logits rel={rel!r} same_argmax={same}")
+          f"s, launches {dec}; last-logits rel={rel!r} same_argmax={same}; "
+          f"float32 flash kernel on its {n_seen} recorded prefill launches: "
+          f"max_abs_err={flash_err!r} (bound 2e-5; chunked and naive plain)")
     if not (rel <= 2e-2 and pre == (ZAMBA_SSD, ZAMBA_FLASH, 0)
-            and dec == (0, 0, 0) and bool(torch.isfinite(lg_pre).all())):
+            and n_seen == ZAMBA_FLASH and dec == (0, 0, 0)
+            and bool(torch.isfinite(lg_pre).all())):
         raise AssertionError("full-width prefill and teacher-forced decode "
                              "disagree, or the kernels were not taken")
     del params, cache

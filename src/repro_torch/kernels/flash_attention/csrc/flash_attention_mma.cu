@@ -32,8 +32,10 @@
 //   memory as mma fragments and splits them, which is the kernel's
 //   largest cost beside the products (PERF.md has the probe's numbers),
 //   so up to D = 128 a warp owns two row tiles (kM = 2) and reads and
-//   splits each fragment once for both; at D = 256 the O accumulator
-//   alone is 128 floats a thread and a warp owns one.
+//   splits each fragment once for both, unless the grid of such blocks
+//   would leave the card's SMs idle (short prompts, few heads: then
+//   kM = 1 doubles the blocks; kernel.py::mma_plan picks); at D = 256
+//   the O accumulator alone is 128 floats a thread and a warp owns one.
 // - K and V tiles of BK keys come in by cp.async (zero-filled past Sk)
 //   into a ring of kStages stages, the next tiles' loads in flight while
 //   this tile's products run; Q comes in once, with the first tile.
@@ -68,15 +70,20 @@
 //   alpha = 0 then, so skipping leaves every row with a visible key
 //   unchanged.
 //
-// The plan is fixed by (D, kWarps) (Plan below; kernel.py::mma_plan
-// mirrors it and the launcher refuses any other shared-memory count);
+// The plan is D's and the row tiles a warp (kWarpsFor and Plan below;
+// kernel.py::mma_plan mirrors it and the launcher refuses any other
+// shared-memory count);
 // tools/flash_f32_probe.py times the other choices at Zamba2-7B's shape:
 // 8 warps of 32 rows, 32 keys a tile and two stages (one block an SM,
-// ~233 registers a thread) came first.  Tried and set aside: Q and K
-// fragments read as 128-bit words from a column-permuted layout (staged
-// by 4-byte cp.async; 18 % slower, 250 registers), and read by ldmatrix
-// (a quarter of the instructions, within 1 % of the time); 12 or 16
-// warps of one row tile (6-18 % slower).  Not tried: the next tile's
+// ~233 registers a thread) came first.  Where its 256-row blocks leave
+// SMs idle (Sq 320 at 32 heads: 64 blocks), 8 warps of 16 rows and 64
+// keys a tile took a third off (4 warps of 32 rows did not help); one
+// tile stays ahead up to 1.5x as many 256-row blocks as SMs.  Tried and
+// set aside: Q and K fragments read as 128-bit words from a
+// column-permuted layout (staged by 4-byte cp.async; 18 % slower, 250
+// registers), and read by ldmatrix (a quarter of the instructions,
+// within 1 % of the time); 12 or 16 warps of one row tile (6-18 %
+// slower).  Not tried: the next tile's
 // fragments loaded while this one's products run.
 // All kernels build with -fmad=false; here that only keeps l alpha +
 // rowsum from contracting: expf and tanhf call their fused
@@ -96,14 +103,17 @@ constexpr int kErrSmem = 10002;
 constexpr int kErrAlign = 10003;
 constexpr int kErrGrid = 10004;
 
-// Shared memory of one block: Q (BQ = 16 kM kWarps rows), then kStages
-// x (K tile, V tile) of BK rows each, every row D + 4 floats.
-template <int D, int kWarps>
+// Warps a block for head dim D: 8 up to D = 128; 4 at D = 256, where a
+// warp owns one row tile and 8 warps would leave room for 16 keys a tile.
+constexpr int kWarpsFor(int D) { return D <= 128 ? 8 : 4; }
+
+// Shared memory of one block of kWarps warps of kM 16-row tiles: Q
+// (BQ = 16 kM kWarps rows), then kStages x (K tile, V tile) of BK rows
+// each, every row D + 4 floats.
+template <int D, int kWarps, int kM>
 struct Plan {
-  static constexpr int kM = D <= 128 ? 2 : 1;  // 16-row tiles a warp
   static constexpr int kBQ = 16 * kM * kWarps;
-  static constexpr int kBK =
-      D <= 64 ? 64 : (D <= 128 || kWarps == 4 ? 32 : 16);
+  static constexpr int kBK = D <= 64 || (kM == 1 && D <= 128) ? 64 : 32;
   static constexpr int kStages = 2;
   static constexpr int kStride = D + 4;
   static constexpr int kTile = kBK * kStride;  // floats of one K or V tile
@@ -172,18 +182,17 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
   }
 }
 
-template <int D, int kWarps>
+template <int D, int kWarps, int kM>
 __global__ void __launch_bounds__(32 * kWarps, 1)
 flash_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq,
                  int Sk, int H, int KV, float scale, int causal, int window,
                  float cap) {
-  using P = Plan<D, kWarps>;
+  using P = Plan<D, kWarps, kM>;
   constexpr int kThreads = 32 * kWarps;
   constexpr int BK = P::kBK;
   constexpr int kStages = P::kStages;
   constexpr int kS = P::kStride;
-  constexpr int kM = P::kM;
   constexpr int kRows = 16 * kM;  // query rows a warp
   constexpr int kNT = BK / 8;  // 8-key tiles of S
   constexpr int kDT = D / 8;   // 8-column tiles of O
@@ -394,11 +403,11 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <int D, int kWarps>
+template <int D, int kWarps, int kM>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int H, int KV, float scale, int causal, int window,
            float cap, int smem, void* stream) {
-  using P = Plan<D, kWarps>;
+  using P = Plan<D, kWarps, kM>;
   if (smem != P::kSmem) return kErrSmem;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(o))
     return kErrAlign;
@@ -408,14 +417,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   static bool opted_in = false;  // one attribute per instantiation
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_mma_kernel<D, kWarps>,
+        flash_mma_kernel<D, kWarps, kM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   const dim3 grid(B * H, q_blocks);
-  flash_mma_kernel<D, kWarps><<<grid, 32 * kWarps, P::kSmem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  flash_mma_kernel<D, kWarps, kM><<<grid, 32 * kWarps, P::kSmem,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
       scale, causal, window, cap);
@@ -428,40 +437,44 @@ extern "C" {
 
 // Contiguous float32 device buffers, 16-byte aligned: q and o
 // (B, Sq, H, D), k and v (B, Sk, KV, D), H % KV == 0, D one of 16, 64,
-// 112, 128, 256, warps 4 or 8.  smem (bytes) as kernel.py::mma_plan gives
-// it, which must equal Plan<D, warps>::kSmem (the launch is refused
+// 112, 128, 256; tiles (16-row tiles a warp) 1 or 2, 1 at D = 256.
+// smem (bytes) as kernel.py::mma_plan gives it, which must equal
+// Plan<D, kWarpsFor(D), tiles>::kSmem (the launch is refused
 // otherwise); scale = 1 / sqrt(D); window 0 = none; cap 0 = no soft-cap.
 // Enqueued on `stream`; returns 0 when launched, else a cudaError_t or
 // one of the kErr codes (flash_mma_error_string).
 int flash_attention_mma_f32(const void* q, const void* k, const void* v,
                             void* o, int B, int Sq, int Sk, int H, int KV,
-                            int D, int warps, float scale, int causal,
+                            int D, int tiles, float scale, int causal,
                             int window, float cap, int smem, void* stream) {
+#define FLASH_MMA_LAUNCH(d, m)                                               \
+  return launch<d, kWarpsFor(d), m>(q, k, v, o, B, Sq, Sk, H, KV, scale,    \
+                                    causal, window, cap, smem, stream)
 #define FLASH_MMA_CASE(d)                                                    \
   case d:                                                                    \
-    if (warps == 4)                                                          \
-      return launch<d, 4>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,      \
-                          window, cap, smem, stream);                        \
-    if (warps == 8)                                                          \
-      return launch<d, 8>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,      \
-                          window, cap, smem, stream);                        \
+    if (tiles == 1) FLASH_MMA_LAUNCH(d, 1);                                  \
+    if (tiles == 2) FLASH_MMA_LAUNCH(d, 2);                                  \
     return kErrPlan;
   switch (D) {
     FLASH_MMA_CASE(16)
     FLASH_MMA_CASE(64)
     FLASH_MMA_CASE(112)
     FLASH_MMA_CASE(128)
-    FLASH_MMA_CASE(256)
+    case 256:
+      if (tiles == 1) FLASH_MMA_LAUNCH(256, 1);
+      return kErrPlan;
     default:
       return kErrPlan;
   }
 #undef FLASH_MMA_CASE
+#undef FLASH_MMA_LAUNCH
 }
 
 const char* flash_mma_error_string(int code) {
   switch (code) {
     case kErrPlan:
-      return "plan not built (D 16, 64, 112, 128, 256; warps 4 or 8)";
+      return "plan not built (D 16, 64, 112, 128, 256; 1 or 2 row tiles "
+             "a warp, 1 at D 256)";
     case kErrSmem:
       return "shared memory bytes differ from the kernel's layout";
     case kErrAlign: return "q, k, v, o must be 16-byte aligned";

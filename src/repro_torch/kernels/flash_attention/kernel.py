@@ -11,10 +11,10 @@ ragged edges themselves.
 :func:`flash_attention_cuda` (``csrc/flash_attention_mma.cu``) takes
 float32: both products as TF32 ``mma.sync`` in three passes (each
 operand split in a hi and a lo part), which keeps float32's accuracy,
-one warp per 32 query rows (16 at D = 256), K and V brought by
-``cp.async`` into a ring.
-:func:`mma_plan` is its plan, a function of the head dim D and the warps
-a block.
+one warp per 32 query rows (16 at D = 256, or on a grid too small for
+the SMs), K and V brought by ``cp.async`` into a ring.
+:func:`mma_plan` is its plan, a function of the head dim D and of how
+many blocks the grid gives the card's SMs.
 
 :func:`flash_attention_wgmma` (``csrc/flash_attention_wgmma.cu``) takes
 bfloat16: both products on wgmma (float32 accumulation), K and V brought
@@ -34,7 +34,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -83,40 +83,53 @@ def load_wgmma_library() -> ctypes.CDLL:
 # float32: TF32 mma.sync in three passes
 # ---------------------------------------------------------------------------
 
-MMA_WARPS = (4, 8)      # warps a block
+# SMs of an H100 SXM: the card the CPU tests plan for
+H100_SMS = 132
 
 
 class MmaPlan(NamedTuple):
     bq: int                # query rows per block
     bk: int                # keys per tile
     warps: int
+    tiles: int             # 16-row tiles a warp
     stages: int            # K/V tiles in the ring
     smem_bytes: int
 
 
-def mma_plan(D: int, warps: Optional[int] = None) -> MmaPlan:
-    """The float32 kernel's plan for head dim D on ``warps`` warps (by
-    default 8 up to D = 128 and 4 above): 32 query rows a warp (two
-    16-row tiles that share every K and V fragment) up to D = 128, 16 at
-    D = 256, whose O accumulator alone is 128 floats a thread; keys per
-    tile 64 up to D = 64, 32 up to D = 128 and at D = 256 on 4 warps, 16
-    at D = 256 on 8; two stages.  Its bytes are the source's
-    ``Plan<D, warps>``: Q and ``stages`` K and V tiles, every row D + 4
-    floats; the launcher refuses any other count.  Pure: the CPU tests
-    plan every D.  Raises ValueError for a D or a warp count the kernel
-    is not built for."""
+def mma_plan(D: int, batch_heads: int, Sq: int,
+             sms: int = H100_SMS) -> MmaPlan:
+    """The float32 kernel's plan for head dim D and a grid of
+    ``batch_heads`` (B * H) times the query blocks of ``Sq`` rows on a
+    card of ``sms`` SMs.  Up to D = 128: 8 warps of two 16-row tiles
+    (which share every K and V fragment), 32 keys a tile, when there are
+    at least 1.5 ``sms`` of those 256-row blocks; below that (short
+    prompts, few heads), 8 warps of one tile and 64 keys a tile, twice
+    the blocks, whose finer grain evens out the causal blocks' unequal
+    work over the SMs.  ``tools/flash_f32_probe.py`` on an H100 (132
+    SMs, 32 heads, D 112): one tile was 35 % faster at 128 blocks and
+    6 % at 192, two tiles 6 % faster at 256 and 4 % at 1,024.  At
+    D = 256, whose O accumulator alone is 128 floats a thread: 4 warps
+    of one tile, 32 keys a tile.  Keys per tile 64 up to D = 64; two
+    stages.  Its bytes are the source's
+    ``Plan<D, kWarpsFor(D), tiles>``: Q and ``stages`` K and V tiles,
+    every row D + 4 floats; the launcher refuses any other count.  Pure:
+    the CPU tests plan every D.  Raises ValueError for a D the kernel is
+    not built for."""
     if D not in WGMMA_HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head dim D={D} is not "
                          f"built (one of {WGMMA_HEAD_DIMS})")
-    warps = warps or (8 if D <= 128 else 4)
-    if warps not in MMA_WARPS:
-        raise ValueError(f"flash_attention_cuda: {warps} warps a block are "
-                         f"not built (one of {MMA_WARPS})")
-    rows = 32 if D <= 128 else 16
-    bk = 64 if D <= 64 else 32 if D <= 128 or warps == 4 else 16
-    bq, stages = rows * warps, 2
+    warps = 8 if D <= 128 else 4
+    blocks = batch_heads * -(-Sq // 256)
+    tiles = 2 if D <= 128 and 2 * blocks >= 3 * sms else 1
+    bk = 64 if D <= 64 or (tiles == 1 and D <= 128) else 32
+    bq, stages = 16 * tiles * warps, 2
     smem = 4 * (D + 4) * (bq + 2 * stages * bk)
-    return MmaPlan(bq, bk, warps, stages, smem)
+    return MmaPlan(bq, bk, warps, tiles, stages, smem)
+
+
+def _sms(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -126,15 +139,13 @@ def _require(cond: bool, msg: str) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0,
-                         plan: Optional[MmaPlan] = None) -> torch.Tensor:
+                         softcap: float = 0.0) -> torch.Tensor:
     """Forward attention in float32 as one tensor-core launch, the value
     of ``kernels/flash_attention/ref.py::attention_ref``.
 
     q (B, Sq, H, D) and k, v (B, Sk, KV, D): float32, contiguous, 16-byte
     aligned, on one CUDA device, H % KV == 0, D one of
-    :data:`WGMMA_HEAD_DIMS`.  Returns (B, Sq, H, D) float32.  ``plan``
-    overrides :func:`mma_plan`'s default for D."""
+    :data:`WGMMA_HEAD_DIMS`.  Returns (B, Sq, H, D) float32."""
     if not all(t.dtype == torch.float32 for t in (q, k, v)):
         raise TypeError("flash_attention_cuda: q, k, v must be float32 "
                         f"(bfloat16 goes to flash_attention_wgmma; got "
@@ -143,7 +154,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _require(t.ndim == 4, f"{name} must be 4-D, not {tuple(t.shape)}")
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    plan = plan or mma_plan(D)
+    plan = mma_plan(D, B * H, Sq, _sms(q.device) if q.is_cuda else H100_SMS)
     _require(k.shape == (B, Sk, KV, D) and v.shape == k.shape,
              f"k, v must be (B, Sk, KV, D) matching q, not "
              f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -158,7 +169,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     launch(load_library(), "flash_attention_mma_f32", _ERROR, q.device,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-           Sk, H, KV, D, plan.warps, 1.0 / math.sqrt(D), int(causal),
+           Sk, H, KV, D, plan.tiles, 1.0 / math.sqrt(D), int(causal),
            int(window), float(softcap), plan.smem_bytes)
     flash_attention_cuda.launches += 1
     return out

@@ -77,25 +77,31 @@ def test_flash_attention_matches_jax(shape, dtype, causal, window, cap):
 @pytest.mark.parametrize("D", fa_kernel.WGMMA_HEAD_DIMS)
 def test_flash_launch_plan_takes_every_head_dim(D):
     """Every head dim the tests and chip_smoke.py run (the smoke configs'
-    16, the kernel tests' 64/128/256, Zamba2's 112) gets a float32 plan on
-    4 and on 8 warps: 32 query rows a warp (two 16-row tiles) up to
-    D = 128 and 16 at D = 256, keys per tile a multiple of the 8 keys one
-    product step takes, and the source's layout (Q and the K/V ring,
-    rows of D + 4 floats) in the 227 KB a block may use.
-    That its bytes are the kernel's own, the launcher checks at every
-    launch on the card (``tests/test_torch_model_cuda.py``)."""
-    default = fa_kernel.mma_plan(D)
-    assert default.warps == (8 if D <= 128 else 4)
-    for warps in fa_kernel.MMA_WARPS:
-        plan = fa_kernel.mma_plan(D, warps)
-        assert plan.bq == (32 if D <= 128 else 16) * warps
-        assert plan.warps == warps
+    16, the kernel tests' 64/128/256, Zamba2's 112) gets a float32 plan
+    for the grid it launches: up to D = 128, 8 warps of 32 query rows
+    (two 16-row tiles) where there are at least 1.5x the card's SMs of
+    those 256-row blocks (Zamba2-7B's prefill, B 4 x 32 heads x 8
+    blocks) and 8 warps of 16 rows below that (the float32 consistency
+    prefill, 32 heads x 2 blocks, or a card of more SMs); 4 warps of 16
+    at D = 256 either way.  Keys per tile a multiple of the 8 keys one
+    product step takes, and the source's layout (Q and the K/V ring, rows
+    of D + 4 floats) in the 227 KB a block may use.  That its bytes are
+    the kernel's own, the launcher checks at every launch on the card
+    (``tests/test_torch_model_cuda.py``)."""
+    full = fa_kernel.mma_plan(D, 4 * 32, 2048)
+    short = fa_kernel.mma_plan(D, 32, 320)
+    assert fa_kernel.mma_plan(D, 4 * 32, 2048, sms=1025) == short
+    # 99 heads x 2 blocks are 1.5x the 132 SMs, 98 x 2 are not
+    assert fa_kernel.mma_plan(D, 99, 320) == full
+    assert fa_kernel.mma_plan(D, 98, 320) == short
+    assert (full.warps, full.tiles) == ((8, 2) if D <= 128 else (4, 1))
+    assert (short.warps, short.tiles) == ((8, 1) if D <= 128 else (4, 1))
+    for plan in (full, short):
+        assert plan.bq == 16 * plan.tiles * plan.warps
         assert plan.bk % 8 == 0 and plan.stages >= 2
         assert plan.smem_bytes == 4 * (D + 4) * (plan.bq + 2 * plan.stages
                                                  * plan.bk)
         assert plan.smem_bytes <= fa_kernel.SMEM_LIMIT
-    with pytest.raises(ValueError, match="warps"):
-        fa_kernel.mma_plan(D, 2)
 
 
 @pytest.mark.parametrize("D", [8, 32, 96, 100, 192, 512])
@@ -107,7 +113,7 @@ def test_flash_kernel_wrapper_refuses_other_head_dims(D):
     with pytest.raises(ValueError, match="head dim"):
         fa_kernel.flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="head dim"):
-        fa_kernel.mma_plan(D)
+        fa_kernel.mma_plan(D, 2, 8)
     assert fa_kernel.flash_attention_cuda.launches == before
 
 

@@ -17,10 +17,10 @@ inside it where one TF32 pass would not).  Flash attention has two
 kernels, both on the tensor cores.  The float32 one takes both products
 as TF32 in the same three passes and sums in another order: 2e-5 (the
 JAX kernel test's float32 bound; ``tests/test_torch_flash_attention.py``
-shows the split inside it on the CPU where one pass would not), in every
-plan (4 and 8 warps a block), also held at Zamba2-7B's prompt length,
-2048.  The bfloat16 one rounds P to bfloat16 before P V, as the
-tensor cores take it, and sums in another order: 2e-2 (the JAX kernel
+shows the split inside it on the CPU where one pass would not), at
+every head dim's plan, also held at Zamba2-7B's prompt length, 2048.
+The bfloat16 one rounds P to bfloat16 before P V, as the tensor cores
+take it, and sums in another order: 2e-2 (the JAX kernel
 test's bfloat16 bound) against the float32 plain version, at every test
 shape and head dim and at Zamba2-7B's prompt length and head dim, and
 5e-3 on the relative norm of the whole error (``WGMMA_REL_NORM``).
@@ -63,6 +63,13 @@ FLASH_SHAPES = [(1, 64, 64, 2, 2, 64), (2, 128, 128, 4, 2, 64),
                 (2, 200, 200, 4, 2, 112)]
 FLASH_MASKS = [(True, 0, 0.0), (True, 32, 0.0), (True, 0, 50.0),
                (False, 0, 0.0)]
+# float32 only: the smoke configs' D = 16 on a small grid (one row tile
+# a warp, as every shape above), then grids of 1.5x an H100's 132 SMs or
+# more of 256-row blocks (B * H * ceil(Sq / 256) >= 198), where the plan
+# takes two: every D up to 128, ragged Sq, GQA and H = KV
+FLASH_TWO_TILE = [(2, 300, 300, 64, 16, 16), (2, 530, 530, 40, 8, 64),
+                  (1, 700, 700, 80, 16, 112), (3, 260, 260, 40, 40, 128)]
+FLASH_F32_SHAPES = [(2, 100, 100, 4, 2, 16)] + FLASH_TWO_TILE
 DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -199,44 +206,43 @@ def flash_inputs(B, Sq, Sk, H, KV, D, dtype):
     return dev((B, Sq, H, D)), dev((B, Sk, KV, D)), dev((B, Sk, KV, D))
 
 
-def flash_plans(D):
-    """Every plan of the float32 kernel for head dim D: one per warp
-    count."""
-    return [fa.mma_plan(D, warps) for warps in fa.MMA_WARPS]
-
-
-@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=str)
+@pytest.mark.parametrize("shape", FLASH_SHAPES + FLASH_F32_SHAPES, ids=str)
 @pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
 def test_flash_kernel_matches_plain_every_plan(card, shape, causal, window,
                                                cap):
     """The float32 kernel (TF32 in three passes; bfloat16 is the wgmma
-    kernel's, below) in every launch plan."""
+    kernel's, below) in every launch plan: the shapes reach one and two
+    row tiles a warp at every D up to 128 and the one plan of D = 256."""
+    B, Sq, _, H, _, D = shape
     q, k, v = flash_inputs(*shape, torch.float32)
     want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
-    for plan in flash_plans(shape[-1]):
-        before = fa.flash_attention_cuda.launches
-        got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      softcap=cap, plan=plan)
-        torch.cuda.synchronize()
-        assert fa.flash_attention_cuda.launches == before + 1
-        assert got.dtype == torch.float32 and got.shape == q.shape
-        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5,
-                                   msg=lambda m: f"{plan}: {m}")
+    plan = fa.mma_plan(D, B * H, Sq, fa._sms(q.device))
+    assert plan.tiles == (2 if shape in FLASH_TWO_TILE else 1)
+    before = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_cuda.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5,
+                               msg=lambda m: f"{plan}: {m}")
 
 
 @pytest.mark.parametrize("causal,window,cap", FLASH_MASKS)
 def test_flash_kernel_long_sequence_float32(card, causal, window, cap):
     """Zamba2-7B's prompt length and head dim (S 2048, D 112; GQA here) in
-    float32 at 2e-5, every plan: a fault that shows only over many key
-    tiles (tile skipping, the last key tile, 16 or 32 query blocks) is
-    not hidden by the bfloat16 tolerance."""
-    shape = (1, 2048, 2048, 4, 2, 112)
-    q, k, v = flash_inputs(*shape, torch.float32)
-    want = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
-    for plan in flash_plans(shape[-1]):
+    float32 at 2e-5, with 4 heads (16 query blocks of 128 rows) and 32
+    (8 of 256, two row tiles a warp): a fault that shows only over many
+    key tiles (tile skipping, the last key tile) is not hidden by the
+    bfloat16 tolerance."""
+    for shape in [(1, 2048, 2048, 4, 2, 112), (1, 2048, 2048, 32, 8, 112)]:
+        q, k, v = flash_inputs(*shape, torch.float32)
+        want = attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=cap)
         got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                      softcap=cap, plan=plan)
+                                      softcap=cap)
         torch.cuda.synchronize()
+        plan = fa.mma_plan(112, shape[3], 2048, fa._sms(q.device))
         torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5,
                                    msg=lambda m: f"{plan}: {m}")
 
@@ -261,21 +267,31 @@ def test_flash_kernel_refuses_what_it_cannot_launch(card):
 
 @pytest.mark.parametrize("D", fa.WGMMA_HEAD_DIMS)
 def test_flash_mma_launcher_refuses_another_layout(card, D):
-    """The float32 launcher takes the plan's shared-memory bytes for its
-    warp count (which every launch above passes) and refuses any other
-    count, and any warp count it is not built for."""
+    """The float32 launcher takes each plan's shared-memory bytes (which
+    every launch above passes) and refuses any other count, any head dim
+    it is not built for and any row tiles a warp but 1 and 2 (1 at
+    D = 256)."""
     q, k, v = flash_inputs(1, 64, 64, 2, 2, D, torch.float32)
     out = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 1, 64,
-            64, 2, 2, D)
+            64, 2, 2)
     tail = (1.0 / D ** 0.5, 1, 0, 0.0)
-    for plan in flash_plans(D):
+    plans = {fa.mma_plan(D, bh, 320) for bh in (1, 1024)}
+    assert len(plans) == (2 if D <= 128 else 1)
+    for plan in plans:
         with pytest.raises(RuntimeError, match="layout"):
             launch(fa.load_library(), "flash_attention_mma_f32", fa._ERROR,
-                   q.device, *args, plan.warps, *tail, plan.smem_bytes + 16)
-    with pytest.raises(RuntimeError, match="not built"):
-        launch(fa.load_library(), "flash_attention_mma_f32", fa._ERROR,
-               q.device, *args, 2, *tail, fa.mma_plan(D).smem_bytes)
+                   q.device, *args, D, plan.tiles, *tail,
+                   plan.smem_bytes + 16)
+        with pytest.raises(RuntimeError, match="not built"):
+            launch(fa.load_library(), "flash_attention_mma_f32", fa._ERROR,
+                   q.device, *args, D + 8, plan.tiles, *tail,
+                   plan.smem_bytes)
+    for tiles in (0, 3, 2 if D == 256 else 4):
+        with pytest.raises(RuntimeError, match="not built"):
+            launch(fa.load_library(), "flash_attention_mma_f32", fa._ERROR,
+                   q.device, *args, D, tiles, *tail,
+                   fa.mma_plan(D, 1, 64).smem_bytes)
 
 
 # Zamba2-7B's prompt length and head dim, with GQA and with H = KV: 16
