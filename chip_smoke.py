@@ -10,12 +10,13 @@ scale, then drives the main paths — ``repro_torch.sim.engine.run`` with
 ``core="whole"`` and ``core="tiled"`` — at the repo's 10x instance
 (T=500, 100+100 servers, 2000 full-size jobs, seed 0, quantum=0), each
 with the kernel counts set to 0 just before it and read just after: every
-DP decision of the whole route went through the CUDA sweep, every chain
-tile of the tiled route through one launch of the sweep kernel from a
-carry-in (the chain tile) and every live slot of a plateau tile through
-the plateau kernel.  The one-slot kernel is the one-slot entry's
+DP decision of the whole route went through the CUDA sweep, and each
+tile of the tiled route through one launch from the carry the previous
+tile left: a chain tile of the sweep kernel, a plateau tile of the
+plateau kernel.  The one-slot kernel is the one-slot entry's
 (``ops.minplus``), driven on its own with its count set to 0.
-Unquantized full-size jobs (d1 up to 20480) then go through both routes.
+Unquantized full-size jobs (d1 up to 20480) then go through both routes,
+held to the port on the CPU.
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -105,10 +106,18 @@ SCALE = {"T": 500, "H": 100, "K": 100, "n": 2000}
 SLOT_TEST_SHAPES = [(1, 1), (2, 5), (17, 129), (65, 1281), (641, 1281)]
 SLOT_SCALE_SHAPES = [(m, 1280) for m in M_PADS]
 SLOT_WIDE_SHAPES = [(64, 20480), (2688, 20480), (8960, 20480)]
+# the plateau tile's clusters of 4 and 8 blocks, reached through d1 = 64 C
+PLATEAU_CLUSTER_SHAPES = [(64, 256), (64, 512)]
 R_MAX = 16
 # the reference's tiled engine on this 10x instance, on a CPU
 # (BENCH_decision.json sim_scale.utility.oasis)
 JAX_TILED_UTILITY = 7082.083469185378
+# the whole route on the wide jobs (make_cluster(T=100, H=20, K=20),
+# make_jobs(40, T=100, seed=1), quantum=None), run by the port on a CPU:
+# (completion slot by job, total utility)
+WIDE_WHOLE_CPU = ({0: 30, 2: 48, 4: 40, 6: 51, 7: 56, 9: 62, 10: 72, 11: 75,
+                   12: 85, 14: 80, 15: 48, 19: 80, 20: 87, 21: 96},
+                  137.0753222827979)
 
 
 def _card() -> str:
@@ -266,18 +275,12 @@ def kernel_phase():
     return max_err, timings
 
 
-def _row_prev(dc1, d1, dtype, runs=None):
-    """Seeded slot inputs on the card: a row with +inf cells (or exactly
-    ``runs`` runs of equal values) and a carry with +inf cells."""
-    rng = np.random.default_rng(dc1 * 7 + d1 + (runs or 0))
-    if runs is None:
-        row = rng.random(dc1)
-        row[rng.random(dc1) < 0.3] = np.inf
-    else:
-        vals = np.concatenate([[0.0], rng.random(runs - 1) + 0.5])
-        cuts = np.sort(rng.choice(np.arange(1, dc1), runs - 1,
-                                  replace=False))
-        row = np.repeat(vals, np.diff(np.concatenate([[0], cuts, [dc1]])))
+def _row_prev(dc1, d1, dtype):
+    """Seeded slot inputs on the card: a row and a carry with +inf
+    cells."""
+    rng = np.random.default_rng(dc1 * 7 + d1)
+    row = rng.random(dc1)
+    row[rng.random(dc1) < 0.3] = np.inf
     row[0] = 0.0
     prev = rng.random(d1)
     prev[rng.random(d1) < 0.3] = np.inf
@@ -290,7 +293,8 @@ def _slot_bounds(row, d1, dtype, plateau):
     """(ms over the ops peak, ms over HBM) for one slot on these inputs.
     One-slot kernel (``ops.minplus``: cost and argmin): an add and a
     compare per candidate ``j <= min(DC, d)``.  Plateau kernel (cost
-    only): the doubling table's minima up to the level the longest run
+    only): over the row's finite runs (a +inf run never lowers a
+    minimum), the doubling table's minima up to the level the longest
     needs over the D+1+DC window, then an add and two minima per run and
     output.  Bytes: row and carry read, outputs (and the int32 argmin)
     written, once."""
@@ -299,9 +303,10 @@ def _slot_bounds(row, d1, dtype, plateau):
     if plateau:
         h = row.cpu().numpy()
         starts = np.flatnonzero(np.concatenate([[True], h[1:] != h[:-1]]))
-        lengths = np.diff(np.concatenate([starts, [dc1]]))
-        levels = int(lengths.max()).bit_length() - 1
-        ops = levels * (d1 + dc1) + 3.0 * len(starts) * d1
+        lengths = np.diff(np.concatenate([starts, [dc1]]))[
+            np.isfinite(h[starts])]
+        levels = int(lengths.max(initial=1)).bit_length() - 1
+        ops = levels * (d1 + dc1) + 3.0 * lengths.size * d1
     else:
         ops = 2.0 * _band_candidates(dc1, d1)
     nbytes = (dc1 + 2 * d1) * size + (0 if plateau else 4 * d1)
@@ -309,13 +314,11 @@ def _slot_bounds(row, d1, dtype, plateau):
 
 
 def slot_phase():
-    """The one-slot kernel (cost + argmin, and cost only) and the plateau
-    kernel (run counts 1, r_max - 1, r_max) == their plain versions
-    bitwise, f32 and f64; at the main path's shapes each timed (device
-    time per launch) against its plain version on the entry that runs it:
-    the one-slot kernel through ``ops.minplus`` (cost and argmin), the
-    plateau kernel cost only, as the tiled route calls it."""
-    max_err = {"slot": 0.0, "plateau": 0.0}
+    """The one-slot kernel (cost + argmin, and cost only) == its plain
+    version bitwise, f32 and f64; at the main path's shapes timed (device
+    time per launch) against its plain version through ``ops.minplus``
+    (cost and argmin), the entry that runs it."""
+    max_err = 0.0
     timings = {}
     cases = 0
     for dc1, d1 in SLOT_TEST_SHAPES + SLOT_SCALE_SHAPES + SLOT_WIDE_SHAPES:
@@ -331,45 +334,23 @@ def slot_phase():
                 raise AssertionError(f"minplus_slot {dc1}->{d1} {dtype}: "
                                      "kernel differs from the plain version")
             cases += 1
-            runs_set = sorted({min(r, dc1) for r in (1, R_MAX - 1, R_MAX)})
-            for runs in runs_set:
-                prow, _ = _row_prev(dc1, d1, dtype, runs=runs)
-                got = minplus_kernel.minplus_plateau_cuda(prow, prev,
-                                                          r_max=R_MAX)
-                want = plateau_step(prow, prev)
-                torch.cuda.synchronize()
-                if not (int(run_count(prow)) == runs
-                        and torch.equal(got, want)
-                        and torch.equal(got, minplus_ref(prow, prev)[0])):
-                    raise AssertionError(
-                        f"minplus_plateau {dc1}->{d1} {dtype} runs={runs}: "
-                        "kernel differs from the plain version")
-                cases += 1
             if dtype != torch.float64 or (dc1, d1) in SLOT_TEST_SHAPES:
                 continue
-            out = torch.empty_like(prev)
-            prow, _ = _row_prev(dc1, d1, dtype, runs=min(R_MAX, dc1))
-            for kind, fn, plain, x_row in (
-                    ("slot", lambda: minplus_ops.minplus(row, prev),
-                     lambda: minplus_ref(row, prev), row),
-                    ("plateau", lambda: minplus_kernel.minplus_plateau_cuda(
-                        prow, prev, r_max=R_MAX, out=out),
-                     lambda: plateau_step(prow, prev), prow)):
-                wide = (dc1, d1) in SLOT_WIDE_SHAPES
-                k_ms = _device_ms(fn, 5 if wide else 50)
-                p_ms = _time_ms(plain, reps=1 if wide else 10)
-                op_ms, byte_ms = _slot_bounds(x_row, d1, dtype,
-                                              kind == "plateau")
-                timings[(kind, dc1, d1)] = (k_ms, p_ms, max(op_ms, byte_ms),
-                                            op_ms, byte_ms)
-                print(f"{kind} m_pad={dc1} d1={d1} float64: "
-                      f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} "
-                      f"bound_ms={max(op_ms, byte_ms)!r} ("
-                      f"{'operations' if op_ms >= byte_ms else 'bytes'}; "
-                      "launch latency floors a launch this small) "
-                      "bitwise=True")
-    print(f"slot phase ok: {cases} one-slot and plateau shape/dtype/run "
-          f"cases bitwise equal, max_abs_err={max_err!r}")
+            wide = (dc1, d1) in SLOT_WIDE_SHAPES
+            k_ms = _device_ms(lambda: minplus_ops.minplus(row, prev),
+                              5 if wide else 50)
+            p_ms = _time_ms(lambda: minplus_ref(row, prev),
+                            reps=1 if wide else 10)
+            op_ms, byte_ms = _slot_bounds(row, d1, dtype, False)
+            timings[(dc1, d1)] = (k_ms, p_ms, max(op_ms, byte_ms), op_ms,
+                                  byte_ms)
+            print(f"slot m_pad={dc1} d1={d1} float64: "
+                  f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} "
+                  f"bound_ms={max(op_ms, byte_ms)!r} ("
+                  f"{'operations' if op_ms >= byte_ms else 'bytes'}; "
+                  "launch latency floors a launch this small) bitwise=True")
+    print(f"slot phase ok: {cases} one-slot shape/dtype cases bitwise "
+          f"equal, max_abs_err={max_err!r}")
     # the one-slot entry's own path: ops.minplus (cost and first-index
     # argmin) chained over a tile's slots at each 10x bucket, counts set
     # to 0 just before and read just after
@@ -487,9 +468,114 @@ def tile_phase():
     return max_err
 
 
+def _plateau_rows(n, dc1, d1, dtype, runs):
+    """Seeded run-compressed rows on the card: ``n`` rows of exactly
+    ``runs`` runs of equal values each (0 first, the last run +inf in
+    every other row, as COST rows end)."""
+    rng = np.random.default_rng(dc1 * 7 + d1 + runs)
+    rows = np.empty((n, dc1))
+    for t in range(n):
+        vals = np.concatenate([[0.0], rng.random(runs - 1) + 0.5])
+        if t % 2 and runs > 1:
+            vals[-1] = np.inf
+        cuts = np.sort(rng.choice(np.arange(1, dc1), runs - 1,
+                                  replace=False))
+        rows[t] = np.repeat(vals, np.diff(np.concatenate([[0], cuts,
+                                                          [dc1]])))
+    return torch.tensor(rows, dtype=dtype, device="cuda")
+
+
+def _plain_plateau_tile(rows, prev):
+    """The plain tile: ``monotone.plateau_step`` chained over the rows."""
+    cols = []
+    for row in rows:
+        prev = plateau_step(row, prev)
+        cols.append(prev)
+    return torch.stack(cols)
+
+
+def _plateau_tile_bounds(rows, d1, dtype):
+    """(ms over the ops peak, ms over HBM) for one plateau tile on these
+    rows: the operations of :func:`_slot_bounds` slot by slot (the table
+    levels each row's longest run needs, an add and two minima per run
+    and output); rows and carry read, the tile's columns written, once."""
+    n, dc1 = rows.shape
+    ops_ms = sum(_slot_bounds(row, d1, dtype, True)[0] for row in rows)
+    nbytes = (n * dc1 + d1 + n * d1) * dtype.itemsize
+    return ops_ms, nbytes / PEAK_BYTES * 1e3
+
+
+def _plateau_plan_str(plan):
+    return (f"C={plan.cluster} w={plan.w} threads={plan.threads} "
+            f"levels={plan.kmax} table="
+            f"{'shared' if plan.table_shared else 'global'}")
+
+
+def plateau_tile_phase():
+    """The plateau tile (``minplus_plateau_cuda``, one launch per tile)
+    == the plain tile and == the chain (``minplus_sweep_cuda`` given the
+    same carry) bitwise: every one-slot shape, d1 = 64 C shapes that take
+    clusters of 4 and 8, f32 and f64, rows of 1, r_max - 1, r_max and
+    3 r_max runs (the last through the direct loop), tiles of 1, 17 and 64
+    slots from the identity and from a real DP column, under the planned
+    table placement and the global one, written at a row offset of a
+    larger table whose other rows stay untouched."""
+    max_err, cases = 0.0, 0
+    for dc1, d1 in (SLOT_TEST_SHAPES + SLOT_SCALE_SHAPES + SLOT_WIDE_SHAPES
+                    + PLATEAU_CLUSTER_SHAPES):
+        for dtype in (torch.float32, torch.float64):
+            plans = {minplus_kernel.plateau_plan(dc1, d1, dtype, R_MAX),
+                     minplus_kernel.plateau_plan(dc1, d1, dtype, R_MAX,
+                                                 table_shared=False)}
+            carry = minplus_sweep_ref(_rows(3, dc1, d1, dtype) + 1.0,
+                                      d1 - 1)[0][-1].contiguous()
+            for runs in sorted({min(r, dc1) for r in
+                                (1, R_MAX - 1, R_MAX, 3 * R_MAX)}):
+                rows = _plateau_rows(TILE, dc1, d1, dtype, runs)
+                if not bool((run_count(rows) == runs).all()):
+                    raise AssertionError("plateau rows of the wrong run count")
+                for prev in (_identity(d1, dtype), carry):
+                    want = _plain_plateau_tile(rows, prev)
+                    chain, _ = minplus_kernel.minplus_sweep_cuda(
+                        rows, d1 - 1, prev=prev)
+                    fin = torch.isfinite(want)
+                    for n in (1, 17, TILE):
+                        for plan in plans:
+                            out = torch.full((n + 4, d1), float("nan"),
+                                             dtype=dtype, device="cuda")
+                            minplus_kernel.minplus_plateau_cuda(
+                                rows[:n], prev, r_max=R_MAX,
+                                out=out[2:n + 2], plan=plan)
+                            torch.cuda.synchronize()
+                            got = out[2:n + 2]
+                            if fin[:n].any():
+                                max_err = max(max_err, float(
+                                    (got[fin[:n]] - want[:n][fin[:n]])
+                                    .abs().max()))
+                            if not (_same_bits(got, want[:n])
+                                    and _same_bits(got, chain[:n])
+                                    and bool(torch.isnan(out[:2]).all())
+                                    and bool(torch.isnan(out[n + 2:]).all())):
+                                raise AssertionError(
+                                    f"minplus_plateau {n} slots m_pad={dc1} "
+                                    f"d1={d1} {dtype} runs={runs} plan "
+                                    f"{_plateau_plan_str(plan)}: kernel "
+                                    "differs from the plain tile or the "
+                                    "chain, or wrote outside its rows")
+                            cases += 1
+            if dtype == torch.float64:
+                print(f"plateau m_pad={dc1} d1={d1} float64 plans: " + "; ".join(
+                    _plateau_plan_str(p) for p in sorted(plans)))
+    print(f"plateau tile phase ok: {cases} shape/dtype/runs/carry/length/plan "
+          f"cases bitwise equal to the plain tile and the chain, "
+          f"max_abs_err={max_err!r}")
+    return max_err
+
+
 def _counted():
     """(sweep kernel, one-slot, plateau) launches so far: on the tiled
-    route every sweep-kernel launch is a chain tile's."""
+    route every sweep-kernel launch is a chain tile's and every plateau
+    launch a plateau tile's."""
     return (minplus_kernel.minplus_sweep_cuda.launches,
             minplus_kernel.minplus_cuda.launches,
             minplus_kernel.minplus_plateau_cuda.launches)
@@ -504,11 +590,10 @@ def _reset_counts():
 
 def _tiled_launches_ok(snap, counts):
     """The tiled route's launches: no one-slot launch, one sweep-kernel
-    launch per chain tile (every visited tile has live slots), one
-    plateau launch per live slot of a plateau tile."""
+    launch per chain tile and one plateau launch per plateau tile (every
+    visited tile has live slots)."""
     c_n, a_n, b_n = counts
-    return (a_n == 0 and c_n == snap["chain"]
-            and b_n == snap["plateau_slots"])
+    return a_n == 0 and c_n == snap["chain"] and b_n == snap["plateau"]
 
 
 def paper_phase():
@@ -540,7 +625,11 @@ def paper_phase():
             raise AssertionError(f"seed {seed}: the card's trajectory "
                                  "differs from the CPU's")
         _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         tgpu = engine.run(cluster, jobs, quantum=0, core="tiled")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         snap = schedule_torch.monotone_counters_snapshot()
         counts = _counted()
         c_n, _, b_n = counts
@@ -551,8 +640,9 @@ def paper_phase():
         print(f"paper scale seed {seed}, tiled: accepted gpu={tgpu.accepted}"
               f" cpu={tcpu.accepted} utility gpu={tgpu.total_utility!r} "
               f"cpu={tcpu.total_utility!r} rel_diff_cpu={rels[0]!r} "
-              f"rel_diff_whole_gpu={rels[1]!r} plateau_tiles="
-              f"{snap['plateau']} chain_tiles={snap['chain']} "
+              f"rel_diff_whole_gpu={rels[1]!r} wall_s={wall!r} "
+              f"plateau_tiles={snap['plateau']} plateau_slots="
+              f"{snap['plateau_slots']} chain_tiles={snap['chain']} "
               f"tile_launches={c_n} plateau_launches={b_n}")
         if not (tgpu.completion == tcpu.completion == gpu.completion
                 and max(rels) <= 1e-9 and snap["plateau"] > 0
@@ -606,24 +696,33 @@ def scale_phase():
 
 def tiled_scale_phase(whole_utility):
     """The tiled route at the 10x instance, counting launches: one
-    sweep-kernel launch per chain tile, one plateau launch per live slot of
-    a plateau tile, no one-slot launch.  The route's ``minplus_chain`` is
-    wrapped to record each chain tile's shape (live slots, band, columns,
-    dtype), so the kernels line can time the tile on this run's own mix
-    (:func:`tile_mix_phase`).  Returns (tile launches, plateau launches,
-    the tiles' shapes)."""
+    sweep-kernel launch per chain tile, one plateau launch per plateau
+    tile, no one-slot launch; the utility held to the reference's tiled
+    engine.  The route's ``minplus_chain`` is wrapped to record each chain
+    tile's shape (live slots, band, columns, dtype) and its
+    ``minplus_plateau_tile`` to keep each plateau tile's rows and carry (a
+    copy of each on the card), so the kernels line can time both kernels
+    on this run's own mix (:func:`tile_mix_phase`,
+    :func:`plateau_mix_phase`).  Returns (tile launches, plateau launches,
+    the chain tiles' shapes, the plateau tiles)."""
     cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
     jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
     live = [engine._with_quantum(j, 0) for j in jobs if j.arrival < cluster.T]
     dp_decisions = sum(_shape_bucket(j) is not None for j in live)
-    shapes = []
+    shapes, plateau_tiles = [], []
     chain = schedule_torch.minplus_chain
+    plateau = schedule_torch.minplus_plateau_tile
 
     def recorded(rows, prev, out):
         shapes.append((*rows.shape, prev.numel(), rows.dtype))
         return chain(rows, prev, out)
 
+    def recorded_plateau(rows, prev, out, r_max):
+        plateau_tiles.append((rows.clone(), prev.clone(), r_max))
+        return plateau(rows, prev, out, r_max)
+
     schedule_torch.minplus_chain = recorded
+    schedule_torch.minplus_plateau_tile = recorded_plateau
     try:
         _reset_counts()
         torch.cuda.synchronize()
@@ -634,6 +733,7 @@ def tiled_scale_phase(whole_utility):
         counts = _counted()
     finally:
         schedule_torch.minplus_chain = chain
+        schedule_torch.minplus_plateau_tile = plateau
     c_n, a_n, b_n = counts
     snap = schedule_torch.monotone_counters_snapshot()
     ds = np.asarray(res.decision_seconds) * 1e3
@@ -650,30 +750,35 @@ def tiled_scale_phase(whole_utility):
           f"plateau_slots={snap['plateau_slots']} "
           f"chain_slots_per_tile_launch="
           f"{(snap['slots'] - snap['plateau_slots']) / max(c_n, 1)!r} "
+          f"plateau_slots_per_plateau_launch="
+          f"{snap['plateau_slots'] / max(b_n, 1)!r} "
           f"tiles_visited={tiles} tiles_per_decision={tiles / n_dec!r} "
           f"tile_launches_per_decision={c_n / n_dec!r} "
           f"dp_launches_per_decision={(b_n + c_n) / n_dec!r} "
           f"paths={{'plateau': {snap['plateau']}, 'chain': {snap['chain']}}}")
+    rel = abs(res.total_utility - JAX_TILED_UTILITY) / JAX_TILED_UTILITY
     print(f"10x utility: tiled route {res.total_utility!r}, whole route "
           f"{whole_utility!r}, reference tiled engine on a CPU "
-          f"{JAX_TILED_UTILITY!r}")
+          f"{JAX_TILED_UTILITY!r} (rel_diff {rel!r})")
     if (not _tiled_launches_ok(snap, counts) or c_n == 0 or b_n == 0
             or snap["decisions"] != dp_decisions):
         raise AssertionError(f"launches (sweep kernel, one-slot, plateau) "
                              f"{counts} for {snap['chain']} chain tiles and "
-                             f"{snap['plateau_slots']} plateau slots, "
+                             f"{snap['plateau']} plateau tiles, "
                              f"{snap['decisions']} of {dp_decisions} DP "
                              "decisions")
     if len(ds) != len(live) or res.device_uploads != 1:
         raise AssertionError("decision count or upload count is off")
-    if not (np.isfinite(res.total_utility) and res.total_utility > 0
-            and 0 < res.accepted <= len(live)):
-        raise AssertionError(f"implausible result: {res.total_utility} "
-                             f"utility, {res.accepted} accepted")
-    if len(shapes) != c_n:
-        raise AssertionError(f"{len(shapes)} chain tiles recorded for {c_n} "
+    if not (np.isfinite(res.total_utility) and 0 < res.accepted <= len(live)
+            and rel <= 1e-9):
+        raise AssertionError(f"tiled route: {res.total_utility} utility, "
+                             f"{res.accepted} accepted, against the "
+                             f"reference's {JAX_TILED_UTILITY}")
+    if len(shapes) != c_n or len(plateau_tiles) != b_n:
+        raise AssertionError(f"{len(shapes)} chain and {len(plateau_tiles)} "
+                             f"plateau tiles recorded for {c_n} and {b_n} "
                              "launches")
-    return c_n, b_n, shapes
+    return c_n, b_n, shapes, plateau_tiles
 
 
 def tile_mix_phase(shapes):
@@ -713,9 +818,76 @@ def tile_mix_phase(shapes):
     return mean
 
 
+def plateau_mix_phase(tiles):
+    """The plateau tile on the tiled route's own 10x mix: each plateau
+    tile the route launched, on its own rows and carry, held bitwise to
+    the plain tile and the chain, then timed (device time per launch)
+    against, on the same inputs: the chain kernel (the same function:
+    the yardstick), one launch of the plateau kernel per slot (the old
+    route's pattern), and the plain tile; the bound is each tile's
+    (:func:`_plateau_tile_bounds`).  Returns (ms, plain ms, bound ms, ops
+    ms, bytes ms), means over the tiles, each tile one launch."""
+    total = [0.0] * 7
+    slots = 0
+    for rows, prev, r_max in tiles:
+        n, dc1 = rows.shape
+        d1 = prev.numel()
+        out = torch.empty((n, d1), dtype=rows.dtype, device="cuda")
+        minplus_kernel.minplus_plateau_cuda(rows, prev, r_max=r_max, out=out)
+        t0 = time.perf_counter()
+        want = _plain_plateau_tile(rows, prev)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        chain, _ = minplus_kernel.minplus_sweep_cuda(rows, d1 - 1, prev=prev)
+        if not (_same_bits(out, want) and _same_bits(out, chain)):
+            raise AssertionError(f"a plateau tile of the 10x route ({n} "
+                                 f"slots, m_pad={dc1}, d1={d1}): kernel "
+                                 "differs from the plain tile or the chain")
+        k_ms = _device_ms(lambda: minplus_kernel.minplus_plateau_cuda(
+            rows, prev, r_max=r_max, out=out), 10)
+        c_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+            rows, d1 - 1, prev=prev, out=out), 10)
+
+        def per_slot():
+            col = prev
+            for i in range(n):
+                minplus_kernel.minplus_plateau_cuda(
+                    rows[i:i + 1], col, r_max=r_max, out=out[i:i + 1])
+                col = out[i]
+        # few repeats: the host's n wrapper calls a repeat must stay inside
+        # _device_ms's head start, or the host's rate is timed
+        s_ms = _device_ms(per_slot, 2)
+        op_ms, byte_ms = _plateau_tile_bounds(rows, d1, rows.dtype)
+        for i, x in enumerate((k_ms, p_ms, max(op_ms, byte_ms), op_ms,
+                               byte_ms, c_ms, s_ms)):
+            total[i] += x
+        slots += n
+    mean = [x / len(tiles) for x in total]
+    per = slots / len(tiles)
+    shapes = sorted({(r.shape[1], p.numel(), str(r.dtype).split(".")[-1])
+                     for r, p, _ in tiles})
+    print(f"plateau tile over the tiled route's own 10x mix ({len(tiles)} "
+          f"plateau tiles, {per!r} live slots a tile, shapes {shapes}; "
+          f"each bitwise the plain tile and the chain): "
+          f"kernel_device_ms={mean[0]!r} per_slot_ms={mean[0] / per!r} "
+          f"chain_kernel_ms={mean[5]!r} chain_per_slot_ms={mean[5] / per!r} "
+          f"one_launch_per_slot_ms={mean[6]!r} plain_ms={mean[1]!r} "
+          f"bound_ms={mean[2]!r} (ops {mean[3]!r}, bytes {mean[4]!r})")
+    return mean[:5]
+
+
 def wide_phase():
     """Unquantized full-size jobs (d1 up to 20480, m_pad up to 2688)
-    through both routes on the card, feasibility checked."""
+    through both routes on the card, feasibility checked, each held to the
+    port on the CPU: the tiled route run on the CPU here, completions
+    equal and utility within rel 1e-9; the whole route against its CPU
+    result pinned in :data:`WIDE_WHOLE_CPU` (it takes minutes on a CPU),
+    the same accepted jobs and utility within rel 1e-9.  The whole route's
+    completions are printed, not held: its backtrack takes the exact
+    first-index split, as the reference's does, and the card's COST rows
+    differ from the CPU's in the last ulps (``exp``/``log``), which on this
+    instance moves one split and then one finish slot at equal utility
+    (ROADMAP.md, Queue 3)."""
     cluster = make_cluster(T=100, H=20, K=20)
     jobs = make_jobs(40, T=100, seed=1)
     wide = sum(1 for j in jobs if (_shape_bucket(j) or (0, 0))[1] == 20480)
@@ -725,16 +897,35 @@ def wide_phase():
         res = engine.run(cluster, jobs, core=core, check=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        sweeps, a_n, b_n = _counted()
+        counts = _counted()
+        snap = schedule_torch.monotone_counters_snapshot()
+        sweeps, a_n, b_n = counts
+        if core == "whole":
+            cpu_completion, cpu_utility = WIDE_WHOLE_CPU
+        else:
+            cpu = engine.run(cluster, jobs, core=core, device="cpu")
+            cpu_completion, cpu_utility = cpu.completion, cpu.total_utility
+        rel = abs(res.total_utility - cpu_utility) / abs(cpu_utility)
+        moved = {j: (res.completion[j], cpu_completion[j])
+                 for j in res.completion
+                 if res.completion[j] != cpu_completion.get(j)}
         print(f"wide jobs (T=100, H=K=20, 40 full-size jobs, seed 1, "
               f"quantum=None; {wide} with d1=20480), {core} route: "
               f"wall_s={wall!r} accepted={res.accepted} "
-              f"total_utility={res.total_utility!r} "
+              f"total_utility={res.total_utility!r} cpu={cpu_utility!r} "
+              f"rel_diff={rel!r} "
+              f"same_accepted={set(res.completion) == set(cpu_completion)} "
+              f"finish_slots_moved(gpu, cpu)={moved} "
               f"sweep_kernel_launches={sweeps} plateau_launches={b_n} "
-              f"slot_launches={a_n}")
-        if not (np.isfinite(res.total_utility) and res.accepted > 0):
-            raise AssertionError(f"wide jobs, {core} route: implausible "
-                                 "result")
+              f"plateau_tiles={snap['plateau']} slot_launches={a_n}")
+        if not (set(res.completion) == set(cpu_completion) and rel <= 1e-9
+                and res.accepted > 0 and (core == "whole" or not moved)):
+            raise AssertionError(f"wide jobs, {core} route: the card's "
+                                 "trajectory differs from the CPU's")
+        if core == "tiled" and not _tiled_launches_ok(snap, counts):
+            raise AssertionError(f"wide jobs, tiled route: launches {counts} "
+                                 f"for {snap['chain']} chain and "
+                                 f"{snap['plateau']} plateau tiles")
 
 
 def profile_phase(core, n_jobs=400):
@@ -1403,10 +1594,14 @@ def main() -> int:
     max_err, timings = kernel_phase()
     slot_err, slot_timings, a_launches = slot_phase()
     tile_err = tile_phase()
+    plateau_err = plateau_tile_phase()
     paper_phase()
     launches, hist, whole_utility = scale_phase()
-    c_launches, b_launches, tile_shapes = tiled_scale_phase(whole_utility)
+    c_launches, b_launches, tile_shapes, plateau_tiles = tiled_scale_phase(
+        whole_utility)
     tile = tile_mix_phase(tile_shapes)
+    plat = plateau_mix_phase(plateau_tiles)
+    del plateau_tiles
     wide_phase()
     profile_phase("whole")
     profile_phase("tiled")
@@ -1421,8 +1616,9 @@ def main() -> int:
     # own tiles (tile_mix_phase); one-slot kernel: ops.minplus (cost and
     # argmin, f64, device time per launch) averaged over the 10x buckets
     # at d1 = 1280, one each, as its own run launches it (64 slots at each
-    # bucket); plateau kernel: its one 10x shape (m_pad 64, d1 1280,
-    # r_max runs)
+    # bucket); plateau kernel: per tile launch, averaged over the tiled
+    # route's own plateau tiles (plateau_mix_phase: every one at m_pad 64,
+    # d1 1280, f64), its launches that run's plateau tiles
     n = sum(hist.values())
     mean = [sum(hist[m] * timings[(SCALE["T"], m, 1280, torch.float64)][i]
                 for m in hist) / n for i in range(5)]
@@ -1430,9 +1626,8 @@ def main() -> int:
           f"kernel_device_ms={mean[0]!r} bound_ms={mean[2]!r}; per m_pad " +
           " ".join(f"{m}:{timings[(SCALE['T'], m, 1280, torch.float64)][0]!r}"
                    f"x{hist[m]}" for m in sorted(hist)))
-    slot = [sum(slot_timings[("slot", m, 1280)][i] for m in M_PADS)
+    slot = [sum(slot_timings[(m, 1280)][i] for m in M_PADS)
             / len(M_PADS) for i in range(5)]
-    plat = slot_timings[("plateau", 64, 1280)]
     src = "src/repro_torch/kernels/minplus/csrc/"
     ref = "src/repro/kernels/minplus/kernel.py:"
     rows = [("minplus_sweep", "minplus_sweep.cu", "125", launches, max_err,
@@ -1440,9 +1635,9 @@ def main() -> int:
             ("minplus_tile", "minplus_sweep.cu", "54", c_launches,
              tile_err, tile),
             ("minplus_slot", "minplus_slot.cu", "54", a_launches,
-             slot_err["slot"], slot),
+             slot_err, slot),
             ("minplus_plateau", "minplus_plateau.cu", "207", b_launches,
-             slot_err["plateau"], plat)]
+             plateau_err, plat)]
     rows = [(name, src + file, ref + line, n_launch, err, t, None)
             for name, file, line, n_launch, err, t in rows]
     # the model kernels: device time per launch at Zamba2-7B's prefill

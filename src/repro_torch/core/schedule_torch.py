@@ -29,11 +29,11 @@ the reference takes everywhere but the TPU (one lane at a time):
    COST rows (``_tile_rows``, batched prefix tables), the monotone
    dispatch (plateau when every row of the tile has at most ``r_max``
    runs and ``m_pad <= MONO_BAND``, else chain), and the tile's live slots
-   stepped, cost only, straight into their rows of the cost table: a
-   chain tile in ONE launch of the sweep kernel from the carry the
-   previous tile left (``ops.minplus_chain``), a plateau tile in one
-   plateau-kernel launch per live slot; dead slots (before arrival, past
-   the horizon) carry the DP unchanged and launch nothing;
+   stepped, cost only, straight into their rows of the cost table, from
+   the carry the previous tile left, in ONE launch per tile: a chain tile
+   of the sweep kernel (``ops.minplus_chain``), a plateau tile of the
+   plateau kernel (``ops.minplus_plateau_tile``); dead slots (before
+   arrival, past the horizon) carry the DP unchanged and launch nothing;
 3. per tile, one copy of the tile's ``cost[t, d_tot]`` values to the host,
    where the payoff scan (``> best + _PAY_EPS`` in slot order) and the
    exact early exit run: the loop stops once the utility's suffix maximum
@@ -56,10 +56,9 @@ import torch
 import weakref
 
 from .. import DEFAULT_DTYPE
-from ..kernels.minplus.kernel import minplus_plateau_cuda
-from ..kernels.minplus.monotone import (PATH_CHAIN, PATH_PLATEAU,
-                                        plateau_step, run_count)
-from ..kernels.minplus.ops import minplus_chain, minplus_sweep
+from ..kernels.minplus.monotone import PATH_CHAIN, PATH_PLATEAU, run_count
+from ..kernels.minplus.ops import (minplus_chain, minplus_plateau_tile,
+                                   minplus_sweep)
 from ..kernels.minplus.tiled import TILE
 from .pricing import PriceState
 from .subroutine import workload_tables
@@ -433,16 +432,6 @@ def _live_floor(pmin_h: np.ndarray, jd, T: int) -> float:
     return lb * floor_sum if lb > 0 else 0.0
 
 
-def _plateau_slot(row: torch.Tensor, prev: torch.Tensor, out: torch.Tensor,
-                  r_max: int) -> None:
-    """One live DP slot of a plateau tile into ``out`` (cost only): the
-    plateau kernel on the card, its plain version on the CPU."""
-    if out.is_cuda:
-        minplus_plateau_cuda(row, prev, r_max=r_max, out=out)
-    else:
-        out.copy_(plateau_step(row, prev))
-
-
 def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
     """One lane of the reference's ``_decide_tiled_core``: Alg. 2 over
     the horizon in ``TILE``-slot tiles from the arrival tile, with the
@@ -461,8 +450,8 @@ def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
     visited tiles' rows and the live slots' DP columns; [k0, k_end) is the
     visited tile range, ``paths`` the per-branch tile counts [dnc,
     plateau, chain] and ``live`` the live slots stepped per branch (on
-    the card: one plateau launch per plateau slot, one sweep-kernel launch
-    per chain tile)."""
+    the card: one plateau-kernel launch per plateau tile, one sweep-kernel
+    launch per chain tile)."""
     sdev, pmin_h = psd
     u, usmax, meta = jd[3], jd[4], jd[5]
     a, _, d_tot, _ = meta
@@ -497,12 +486,11 @@ def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
         lo, hi = max(a, t0), min(T, t0 + TILE)
         if hi > lo:
             if branch == PATH_PLATEAU:
-                for t in range(lo, hi):
-                    _plateau_slot(rows[t - t0], prev, cost_buf[t], r_max)
-                    prev = cost_buf[t]
+                minplus_plateau_tile(rows[lo - t0:hi - t0], prev,
+                                     cost_buf[lo:hi], r_max)
             else:
                 minplus_chain(rows[lo - t0:hi - t0], prev, cost_buf[lo:hi])
-                prev = cost_buf[hi - 1]
+            prev = cost_buf[hi - 1]
             live[branch] += hi - lo
             cost_d = cost_buf[lo:hi, d_tot].cpu().numpy()
             for t in range(lo, hi):
@@ -618,9 +606,9 @@ def monotone_counters_snapshot() -> dict:
     """Tiles processed per min-plus branch since the last reset: ``dnc``
     (not ported, always 0), ``plateau``, ``chain``; with ``slots``, the
     live slots the tiled route stepped, ``plateau_slots``, those of
-    plateau tiles (one plateau launch each on the card; a chain tile is
-    one sweep-kernel launch), and ``decisions``, the tiled decisions that ran the
-    DP."""
+    plateau tiles, and ``decisions``, the tiled decisions that ran the DP.
+    On the card each plateau tile is one plateau-kernel launch and each
+    chain tile one sweep-kernel launch."""
     return dict(_monotone_counters)
 
 
@@ -716,8 +704,9 @@ def best_schedule_fused(job: Job, state: PriceState, *,
     device; None = reject.
 
     ``core="whole"``: the whole-horizon route, one DP-sweep launch on the
-    card.  ``core="tiled"``: the tiled early-exit route, one slot-kernel
-    launch per live slot it visits (module docstring)."""
+    card.  ``core="tiled"``: the tiled early-exit route, one kernel launch
+    per tile it visits with live slots: the sweep kernel for a chain tile,
+    the plateau kernel for a plateau tile (module docstring)."""
     if core not in CORES:
         raise ValueError(f"core must be one of {CORES}, not {core!r}")
     key = _shape_bucket(job)

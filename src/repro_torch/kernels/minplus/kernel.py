@@ -22,11 +22,14 @@ Three kernels, each in its own ``csrc/*.cu`` with its design notes:
   staged in shared memory when they fit (:func:`slot_plan`), else read
   from global memory.
 * :func:`minplus_plateau_cuda` (``minplus_plateau.cu``) replaces
-  ``minplus_plateau_pallas``: one run-compressed slot, cost only.  Grid of
-  blocks of 256 outputs, each with its own doubling table over its window
-  of the carry (``kmax`` levels of ``256 + DC`` values) in shared memory
-  when it fits (:func:`plateau_plan`), else blocks of 1024 outputs whose
-  tables live in a global scratch tensor.
+  ``minplus_plateau_pallas`` as the tiled route runs it: the live slots
+  of one plateau tile in one launch of one thread-block cluster from a
+  carry-in, cost only, with the sweep's carry handoff and, per slot, a
+  doubling table over each block's window of the carry answered per run
+  of the row.  :func:`plateau_plan` picks the cluster by
+  :func:`sweep_plan`'s rule and keeps the table in shared memory where
+  it fits, else in a global scratch tensor.  One row is the one-slot
+  entry (``ops.minplus_monotone``).
 
 The libraries are compiled from the sources at first use
 (:mod:`repro_torch.kernels.build`, all ``nvcc`` processes started
@@ -44,6 +47,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..build import bind, build_libraries, launch
+from .tiled import TILE
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"sweep": _CSRC / "minplus_sweep.cu",
@@ -74,9 +78,7 @@ _SIGNATURES = {
               "minplus_error_string"),
     "slot": ("minplus_slot", [_P, _P, _P, _P, _I, _I, _I, _P],
              "minplus_slot_error_string"),
-    "plateau": ("minplus_plateau",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
-                 _P],
+    "plateau": ("minplus_plateau", [_P, _P, _P, _P] + [_I] * 11 + [_P],
                 "minplus_plateau_error_string"),
 }
 
@@ -176,7 +178,7 @@ def sweep_plan(dc1: int, d1: int, dtype: torch.dtype) -> SweepPlan:
     tiles timed at C = 4, 8 and 16 keep the rule: PERF.md,
     ``tools/tile_cluster_probe.py``).  Raises ValueError where no plan
     fits shared memory or the threads of a block."""
-    size = torch.empty((), dtype=dtype).element_size()
+    size = dtype.itemsize
     first = min(SWEEP_CLUSTERS[-1], _pow2_floor(d1 // SWEEP_MIN_COLUMNS))
     for c in SWEEP_CLUSTERS:
         plan = _sweep_plan_at(dc1, d1, size, c) if c >= first else None
@@ -253,8 +255,7 @@ minplus_sweep_cuda.launches = 0
 def slot_plan(dc1: int, dtype: torch.dtype) -> bool:
     """Whether the slot kernel stages the row and its window of the carry
     (``2 (DC+1) + 255`` values) in shared memory."""
-    size = torch.empty((), dtype=dtype).element_size()
-    return (2 * dc1 + SLOT_BLOCK - 1) * size <= SMEM_LIMIT
+    return (2 * dc1 + SLOT_BLOCK - 1) * dtype.itemsize <= SMEM_LIMIT
 
 
 def _slot_args(name: str, row: torch.Tensor, prev: torch.Tensor,
@@ -299,63 +300,132 @@ minplus_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# One run-compressed slot (the tiled core's plateau step)
+# A plateau tile: run-compressed slots from a carry-in
 # ---------------------------------------------------------------------------
 
+PLATEAU_MAX_THREADS = 512      # csrc/minplus_plateau.cu kMaxThreads
+# at least eight warps a block: at the route's shape (80 columns a block)
+# 256 threads took ~0.12 us a slot off 128 (tools/plateau_tile_probe.py)
+PLATEAU_MIN_THREADS = 256
+
+
 class PlateauPlan(NamedTuple):
-    block: int             # outputs (and threads) per block
-    table_shared: bool     # doubling table in shared memory
-    smem_bytes: int
+    cluster: int           # blocks in the launch's one cluster (C)
+    w: int                 # columns per block
+    jpad: int              # DC+1 rounded up to SWEEP_K: row stride, halo
+    threads: int           # per block: w rounded up to a warp, 256..512
     kmax: int              # table levels: floor(log2(DC+1)) + 1
+    stage: int             # slots whose rows and runs are staged at once
+    table_shared: bool     # doubling table in shared memory
+    smem_bytes: int        # dynamic shared memory per block
     scratch: int           # global table scratch, in values (0 if shared)
+
+
+def _plateau_smem(w: int, jpad: int, r_max: int, kmax: int, stage: int,
+                  shared: bool, size: int) -> int:
+    """Shared memory of one block (csrc/minplus_plateau.cu's layout): two
+    carry slices; per staged slot its row, its finite runs' constants, the
+    two read offsets of each run (one more for the scan's run starts) and
+    two scalars; in shared memory, the table of kmax levels over the
+    window of jpad + w values."""
+    table = kmax * (jpad + w) if shared else 0
+    return (size * (2 * w + stage * (jpad + r_max) + table)
+            + 4 * stage * (2 * r_max + 3))
+
+
+def _plateau_plan_at(dc1: int, d1: int, size: int, r_max: int,
+                     cluster: int, shared: bool) -> Optional[PlateauPlan]:
+    """The plan at one cluster size and table placement, staging as many
+    slots (up to a tile) as shared memory holds; None where not one
+    fits."""
+    w = _ceil_to(-(-d1 // cluster), SWEEP_K)
+    jpad = _ceil_to(dc1, SWEEP_K)
+    kmax = dc1.bit_length()
+    threads = min(max(_ceil_to(w, 32), PLATEAU_MIN_THREADS),
+                  PLATEAU_MAX_THREADS)
+    fixed = _plateau_smem(w, jpad, r_max, kmax, 0, shared, size)
+    per_slot = _plateau_smem(0, jpad, r_max, 0, 1, False, size)
+    stage = min(TILE, (SMEM_LIMIT - fixed) // per_slot)
+    if stage < 1:
+        return None
+    return PlateauPlan(cluster, w, jpad, threads, kmax, stage, shared,
+                       fixed + stage * per_slot,
+                       0 if shared else cluster * kmax * (jpad + w))
 
 
 def plateau_plan(dc1: int, d1: int, dtype: torch.dtype, r_max: int, *,
                  table_shared: Optional[bool] = None) -> PlateauPlan:
-    """Block size and table placement of the plateau kernel (module
-    docstring); ``table_shared=False`` forces the global table.  Raises
-    only for an ``r_max`` whose run list cannot fit in shared memory."""
-    size = torch.empty((), dtype=dtype).element_size()
-    kmax = dc1.bit_length()
+    """The plateau kernel's launch plan for rows of DC+1 values over D+1
+    columns (module docstring), whatever the number of slots: the
+    cluster by :func:`sweep_plan`'s rule (the largest size that leaves a
+    block at least :data:`SWEEP_MIN_COLUMNS` columns, or the next larger
+    one where that does not fit), with the table in shared memory where
+    some cluster fits it, else in global scratch; ``table_shared`` forces
+    one placement.  Pure: the CPU tests call it on every shape bucket.
+    Raises ValueError where even the slices, rows and run list of
+    ``r_max`` runs do not fit shared memory."""
+    size = dtype.itemsize
+    first = min(SWEEP_CLUSTERS[-1], _pow2_floor(d1 // SWEEP_MIN_COLUMNS))
+    for shared in ((True, False) if table_shared is None
+                   else (table_shared,)):
+        for c in SWEEP_CLUSTERS:
+            plan = (_plateau_plan_at(dc1, d1, size, r_max, c, shared)
+                    if c >= first else None)
+            if plan is not None:
+                return plan
+    raise ValueError(
+        f"no plateau plan for a band of {dc1} over {d1} columns in {dtype} "
+        f"with r_max={r_max}: a block's carry slices and one slot's row and "
+        f"run list must fit the {SMEM_LIMIT} bytes of shared memory a block "
+        f"may use")
 
-    def smem(block: int, table: bool) -> int:
-        vals = r_max + (kmax * (block + dc1 - 1) if table else 0)
-        return vals * size + 4 * (block + 2 * r_max + 1)
 
-    if table_shared is not False and smem(256, True) <= SMEM_LIMIT:
-        return PlateauPlan(256, True, smem(256, True), kmax, 0)
-    block = 1024
-    if smem(block, False) > SMEM_LIMIT:
-        raise ValueError(f"r_max={r_max} runs do not fit in shared memory")
-    grid = -(-d1 // block)
-    return PlateauPlan(block, False, smem(block, False), kmax,
-                       grid * kmax * (block + dc1 - 1))
-
-
-def minplus_plateau_cuda(row: torch.Tensor, prev: torch.Tensor, *,
+def minplus_plateau_cuda(rows: torch.Tensor, prev: torch.Tensor, *,
                          r_max: int = 16,
                          out: Optional[torch.Tensor] = None,
                          plan: Optional[PlateauPlan] = None) -> torch.Tensor:
-    """One run-compressed slot (cost only, no argmin) as one CUDA
-    launch: the value of :func:`.monotone.plateau_step`, bit for bit.
+    """Run-compressed DP slots, cost only, as one CUDA launch of one
+    thread-block cluster: ``out[i] = plateau_step(rows[i], out[i-1])``
+    with ``out[-1] = prev``, the value of :func:`.monotone.plateau_step`
+    chained over the rows and of the chain (:func:`minplus_sweep_cuda`
+    given ``prev``) bit for bit where ``prev`` holds no -0 (a DP column
+    started from the identity never does).  The tiled core steps the live
+    slots of a plateau tile so; one row is one slot.
 
-    Fast for rows of at most ``r_max`` runs of bitwise-equal values (the
-    caller's gate, :func:`.monotone.run_count`); a row with more takes the
-    kernel's direct loop and is still right.  No lane padding, so no
-    padding run is added.  Shapes and dtypes as :func:`minplus_cuda`;
-    ``out`` (D+1,) receives the result when given (the tiled core passes
-    its cost-table row); ``plan`` overrides :func:`plateau_plan`."""
-    dtype, out = _slot_args("minplus_plateau_cuda", row, prev, out)
+    Fast for rows of at most ``r_max`` runs of equal values (the caller's
+    gate, :func:`.monotone.run_count`); a row with more takes the
+    kernel's direct loop and is still right.  rows (n, DC+1) float32 or
+    float64, contiguous, on a CUDA device; ``prev`` (D+1,) and ``out``
+    (n, D+1) likewise, on the same device; ``out`` receives the columns
+    when given (the tiled core passes rows of its cost table).  ``plan``
+    overrides :func:`plateau_plan`.  Launches on the current stream
+    without synchronising; ``minplus_plateau_cuda.launches`` counts the
+    launches; n = 0 launches nothing."""
+    if rows.ndim != 2 or prev.ndim != 1 or rows.shape[1] < 1 \
+            or prev.numel() < 1:
+        raise ValueError(f"minplus_plateau_cuda: rows (n, DC+1) and prev "
+                         f"(D+1,) must be a matrix and a non-empty vector, "
+                         f"not {tuple(rows.shape)} and {tuple(prev.shape)}")
+    n, dc1 = rows.shape
+    d1 = prev.numel()
+    if out is None:
+        out = torch.empty((n, d1), dtype=prev.dtype, device=prev.device)
+    elif out.shape != (n, d1):
+        raise ValueError(f"minplus_plateau_cuda: out {tuple(out.shape)} "
+                         f"must be {(n, d1)}")
     if r_max < 1:
         raise ValueError(f"r_max must be >= 1, not {r_max}")
-    dc1, d1 = row.numel(), prev.numel()
+    dtype = _check("minplus_plateau_cuda", rows=rows, prev=prev, out=out)
+    if n == 0:
+        return out
     plan = plan or plateau_plan(dc1, d1, dtype, r_max)
     scratch = (torch.empty(plan.scratch, dtype=dtype, device=prev.device)
                if plan.scratch else None)
-    _launch("plateau", dtype, prev.device, row.data_ptr(), prev.data_ptr(),
+    _launch("plateau", dtype, prev.device, rows.data_ptr(), prev.data_ptr(),
             out.data_ptr(), scratch.data_ptr() if scratch is not None
-            else None, dc1, d1, int(r_max), plan.kmax, plan.block,
-            int(plan.table_shared), plan.smem_bytes)
+            else None, n, dc1, d1, int(r_max), plan.cluster, plan.w,
+            plan.jpad, plan.threads, plan.kmax, plan.stage,
+            int(plan.table_shared))
     minplus_plateau_cuda.launches += 1
     return out
 

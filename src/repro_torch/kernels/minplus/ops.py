@@ -31,7 +31,7 @@ def minplus_monotone(row: torch.Tensor, prev: torch.Tensor,
     cost on every path."""
     if int(run_count(row)) <= r_max:
         if row.is_cuda:
-            return minplus_plateau_cuda(row, prev, r_max=r_max)
+            return minplus_plateau_cuda(row[None], prev, r_max=r_max)[0]
         return plateau_step(row, prev)
     if row.is_cuda:
         return minplus_cuda(row, prev, want_arg=False)[0]
@@ -59,3 +59,17 @@ def minplus_chain(rows: torch.Tensor, prev: torch.Tensor,
         return minplus_sweep_cuda(rows, prev.numel() - 1, prev=prev,
                                   out=out)[0]
     return out.copy_(minplus_tile(rows[:, None, :], prev[None])[1][:, 0])
+
+
+def minplus_plateau_tile(rows: torch.Tensor, prev: torch.Tensor,
+                         out: torch.Tensor, r_max: int) -> torch.Tensor:
+    """Cost-only DP columns of the run-compressed slots ``rows`` (n, DC+1)
+    from the carry ``prev`` (D+1,), written into ``out`` (n, D+1): one
+    launch of the plateau kernel on the card (fast for rows of at most
+    ``r_max`` runs, right for any), :func:`.monotone.plateau_step` chained
+    over the rows on the CPU."""
+    if rows.is_cuda:
+        return minplus_plateau_cuda(rows, prev, r_max=r_max, out=out)
+    for i, row in enumerate(rows):
+        prev = out[i].copy_(plateau_step(row, prev))
+    return out

@@ -1,7 +1,7 @@
 """The port's CUDA min-plus kernels on the card, against their plain
 versions: the DP sweep, the chain tile (the sweep from a carry-in),
-the one-slot kernel (A) and the plateau kernel (B), and both
-decision routes on the card against the CPU.
+the one-slot kernel (A) and the plateau tile (B, one launch per plateau
+tile), and both decision routes on the card against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
 on a machine that has the card but no JAX:
@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core import schedule_torch
 from repro_torch.core.schedule_torch import _shape_bucket
-from repro_torch.kernels.minplus import kernel
+from repro_torch.kernels.minplus import kernel, ops
 from repro_torch.kernels.minplus.kernel import (minplus_cuda,
                                                 minplus_plateau_cuda,
                                                 minplus_sweep_cuda)
@@ -154,21 +154,90 @@ def test_cuda_slot_kernel_equals_plain_version(card, dc1, d1, dtype):
     assert _bits(cost_only, ref_new) and _bits(unstaged, ref_new)
 
 
+def _plateau_rows(n, dc1, d1, dtype, runs):
+    """``n`` seeded rows of exactly ``runs`` runs of equal values each (0
+    first, the last run +inf in every other row), on the card."""
+    rng = np.random.default_rng(dc1 * 7 + d1 + runs)
+    rows = np.empty((n, dc1))
+    for t in range(n):
+        vals = np.concatenate([[0.0], rng.random(runs - 1) + 0.5])
+        if t % 2 and runs > 1:
+            vals[-1] = np.inf
+        cuts = np.sort(rng.choice(np.arange(1, dc1), runs - 1,
+                                  replace=False))
+        rows[t] = np.repeat(vals, np.diff(np.concatenate([[0], cuts,
+                                                          [dc1]])))
+    return torch.tensor(rows, dtype=dtype, device="cuda")
+
+
+def _plain_plateau_tile(rows, prev):
+    cols = []
+    for row in rows:
+        prev = plateau_step(row, prev)
+        cols.append(prev)
+    return torch.stack(cols)
+
+
+def _plateau_tiles_equal_plain(dc1, d1, dtype, plans, r_max=16):
+    """chip_smoke's tile check: rows of 1, r_max - 1, r_max and 3 r_max
+    runs, tiles of 1, 17 and 64 slots from the identity and from a real
+    DP column, each plan: one launch into rows [2, n+2) of a NaN-filled
+    table, bitwise the plain tile and the chain, every other row
+    untouched."""
+    carry = _dp_carry(dc1, d1, dtype, 3)
+    for runs in sorted({min(r, dc1) for r in (1, r_max - 1, r_max,
+                                              3 * r_max)}):
+        rows = _plateau_rows(64, dc1, d1, dtype, runs)
+        assert bool((run_count(rows) == runs).all())
+        for prev in (_identity(d1, dtype), carry):
+            want = _plain_plateau_tile(rows, prev)
+            chain, _ = minplus_sweep_cuda(rows, d1 - 1, prev=prev)
+            for n in (1, 17, 64):
+                for plan in plans:
+                    table = torch.full((n + 4, d1), float("nan"),
+                                       dtype=dtype, device="cuda")
+                    before = minplus_plateau_cuda.launches
+                    got = minplus_plateau_cuda(rows[:n], prev, r_max=r_max,
+                                               out=table[2:n + 2], plan=plan)
+                    torch.cuda.synchronize()
+                    assert minplus_plateau_cuda.launches == before + 1
+                    assert got.data_ptr() == table[2].data_ptr()
+                    assert _bits(table[2:n + 2], want[:n]), (runs, n, plan)
+                    assert _bits(table[2:n + 2], chain[:n]), (runs, n, plan)
+                    assert torch.isnan(table[:2]).all()
+                    assert torch.isnan(table[n + 2:]).all()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dc1,d1", SLOT_SHAPES[2:])
+@pytest.mark.parametrize("dc1,d1", SLOT_SHAPES)
 def test_cuda_plateau_kernel_equals_plain_version(card, dc1, d1, dtype):
-    r_max = 16
-    for runs in (1, r_max - 1, r_max, 3 * r_max):
-        row, prev = _row_prev(dc1, d1, dtype, runs=min(runs, dc1))
-        got = minplus_plateau_cuda(row, prev, r_max=r_max)
-        glob = minplus_plateau_cuda(row, prev, r_max=r_max, plan=(
-            kernel.plateau_plan(dc1, d1, dtype, r_max, table_shared=False)))
-        want = plateau_step(row, prev)
-        chain = minplus_ref(row, prev)[0]
-        torch.cuda.synchronize()
-        assert int(run_count(row)) == min(runs, dc1)
-        assert _bits(got, want) and _bits(glob, want) and _bits(got, chain)
+    """The plateau tile under the planned table placement and the global
+    one, against the plain tile and the chain (chip_smoke's tile check);
+    one row through ``ops.minplus_monotone``, the one-slot entry."""
+    plans = {kernel.plateau_plan(dc1, d1, dtype, 16),
+             kernel.plateau_plan(dc1, d1, dtype, 16, table_shared=False)}
+    _plateau_tiles_equal_plain(dc1, d1, dtype, plans)
+    row, prev = _row_prev(dc1, d1, dtype, runs=min(16, dc1))
+    got = ops.minplus_monotone(row, prev)
+    torch.cuda.synchronize()
+    assert _bits(got, plateau_step(row, prev))
+    assert _bits(got, minplus_ref(row, prev)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table_shared", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster", kernel.SWEEP_CLUSTERS)
+def test_cuda_plateau_tile_every_plan(card, cluster, dtype, table_shared):
+    """Every plan the planner can give: each cluster size, reached through
+    d1 = 64 C columns (the route's band of 64, cut to d1), with the table
+    in shared memory and in global scratch."""
+    d1 = 64 * cluster
+    dc1 = min(64, d1)
+    plan = kernel.plateau_plan(dc1, d1, dtype, 16, table_shared=table_shared)
+    assert plan.cluster == cluster and plan.table_shared == table_shared
+    _plateau_tiles_equal_plain(dc1, d1, dtype, [plan])
 
 
 def _dp_carry(dc1, d1, dtype, seed, slots=5):
@@ -265,11 +334,10 @@ def test_cuda_sweep_null_carry_unchanged(card, dtype):
 
 
 @pytest.mark.cuda
-def test_tiled_route_on_card_equals_cpu_one_launch_per_live_slot(card):
-    """The tiled route on the card: one tile launch per chain tile (every
-    visited tile has live slots), one plateau launch per live slot of a
-    plateau tile, and no one-slot launch; the same trajectory as on the
-    CPU."""
+def test_tiled_route_on_card_equals_cpu_one_launch_per_tile(card):
+    """The tiled route on the card: one tile launch per chain tile and one
+    plateau launch per plateau tile (every visited tile has live slots),
+    and no one-slot launch; the same trajectory as on the CPU."""
     cluster = workload.make_cluster(T=100, H=20, K=20)
     jobs = workload.make_jobs(40, T=100, seed=1)
     before = (minplus_cuda.launches, minplus_plateau_cuda.launches,
@@ -282,8 +350,9 @@ def test_tiled_route_on_card_equals_cpu_one_launch_per_live_slot(card):
          minplus_sweep_cuda.launches), before))
     assert slot == 0
     assert tile == snap["chain"] > 0
-    assert plateau == snap["plateau_slots"] > 0
-    assert snap["plateau"] > 0 and snap["slots"] > snap["plateau_slots"]
+    assert plateau == snap["plateau"] > 0
+    assert snap["plateau_slots"] > snap["plateau"]
+    assert snap["slots"] > snap["plateau_slots"]
     cpu = engine.run(cluster, jobs, quantum=0, core="tiled", device="cpu")
     assert gpu.completion == cpu.completion
     assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)
@@ -292,13 +361,31 @@ def test_tiled_route_on_card_equals_cpu_one_launch_per_live_slot(card):
 @pytest.mark.cuda
 def test_wide_jobs_run_through_both_routes(card):
     """Unquantized full-size jobs (d1 up to 20480) are decided on the card
-    by both routes, as on the CPU."""
+    by both routes as by the port on the CPU (the whole route's CPU run
+    takes minutes): the same accepted jobs and utility within rel 1e-9,
+    and for the tiled route the same completions.  The whole route's
+    completions are not held: its exact first-index split meets the
+    card's last-ulp COST differences (``exp``/``log``) and moves one
+    finish slot at equal utility on this instance (ROADMAP.md, Queue 3)."""
     cluster = workload.make_cluster(T=100, H=20, K=20)
     jobs = workload.make_jobs(40, T=100, seed=1)
     assert any(_shape_bucket(j)[1] == 20480 for j in jobs)
     for core in ("whole", "tiled"):
+        before = minplus_plateau_cuda.launches
+        schedule_torch.monotone_counters_reset()
         res = engine.run(cluster, jobs, core=core, check=True)
-        assert res.accepted > 0 and np.isfinite(res.total_utility)
+        snap = schedule_torch.monotone_counters_snapshot()
+        plateau = minplus_plateau_cuda.launches - before
+        print(f"{core} route: accepted {res.accepted}, utility "
+              f"{res.total_utility!r}, plateau launches {plateau}")
+        assert plateau == (snap["plateau"] if core == "tiled" else 0)
+        cpu = engine.run(cluster, jobs, core=core, device="cpu")
+        assert res.accepted > 0
+        assert set(res.completion) == set(cpu.completion)
+        assert res.total_utility == pytest.approx(cpu.total_utility,
+                                                  rel=1e-9)
+        if core == "tiled":
+            assert res.completion == cpu.completion
 
 
 @pytest.mark.cuda

@@ -8,7 +8,8 @@ package, and the sweep's launch plan.
   there is no rounding to disagree on.  In float64 a chain of slots must
   equal the port's whole-horizon sweep row by row.
 * Kernel B (``minplus_plateau_cuda``, replacing
-  ``minplus_plateau_pallas``): its plain version
+  ``minplus_plateau_pallas``; one launch per plateau tile, whose plain
+  tile ``tests/test_torch_plateau_tile.py`` holds): its plain version
   ``monotone.plateau_step`` must equal the Pallas kernel and the
   reference ``plateau_step`` bit for bit in float32, for every run count
   up to ``r_max`` and with +inf runs; ``ops.minplus_monotone`` must equal
@@ -202,6 +203,15 @@ def test_ops_dispatch_cpu_uses_plain_versions():
     want_new, want_arg = minplus_ref(row, prev)
     assert torch.equal(new, want_new) and torch.equal(arg, want_arg)
     assert torch.equal(ops.minplus_monotone(row, prev, r_max=2), want_new)
+    # the plateau tile's entry: two slots chained, the plain step's columns
+    rows = torch.stack([row, row.flip(0).sort().values])
+    out = ops.minplus_plateau_tile(rows, prev, torch.empty((2, 90),
+                                                           dtype=prev.dtype),
+                                   r_max=16)
+    first = monotone.plateau_step(rows[0], prev)
+    assert _bits(out[0].numpy(), first.numpy())
+    assert _bits(out[1].numpy(), monotone.plateau_step(rows[1],
+                                                       first).numpy())
     assert (kernel.minplus_cuda.launches,
             kernel.minplus_plateau_cuda.launches) == before
 
@@ -209,9 +219,27 @@ def test_ops_dispatch_cpu_uses_plain_versions():
 @pytest.mark.parametrize("fn", [kernel.minplus_cuda,
                                 kernel.minplus_plateau_cuda])
 def test_slot_wrappers_refuse_cpu_tensors(fn):
-    with pytest.raises(ValueError):
-        fn(torch.zeros(3, dtype=torch.float64),
-           torch.zeros(7, dtype=torch.float64))
+    row = torch.zeros(3, dtype=torch.float64)
+    if fn is kernel.minplus_plateau_cuda:      # a tile of one row
+        row = row[None]
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(row, torch.zeros(7, dtype=torch.float64))
+
+
+def test_plateau_wrapper_refuses_bad_shapes():
+    """The tile wrapper takes (n, DC+1) rows and an (n, D+1) ``out``, and
+    refuses a 1-D ``rows`` and a mis-shaped ``out`` before it looks at the
+    device."""
+    rows = torch.zeros((4, 3), dtype=torch.float64)
+    prev = torch.zeros(7, dtype=torch.float64)
+    with pytest.raises(ValueError, match="matrix"):
+        kernel.minplus_plateau_cuda(rows[0], prev)
+    with pytest.raises(ValueError, match="out"):
+        kernel.minplus_plateau_cuda(rows, prev,
+                                    out=torch.zeros((3, 7),
+                                                    dtype=torch.float64))
+    with pytest.raises(ValueError, match="r_max"):
+        kernel.minplus_plateau_cuda(rows, prev, r_max=0)
 
 
 def test_tile_wrapper_refuses_cpu_tensors():
@@ -340,7 +368,8 @@ def _trace_buckets():
 
 
 def test_launch_plans_take_every_trace_bucket():
-    """The sweep and the slot kernels plan a launch, within the 227 KB of
+    """The sweep, the plateau tile (in both table placements) and the
+    one-slot kernel plan a launch, within the 227 KB of
     shared memory a block may use, for every shape bucket the reference
     decides on the 10x trace and the T=100 full-size trace at quantum=None
     (among them d1 = 20480 with m_pad up to 8960, the tight float64
@@ -362,9 +391,28 @@ def test_launch_plans_take_every_trace_bucket():
             assert plan.smem_bytes == size * (
                 3 * plan.w + 2 * plan.jpad + part) \
                 + 4 * part <= kernel.SMEM_LIMIT
-            pp = kernel.plateau_plan(m_pad, d1, dtype, max(16, m_pad // 4))
-            assert pp.smem_bytes <= kernel.SMEM_LIMIT
-            assert pp.table_shared or pp.scratch > 0
+            r_max = max(16, m_pad // 4)
+            pp = kernel.plateau_plan(m_pad, d1, dtype, r_max)
+            assert pp.cluster in kernel.SWEEP_CLUSTERS
+            assert pp.cluster * pp.w >= d1 and pp.w % k == 0
+            assert pp.jpad >= m_pad and pp.jpad % k == 0
+            assert pp.kmax == m_pad.bit_length()
+            assert pp.threads % 32 == 0 and kernel.PLATEAU_MIN_THREADS \
+                <= pp.threads <= kernel.PLATEAU_MAX_THREADS
+            assert 1 <= pp.stage <= tiled.TILE
+            assert pp.smem_bytes == kernel._plateau_smem(
+                pp.w, pp.jpad, r_max, pp.kmax, pp.stage, pp.table_shared,
+                size) <= kernel.SMEM_LIMIT
+            if pp.stage < tiled.TILE:       # as many slots as fit
+                assert kernel._plateau_smem(
+                    pp.w, pp.jpad, r_max, pp.kmax, pp.stage + 1,
+                    pp.table_shared, size) > kernel.SMEM_LIMIT
+            assert pp.scratch == (0 if pp.table_shared else
+                                  pp.cluster * pp.kmax * (pp.jpad + pp.w))
+            glob = kernel.plateau_plan(m_pad, d1, dtype, r_max,
+                                       table_shared=False)
+            assert not glob.table_shared and glob.scratch > 0 \
+                and glob.smem_bytes <= kernel.SMEM_LIMIT
             kernel.slot_plan(m_pad, dtype)
     # d1 = 64 C columns take a cluster of C blocks, every size there is
     for dtype in (torch.float32, torch.float64):
@@ -373,9 +421,19 @@ def test_launch_plans_take_every_trace_bucket():
     assert kernel.sweep_plan(64, 1280, torch.float64) == kernel.SweepPlan(
         cluster=16, w=80, jpad=64, jgroups=8,
         threads=160, smem_bytes=8 * (3 * 80 + 2 * 64 + 8 * 80) + 4 * 8 * 80)
+    # the plateau tile at the route's one shape: the sweep's cluster, a
+    # whole tile's rows and runs staged, the window and 7 table levels in
+    # shared memory
+    assert kernel.plateau_plan(64, 1280, torch.float64, 16) == \
+        kernel.PlateauPlan(cluster=16, w=80, jpad=64, threads=256, kmax=7,
+                           stage=64, table_shared=True,
+                           smem_bytes=8 * (2 * 80 + 64 * (64 + 16) + 7 * 144)
+                           + 4 * 64 * (2 * 16 + 3), scratch=0)
     # a row wider than shared memory is refused, naming the limit
     with pytest.raises(ValueError, match=str(kernel.SMEM_LIMIT)):
         kernel.sweep_plan(40000, 40001, torch.float64)
+    with pytest.raises(ValueError, match=str(kernel.SMEM_LIMIT)):
+        kernel.plateau_plan(40000, 40001, torch.float64, 16)
 
 
 def _stair_rows(rng, T, dc1, dtype):
