@@ -13,10 +13,16 @@ with the kernel counts set to 0 just before it and read just after: every
 DP decision of the whole route went through the CUDA sweep, and each
 tile of the tiled route through one launch from the carry the previous
 tile left: a chain tile of the sweep kernel, a plateau tile of the
-plateau kernel.  The one-slot kernel is the one-slot entry's
-(``ops.minplus``), driven on its own with its count set to 0.
-Unquantized full-size jobs (d1 up to 20480) then go through both routes,
-held to the port on the CPU.
+plateau kernel.  The tiled route decides each arrival burst together
+(``OASiS.on_arrivals``: speculative decisions, then re-solves through
+the row cache); it runs at one lane a launch and again at eight
+(``REPRO_BURST_LANES=8``, one cluster per lane), both held to the
+sequential route's completions and utility.  The one-slot kernel is the
+one-slot entry's (``ops.minplus``), driven on its own with its count set
+to 0.  Unquantized full-size jobs (d1 up to 20480) then go through both
+routes, held to the port on the CPU, as the whole route's 10x run is;
+traced runs show where the time goes (the tiled route one job at a time,
+and in bursts at one and at eight lanes).
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -42,6 +48,7 @@ name and power limit, and as the last line
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
@@ -113,11 +120,25 @@ R_MAX = 16
 # (BENCH_decision.json sim_scale.utility.oasis)
 JAX_TILED_UTILITY = 7082.083469185378
 # the whole route on the wide jobs (make_cluster(T=100, H=20, K=20),
-# make_jobs(40, T=100, seed=1), quantum=None), run by the port on a CPU:
-# (completion slot by job, total utility)
+# make_jobs(40, T=100, seed=1), quantum=None), run by the port on a CPU
+# (tools/whole_route_cpu.py --instance wide): (completion slot by job,
+# total utility)
 WIDE_WHOLE_CPU = ({0: 30, 2: 48, 4: 40, 6: 51, 7: 56, 9: 62, 10: 72, 11: 75,
                    12: 85, 14: 80, 15: 48, 19: 80, 20: 87, 21: 96},
                   137.0753222827979)
+# the whole route on the 10x instance (quantum=0), run by the port on a CPU
+# (tools/whole_route_cpu.py): total utility, accepted jobs, and the sha256
+# of its completions (_completion_digest)
+SCALE_WHOLE_CPU = (7261.721657287129, 371,
+                   "6f3f82e4f9d80cd61ba6e725d607bf97"
+                   "8830929124979823934f070aca004c7f")
+
+
+def _completion_digest(completion) -> str:
+    """sha256 of the sorted (job, completion slot) pairs as JSON."""
+    import hashlib
+    return hashlib.sha256(json.dumps(sorted(
+        (int(j), int(t)) for j, t in completion.items())).encode()).hexdigest()
 
 
 def _card() -> str:
@@ -468,6 +489,83 @@ def tile_phase():
     return max_err
 
 
+def tile_lanes_phase(B=8):
+    """The chain tile over ``B`` lanes in one launch (one cluster per
+    lane, a grid of (C, B)) == ``minplus_tile`` lane by lane and == B
+    one-lane launches, bitwise, at each 10x bucket, f32 and f64, 17 and 64
+    slots from real DP columns, each lane's rows, carry and columns rows
+    of larger tables (the route's lane strides) whose other rows stay
+    untouched.  64-slot float64 launches timed (device time per launch)
+    against B one-lane launches and the plain version."""
+    max_err, cases = 0.0, 0
+    for dc1, d1 in SLOT_SCALE_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            rows_all = _rows(B * (TILE + 4), dc1, d1, dtype).view(
+                B, TILE + 4, dc1)
+            carry = minplus_sweep_ref(_rows(3, dc1, d1, dtype) + 1.0,
+                                      d1 - 1)[0][-1]
+            table = torch.full((B, TILE + 5, d1), float("nan"), dtype=dtype,
+                               device="cuda")
+            table[:, 0] = carry + torch.arange(B, dtype=dtype,
+                                               device="cuda")[:, None]
+            prev = table[:, 0]
+            for n in (17, TILE):
+                rows = rows_all[:, 2:n + 2]
+                table[:, 1:] = float("nan")
+                minplus_kernel.minplus_sweep_cuda(rows, d1 - 1, prev=prev,
+                                                  out=table[:, 3:n + 3])
+                for b in range(B):
+                    want = minplus_tile(rows[b][:, None, :],
+                                        prev[b][None])[1][:, 0]
+                    one = torch.empty((n, d1), dtype=dtype, device="cuda")
+                    minplus_kernel.minplus_sweep_cuda(
+                        rows[b].contiguous(), d1 - 1,
+                        prev=prev[b].contiguous(), out=one)
+                    torch.cuda.synchronize()
+                    got = table[b, 3:n + 3]
+                    fin = torch.isfinite(want)
+                    if fin.any():
+                        max_err = max(max_err, float(
+                            (got[fin] - want[fin]).abs().max()))
+                    if not (_same_bits(got, want) and _same_bits(one, want)):
+                        raise AssertionError(
+                            f"minplus_tile {B} lanes, lane {b}, {n} slots "
+                            f"m_pad={dc1} {dtype}: the lane launch differs "
+                            "from the plain tile or a one-lane launch")
+                if not (bool(torch.isnan(table[:, 1:3]).all())
+                        and bool(torch.isnan(table[:, n + 3:]).all())):
+                    raise AssertionError(f"minplus_tile {B} lanes m_pad="
+                                         f"{dc1}: wrote outside its rows")
+                cases += 1
+            if dtype != torch.float64:
+                continue
+            rows = rows_all[:, :TILE]
+            out = torch.empty((B, TILE, d1), dtype=dtype, device="cuda")
+            k_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+                rows, d1 - 1, prev=prev, out=out), 20)
+            rows_c = [rows[b].contiguous() for b in range(B)]
+            prev_c = [prev[b].contiguous() for b in range(B)]
+
+            def one_lane_each():
+                for b in range(B):
+                    minplus_kernel.minplus_sweep_cuda(
+                        rows_c[b], d1 - 1, prev=prev_c[b], out=out[b])
+            o_ms = _device_ms(one_lane_each, 5)
+            p_ms = _time_ms(lambda: minplus_tile(rows.transpose(0, 1), prev),
+                            reps=1)
+            op_ms, byte_ms = _tile_bounds(rows.reshape(B * TILE, dc1), d1,
+                                          dtype)
+            print(f"tile {B} lanes x {TILE} slots m_pad={dc1} d1={d1} "
+                  f"float64: kernel_device_ms={k_ms!r} "
+                  f"{B}_one_lane_launches_ms={o_ms!r} "
+                  f"per_lane_slot_ms={k_ms / (B * TILE)!r} plain_ms={p_ms!r} "
+                  f"bound_ms={max(op_ms, byte_ms)!r} bitwise=True")
+    print(f"tile lanes phase ok: {cases} lane-launch shape/dtype/length "
+          f"cases bitwise equal to the plain tile and one-lane launches, "
+          f"max_abs_err={max_err!r}")
+    return max_err
+
+
 def _plateau_rows(n, dc1, d1, dtype, runs):
     """Seeded run-compressed rows on the card: ``n`` rows of exactly
     ``runs`` runs of equal values each (0 first, the last run +inf in
@@ -653,7 +751,9 @@ def paper_phase():
 
 
 def scale_phase():
-    """The whole route at the 10x instance, counting sweep launches."""
+    """The whole route at the 10x instance, counting sweep launches, held
+    to the port on the CPU (:data:`SCALE_WHOLE_CPU`: utility, accepted
+    jobs and completions, exactly)."""
     cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
     jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
     live = [engine._with_quantum(j, 0) for j in jobs if j.arrival < cluster.T]
@@ -682,16 +782,66 @@ def scale_phase():
                              "slot launches)")
     if len(ds) != len(live) or res.device_uploads != 1:
         raise AssertionError("decision count or upload count is off")
-    if not (np.isfinite(res.total_utility) and res.total_utility > 0
-            and 0 < res.accepted <= len(live)):
-        raise AssertionError(f"implausible result: {res.total_utility} "
-                             f"utility, {res.accepted} accepted")
+    got = (res.total_utility, res.accepted,
+           _completion_digest(res.completion))
+    same = got == SCALE_WHOLE_CPU
+    print(f"10x whole route against the port on the CPU: same utility, "
+          f"accepted jobs and completions {same} "
+          f"(completion_sha256={got[2]})")
+    if got != SCALE_WHOLE_CPU:
+        raise AssertionError(f"10x whole route: {got} on the card, "
+                             f"{SCALE_WHOLE_CPU} on the CPU")
     hist = {}
     for b in buckets:
         if b is not None:
             hist[b[0]] = hist.get(b[0], 0) + 1
     print(f"10x sweep shapes (m_pad: launches): {dict(sorted(hist.items()))}")
     return launches, hist, res.total_utility
+
+
+def _tiled_line(label, wall, res, snap, counts, dp_decisions):
+    """One line of the tiled route's counts: decisions (speculative ones
+    and re-solves among them), tiles served from the row caches, kernel
+    launches (each a tile of all its lanes) per DP decision of the trace
+    and per decision run."""
+    c_n, a_n, b_n = counts
+    ds = np.asarray(res.decision_seconds) * 1e3
+    tiles = snap["plateau"] + snap["chain"]
+    n_dec = max(snap["decisions"], 1)
+    print(f"{label}: wall_s={wall!r} decisions={len(ds)} "
+          f"decisions_per_s={len(ds) / wall!r} "
+          f"decision_p50_ms={float(np.percentile(ds, 50))!r} "
+          f"decision_p95_ms={float(np.percentile(ds, 95))!r} "
+          f"total_utility={res.total_utility!r} accepted={res.accepted} "
+          f"device_uploads={res.device_uploads} "
+          f"core_decisions={snap['decisions']} "
+          f"speculative={snap['speculative']} resolves={snap['resolves']} "
+          f"core_launches={snap['launches']} "
+          f"cache_tiles={snap['cache_tiles']} "
+          f"minplus_tile_launches={c_n} minplus_plateau_launches={b_n} "
+          f"minplus_slot_launches={a_n} live_slots={snap['slots']} "
+          f"plateau_slots={snap['plateau_slots']} "
+          f"tiles_visited={tiles} tiles_per_core_decision={tiles / n_dec!r} "
+          f"dp_launches_per_job={(b_n + c_n) / max(dp_decisions, 1)!r} "
+          f"dp_launches_per_core_decision={(b_n + c_n) / n_dec!r} "
+          f"paths={{'plateau': {snap['plateau']}, 'chain': {snap['chain']}}}")
+
+
+def _check_tiled(label, res, snap, counts, dp_decisions, n_live):
+    """One launch per chain tile and per plateau tile, none of the
+    one-slot kernel; every job of the trace decided once (a burst's
+    speculatively), plus the re-solves."""
+    if (not _tiled_launches_ok(snap, counts) or counts[0] == 0
+            or snap["decisions"] - snap["resolves"] != dp_decisions):
+        raise AssertionError(f"{label}: launches (sweep kernel, one-slot, "
+                             f"plateau) {counts} for {snap['chain']} chain "
+                             f"tiles and {snap['plateau']} plateau tiles, "
+                             f"{snap['decisions']} decisions with "
+                             f"{snap['resolves']} re-solves for "
+                             f"{dp_decisions} DP decisions")
+    if len(res.decision_seconds) != n_live or res.device_uploads != 1:
+        raise AssertionError(f"{label}: decision count or upload count is "
+                             "off")
 
 
 def tiled_scale_phase(whole_utility):
@@ -704,7 +854,7 @@ def tiled_scale_phase(whole_utility):
     copy of each on the card), so the kernels line can time both kernels
     on this run's own mix (:func:`tile_mix_phase`,
     :func:`plateau_mix_phase`).  Returns (tile launches, plateau launches,
-    the chain tiles' shapes, the plateau tiles)."""
+    the chain tiles' shapes, the plateau tiles, the run's completions)."""
     cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
     jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
     live = [engine._with_quantum(j, 0) for j in jobs if j.arrival < cluster.T]
@@ -714,7 +864,7 @@ def tiled_scale_phase(whole_utility):
     plateau = schedule_torch.minplus_plateau_tile
 
     def recorded(rows, prev, out):
-        shapes.append((*rows.shape, prev.numel(), rows.dtype))
+        shapes.append((*rows.shape, prev.shape[-1], rows.dtype))
         return chain(rows, prev, out)
 
     def recorded_plateau(rows, prev, out, r_max):
@@ -736,39 +886,17 @@ def tiled_scale_phase(whole_utility):
         schedule_torch.minplus_plateau_tile = plateau
     c_n, a_n, b_n = counts
     snap = schedule_torch.monotone_counters_snapshot()
-    ds = np.asarray(res.decision_seconds) * 1e3
-    tiles = snap["plateau"] + snap["chain"]
-    n_dec = max(snap["decisions"], 1)
-    print(f"10x instance, tiled route: wall_s={wall!r} decisions={len(ds)} "
-          f"decisions_per_s={len(ds) / wall!r} "
-          f"decision_p50_ms={float(np.percentile(ds, 50))!r} "
-          f"decision_p95_ms={float(np.percentile(ds, 95))!r} "
-          f"total_utility={res.total_utility!r} accepted={res.accepted} "
-          f"device_uploads={res.device_uploads} "
-          f"minplus_tile_launches={c_n} minplus_plateau_launches={b_n} "
-          f"minplus_slot_launches={a_n} live_slots={snap['slots']} "
-          f"plateau_slots={snap['plateau_slots']} "
-          f"chain_slots_per_tile_launch="
-          f"{(snap['slots'] - snap['plateau_slots']) / max(c_n, 1)!r} "
-          f"plateau_slots_per_plateau_launch="
-          f"{snap['plateau_slots'] / max(b_n, 1)!r} "
-          f"tiles_visited={tiles} tiles_per_decision={tiles / n_dec!r} "
-          f"tile_launches_per_decision={c_n / n_dec!r} "
-          f"dp_launches_per_decision={(b_n + c_n) / n_dec!r} "
-          f"paths={{'plateau': {snap['plateau']}, 'chain': {snap['chain']}}}")
+    _tiled_line("10x instance, tiled route (bursts, 1 lane a launch)", wall,
+                res, snap, counts, dp_decisions)
     rel = abs(res.total_utility - JAX_TILED_UTILITY) / JAX_TILED_UTILITY
     print(f"10x utility: tiled route {res.total_utility!r}, whole route "
           f"{whole_utility!r}, reference tiled engine on a CPU "
           f"{JAX_TILED_UTILITY!r} (rel_diff {rel!r})")
-    if (not _tiled_launches_ok(snap, counts) or c_n == 0 or b_n == 0
-            or snap["decisions"] != dp_decisions):
-        raise AssertionError(f"launches (sweep kernel, one-slot, plateau) "
-                             f"{counts} for {snap['chain']} chain tiles and "
-                             f"{snap['plateau']} plateau tiles, "
-                             f"{snap['decisions']} of {dp_decisions} DP "
-                             "decisions")
-    if len(ds) != len(live) or res.device_uploads != 1:
-        raise AssertionError("decision count or upload count is off")
+    _check_tiled("10x tiled route", res, snap, counts, dp_decisions,
+                 len(live))
+    if b_n == 0 or snap["speculative"] == 0 or snap["resolves"] == 0:
+        raise AssertionError("10x tiled route: no plateau tile, or no "
+                             "burst decided together and re-solved")
     if not (np.isfinite(res.total_utility) and 0 < res.accepted <= len(live)
             and rel <= 1e-9):
         raise AssertionError(f"tiled route: {res.total_utility} utility, "
@@ -778,43 +906,131 @@ def tiled_scale_phase(whole_utility):
         raise AssertionError(f"{len(shapes)} chain and {len(plateau_tiles)} "
                              f"plateau tiles recorded for {c_n} and {b_n} "
                              "launches")
-    return c_n, b_n, shapes, plateau_tiles
+    return c_n, b_n, shapes, plateau_tiles, res
 
 
-def tile_mix_phase(shapes):
-    """The chain tile on the tiled route's own 10x mix: every distinct
-    tile shape the route launched (live slots, band, columns, dtype) timed
-    once (device time per launch, from a DP column) against the plain
-    tile, each weighted by its launches; the bound is each tile's, the sum
-    of its slots' operation bounds.  Returns (ms, plain ms, bound ms, ops
-    ms, bytes ms), launch-weighted means."""
-    mix = {}
-    for key in shapes:
-        mix[key] = mix.get(key, 0) + 1
+def burst_phase(one_lane):
+    """The 10x tiled route two more ways, each with the counts set to 0
+    just before it and read just after: one job at a time (``on_arrival``
+    in the engine's order: no burst, no row cache), and through the engine
+    at eight lanes a launch (``REPRO_BURST_LANES=8``: a chain tile steps
+    up to eight lanes' slots in one launch, one cluster per lane).  Both
+    are held to the one-lane burst run ``one_lane``: the same completions
+    and the same utility, exactly.  Returns (the eight-lane run's chain
+    launches, its chain launches' shapes (lanes, slots, band, columns,
+    dtype))."""
+    from repro_torch.core.oasis import OASiS
+    cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
+    jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
+    live = [engine._with_quantum(j, 0) for j in jobs if j.arrival < cluster.T]
+    dp_decisions = sum(_shape_bucket(j) is not None for j in live)
+    params = price_params_from_jobs(jobs, cluster)
+    by_slot = engine._group_events(live, cluster.T)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = OASiS(cluster, params, core="tiled")
+    for t in sorted(by_slot):
+        for job in by_slot[t]:
+            seq.on_arrival(job)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = schedule_torch.monotone_counters_snapshot()
+    counts = _counted()
+    seq_res = engine.SimResult(
+        name="oasis", total_utility=seq.total_utility,
+        accepted=len(seq.accepted), completed=len(seq.accepted),
+        n_jobs=len(jobs),
+        completion={j: s.finish for j, s in seq.accepted.items()},
+        target_gap=[], decision_seconds=seq.decision_seconds,
+        utilization=0.0, device_uploads=seq.state.device_uploads)
+    _tiled_line("10x instance, tiled route one job at a time (no bursts)",
+                wall, seq_res, snap, counts, dp_decisions)
+    _check_tiled("10x sequential tiled route", seq_res, snap, counts,
+                 dp_decisions, len(live))
+    if snap["speculative"] or snap["resolves"] or snap["cache_tiles"]:
+        raise AssertionError("the sequential route decided a burst")
+    shapes = []
+    chain = schedule_torch.minplus_chain
+
+    def recorded(rows, prev, out):
+        shapes.append((*rows.shape, prev.shape[-1], rows.dtype))
+        return chain(rows, prev, out)
+
+    schedule_torch.minplus_chain = recorded
+    os.environ["REPRO_BURST_LANES"] = "8"
+    try:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = engine.run(cluster, jobs, quantum=0, core="tiled", check=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts8 = _counted()
+    finally:
+        schedule_torch.minplus_chain = chain
+        del os.environ["REPRO_BURST_LANES"]
+    snap8 = schedule_torch.monotone_counters_snapshot()
+    _tiled_line("10x instance, tiled route (bursts, 8 lanes a launch)",
+                wall, res, snap8, counts8, dp_decisions)
+    _check_tiled("10x tiled route at 8 lanes", res, snap8, counts8,
+                 dp_decisions, len(live))
+    lanes = [sh[0] for sh in shapes]
+    print(f"8-lane chain launches: {len(shapes)} for {sum(lanes)} lane "
+          f"tiles, {sum(lanes) / max(len(shapes), 1)!r} lanes a launch, "
+          "lanes histogram "
+          f"{dict(sorted(collections.Counter(lanes).items()))}")
+    for name, other in (("one job at a time", seq_res), ("8 lanes", res)):
+        same = (other.completion == one_lane.completion
+                and other.total_utility == one_lane.total_utility)
+        print(f"10x tiled route, {name}: completions and utility "
+              f"{other.total_utility!r} equal to the 1-lane burst run's: "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"10x tiled route, {name}: the trajectory "
+                                 "differs from the one-lane burst run's")
+    if len(shapes) != counts8[0] or max(lanes) < 2:
+        raise AssertionError(f"{len(shapes)} chain launches recorded for "
+                             f"{counts8[0]}, at most {max(lanes)} lanes")
+    return counts8[0], shapes
+
+
+def tile_mix_phase(shapes, label="tiled route's own 10x mix"):
+    """The chain tile on a tiled run's own 10x mix: every distinct launch
+    shape the route made (lanes, live slots, band, columns, dtype) timed
+    once (device time per launch, from DP columns) against the plain tile,
+    each weighted by its launches; the bound is each launch's: its lanes'
+    slots' operation bounds summed, and its rows, carries and columns
+    moved once.  Returns (ms, plain ms, bound ms, ops ms, bytes ms),
+    launch-weighted means."""
+    mix = collections.Counter(shapes)
     carries = {}
     total = [0.0] * 5
-    for (n, dc1, d1, dtype), count in mix.items():
+    for (B, n, dc1, d1, dtype), count in mix.items():
         if (dc1, d1, dtype) not in carries:
             carries[(dc1, d1, dtype)] = minplus_sweep_ref(
                 _rows(3, dc1, d1, dtype) + 1.0, d1 - 1)[0][-1].contiguous()
-        carry = carries[(dc1, d1, dtype)]
-        rows = _rows(n, dc1, d1, dtype)
-        out = torch.empty((n, d1), dtype=dtype, device="cuda")
+        carry = carries[(dc1, d1, dtype)].expand(B, d1).contiguous()
+        rows = _rows(B * n, dc1, d1, dtype).view(B, n, dc1)
+        out = torch.empty((B, n, d1), dtype=dtype, device="cuda")
         k_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
             rows, d1 - 1, prev=carry, out=out), 10)
-        p_ms = _time_ms(lambda: minplus_tile(rows[:, None, :], carry[None]),
+        p_ms = _time_ms(lambda: minplus_tile(rows.transpose(0, 1), carry),
                         reps=1)
-        op_ms, byte_ms = _tile_bounds(rows, d1, dtype)
+        op_ms, byte_ms = _tile_bounds(rows.reshape(B * n, dc1), d1, dtype)
+        byte_ms += (B - 1) * d1 * dtype.itemsize / PEAK_BYTES * 1e3
         for i, x in enumerate((k_ms, p_ms, max(op_ms, byte_ms), op_ms,
                                byte_ms)):
             total[i] += count * x
     mean = [x / len(shapes) for x in total]
-    slots = sum(n for n, *_ in shapes) / len(shapes)
-    print(f"tile over the tiled route's own 10x mix ({len(shapes)} chain "
-          f"tiles, {len(mix)} distinct shapes, {slots!r} live slots a tile, "
-          f"m_pad {sorted({k[1] for k in mix})}): launch-weighted "
-          f"kernel_device_ms={mean[0]!r} per_slot_ms={mean[0] / slots!r} "
-          f"plain_ms={mean[1]!r} bound_ms={mean[2]!r}")
+    slots = sum(b * n for b, n, *_ in shapes) / len(shapes)
+    lanes = sum(b for b, *_ in shapes) / len(shapes)
+    print(f"tile over the {label} ({len(shapes)} chain launches, "
+          f"{len(mix)} distinct shapes, {lanes!r} lanes and {slots!r} live "
+          f"lane slots a launch, m_pad {sorted({k[2] for k in mix})}): "
+          f"launch-weighted kernel_device_ms={mean[0]!r} "
+          f"per_lane_slot_ms={mean[0] / slots!r} plain_ms={mean[1]!r} "
+          f"bound_ms={mean[2]!r}")
     return mean
 
 
@@ -881,13 +1097,11 @@ def wide_phase():
     through both routes on the card, feasibility checked, each held to the
     port on the CPU: the tiled route run on the CPU here, completions
     equal and utility within rel 1e-9; the whole route against its CPU
-    result pinned in :data:`WIDE_WHOLE_CPU` (it takes minutes on a CPU),
-    the same accepted jobs and utility within rel 1e-9.  The whole route's
-    completions are printed, not held: its backtrack takes the exact
-    first-index split, as the reference's does, and the card's COST rows
-    differ from the CPU's in the last ulps (``exp``/``log``), which on this
-    instance moves one split and then one finish slot at equal utility
-    (ROADMAP.md, Queue 3)."""
+    result pinned in :data:`WIDE_WHOLE_CPU` (tools/whole_route_cpu.py),
+    the same completions and utility within rel 1e-9.  The whole route's
+    backtrack takes the exact first-index split, as the reference's does,
+    so its completions hold only because the card decides on the CPU's
+    prices (priced on the host) and sums left to right as the CPU does."""
     cluster = make_cluster(T=100, H=20, K=20)
     jobs = make_jobs(40, T=100, seed=1)
     wide = sum(1 for j in jobs if (_shape_bucket(j) or (0, 0))[1] == 20480)
@@ -919,7 +1133,7 @@ def wide_phase():
               f"sweep_kernel_launches={sweeps} plateau_launches={b_n} "
               f"plateau_tiles={snap['plateau']} slot_launches={a_n}")
         if not (set(res.completion) == set(cpu_completion) and rel <= 1e-9
-                and res.accepted > 0 and (core == "whole" or not moved)):
+                and res.accepted > 0 and not moved):
             raise AssertionError(f"wide jobs, {core} route: the card's "
                                  "trajectory differs from the CPU's")
         if core == "tiled" and not _tiled_launches_ok(snap, counts):
@@ -928,24 +1142,38 @@ def wide_phase():
                                  f"{snap['plateau']} plateau tiles")
 
 
-def profile_phase(core, n_jobs=400):
+def profile_phase(core, n_jobs=400, lanes=1, sequential=False):
     """Where the time goes: a traced run of the 10x trace's first
     ``n_jobs`` arrivals through ``core`` (same price parameters as the
-    full run, so these are the main run's first decisions); device busy =
-    the sum of device self time over the traced kernels and device copies,
-    each counted once (``_device_table``; one stream, so they do not
-    overlap).  Returns {kernel: (device ms, launches)}."""
+    full run, so these are the main run's first decisions); on the tiled
+    route through the engine's bursts at ``lanes`` lanes a launch, or
+    with ``sequential`` one job at a time (no burst, no row cache).
+    Device busy = the sum of device self time over the traced kernels and
+    device copies, each counted once (``_device_table``; one stream, so
+    they do not overlap).  Returns {kernel: (device ms, launches)}."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.oasis import OASiS
     cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
     jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
     params = price_params_from_jobs(jobs, cluster)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        res = engine.run(cluster, jobs[:n_jobs], params=params, quantum=0,
-                         core=core)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    route = core + (" one job at a time" if sequential else
+                    f" bursts at {lanes} lanes" if core == "tiled" else "")
+    os.environ["REPRO_BURST_LANES"] = str(lanes)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if sequential:
+                res = OASiS(cluster, params, core=core)
+                for job in sorted(jobs[:n_jobs], key=lambda j: j.arrival):
+                    res.on_arrival(engine._with_quantum(job, 0))
+            else:
+                res = engine.run(cluster, jobs[:n_jobs], params=params,
+                                 quantum=0, core=core)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        del os.environ["REPRO_BURST_LANES"]
     dev = _device_table(prof)
     busy = sum(ms for ms, _ in dev.values())
     kernels = {}
@@ -959,7 +1187,8 @@ def profile_phase(core, n_jobs=400):
             kernels[label] = (sum(dev[k][0] for k in keys),
                               sum(dev[k][1] for k in keys))
     top = sorted(dev.items(), key=lambda kv: -kv[1][0])[:6]
-    print(f"profile ({core} route, 10x trace, first {n_jobs} jobs, traced): "
+    print(f"profile ({route} route, 10x trace, first {n_jobs} jobs, "
+          f"traced): "
           f"decisions={len(res.decision_seconds)} wall_ms={wall_ms!r} "
           f"device_busy_ms={busy!r} device_idle_share="
           f"{1.0 - busy / wall_ms!r} " + " ".join(
@@ -972,10 +1201,14 @@ def profile_phase(core, n_jobs=400):
     # host-side entries with the most self time (CUDA runtime calls, such
     # as launches and the syncs that wait for the device, and aten ops)
     launches = sum(n for _, n in dev.values())
+    dp = sum(n for _, n in kernels.values())
     host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()), reverse=True)
+    n_dec = max(len(res.decision_seconds), 1)
     print(f"  device launches={launches} per_decision="
-          f"{launches / max(len(res.decision_seconds), 1)!r} "
+          f"{launches / n_dec!r} dp_kernel_launches_per_decision="
+          f"{dp / n_dec!r} other_launches_per_decision (row build, "
+          f"payoff reads, copies)={(launches - dp) / n_dec!r} "
           f"host_ops_self_ms={sum(h[0] for h in host)!r} (the rest of the "
           "wall is Python outside any traced op)")
     for ms, n, k in host[:6]:
@@ -1597,14 +1830,19 @@ def main() -> int:
     plateau_err = plateau_tile_phase()
     paper_phase()
     launches, hist, whole_utility = scale_phase()
-    c_launches, b_launches, tile_shapes, plateau_tiles = tiled_scale_phase(
-        whole_utility)
+    c_launches, b_launches, tile_shapes, plateau_tiles, one_lane = \
+        tiled_scale_phase(whole_utility)
+    lanes_err = tile_lanes_phase()
+    l_launches, lane_shapes = burst_phase(one_lane)
     tile = tile_mix_phase(tile_shapes)
+    tile8 = tile_mix_phase(lane_shapes, "8-lane run's own 10x mix")
     plat = plateau_mix_phase(plateau_tiles)
     del plateau_tiles
     wide_phase()
     profile_phase("whole")
+    profile_phase("tiled", sequential=True)
     profile_phase("tiled")
+    profile_phase("tiled", lanes=8)
     ssd_err, ssd_t = ssd_phase()
     (flash_err, flash_t), (wgmma_err, wgmma_t) = flash_phase()
     model_parity_phase()
@@ -1613,7 +1851,8 @@ def main() -> int:
     serve_profile_phase()
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); chain tile: launch-weighted over the tiled route's
-    # own tiles (tile_mix_phase); one-slot kernel: ops.minplus (cost and
+    # own tiles (tile_mix_phase), at one lane a launch and, as a row of its
+    # own, at eight (the burst phase's run); one-slot kernel: ops.minplus (cost and
     # argmin, f64, device time per launch) averaged over the 10x buckets
     # at d1 = 1280, one each, as its own run launches it (64 slots at each
     # bucket); plateau kernel: per tile launch, averaged over the tiled
@@ -1634,6 +1873,8 @@ def main() -> int:
              mean),
             ("minplus_tile", "minplus_sweep.cu", "54", c_launches,
              tile_err, tile),
+            ("minplus_tile_8_lanes", "minplus_sweep.cu", "54", l_launches,
+             lanes_err, tile8),
             ("minplus_slot", "minplus_slot.cu", "54", a_launches,
              slot_err, slot),
             ("minplus_plateau", "minplus_plateau.cu", "207", b_launches,

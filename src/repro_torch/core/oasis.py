@@ -4,7 +4,9 @@ Every decision goes through one of the decision cores of
 ``core/schedule_torch.py`` (``core="whole"``, the default, or
 ``"tiled"``), which read dual prices from the device-resident
 ``PriceState`` (``core/pricing.py``); ``commit`` keeps the residency fresh
-with in-place slot-window adds.
+with in-place slot-window writes.  On the tiled route a burst of arrivals
+is decided together (``on_arrivals``), as the reference's ``impl="jax"``
+does.
 """
 from __future__ import annotations
 
@@ -15,8 +17,13 @@ import numpy as np
 import torch
 
 from .pricing import PriceParams, PriceState
-from .schedule_torch import CORES, best_schedule_fused
+from .schedule_torch import (CORES, _materialize, best_schedule_fused,
+                             decide_burst)
 from .types import ClusterSpec, Job, Schedule
+
+# the smallest burst that on_arrivals decides together (the reference's
+# batch_threshold)
+BURST_MIN = 2
 
 
 class OASiS:
@@ -71,13 +78,57 @@ class OASiS:
         return self._resolve(job, self.propose(job))
 
     def on_arrivals(self, jobs: List[Job]) -> List[Optional[Schedule]]:
-        """Decide a burst one job after another in (stable) arrival order —
-        the reference's semantics for every backend, and identical, job
-        for job, to its batched path."""
+        """A burst of arrivals, committed one job after another in (stable)
+        arrival order, with Alg. 1's semantics exactly: the result equals,
+        job for job, ``on_arrival`` in that order.
+
+        On the tiled route a burst of ``BURST_MIN`` jobs or more is
+        decided together first (``decide_burst``: one launch group per
+        shape bucket, at the prices the burst starts at), as the
+        reference's ``impl="jax"`` does:
+
+        * a speculative REJECT is final: commits only raise prices and
+          shrink headroom, so a non-positive best payoff stays so;
+        * a speculative ACCEPT is used as it is only while no job of the
+          burst has been admitted; after that the job is re-solved at the
+          new prices, through its ``RowCache`` synced against the price
+          state's dirty-slot log, which recomputes only the tiles the
+          commits touched.
+
+        ``decision_seconds`` carries each job's share of the speculative
+        pass, plus its placement or re-solve.
+
+        The whole route decides one job at a time: its backtrack takes
+        the exact first-index split, the tiled route's a ``_SPLIT_TOL``
+        band, and the two pick different splits on near-ties (7261.72
+        against 7082.08 at the 10x instance), so feeding it the tiled
+        route's candidates would change its trajectory."""
         order = sorted(range(len(jobs)), key=lambda i: jobs[i].arrival)
         out: List[Optional[Schedule]] = [None] * len(jobs)
-        for i in order:
-            out[i] = self.on_arrival(jobs[i])
+        if self.core != "tiled" or len(jobs) < BURST_MIN:
+            for i in order:
+                out[i] = self.on_arrival(jobs[i])
+            return out
+        times: List[float] = []
+        pends = decide_burst([jobs[i] for i in order], self.state,
+                             timings=times)
+        prices_moved = False
+        for pos, i in enumerate(order):
+            pend, pends[pos] = pends[pos], None    # free the launch tables
+            t0 = time.perf_counter()
+            if pend is None:                   # dcap == 0: trivial reject
+                sched = None
+            elif pend.best_t < 0 or not prices_moved:
+                sched = _materialize(pend, self.state)
+            else:
+                pend.cache.sync(self.state)
+                sched = best_schedule_fused(jobs[i], self.state,
+                                            core="tiled",
+                                            row_cache=pend.cache)
+            self.decision_seconds.append(times[pos]
+                                         + time.perf_counter() - t0)
+            out[i] = self._resolve(jobs[i], sched)
+            prices_moved = prices_moved or out[i] is not None
         return out
 
     def _resolve(self, job: Job, sched: Optional[Schedule]

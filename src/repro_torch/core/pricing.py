@@ -16,10 +16,23 @@ Prices are maintained per (slot t, server, resource r):
   adds its dense slot-window delta to the resident tensors, so a whole
   run performs one full upload, not one per accepted job.
 
+The residency also holds the decision cores' price tables ``p``/``q`` and
+the live-floor price ``pmin`` (``device_prices``).  They are priced on
+the host, always, with one expression (``_HostPricer``, ``exp(x log r)``
+in torch on the CPU, position-independent: ``_exp_host``), and written
+into the device tables in place for the slot window a commit or release
+dirtied.  So the card reads the very prices the CPU run computes: CUDA's
+``exp``/``log`` differ from the CPU's in the last ulp, and the whole
+route's exact first-index split turns such a difference into another
+schedule.
+
 Reading ``g``/``v`` hands out the mutable host arrays and so drops the
-residency (the caller may write).  This is the fixed-horizon part of the
-reference state, with its ``version`` counter: the rolling window, server
-blocking and the dirty-slot log are not ported yet.
+residency (the caller may write).  Every mutation bumps ``version`` and
+logs its slot windows (the dirty-slot log, ``dirty_spans_since``,
+``patch_spans``), so a job's ``RowCache`` recomputes only the tiles
+that moved.
+This is the fixed-horizon part of the reference state: the rolling
+window and server blocking are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,6 +45,14 @@ import torch
 
 from .. import DEFAULT_DTYPE, resolve_device
 from .types import ClusterSpec, Job, R
+
+# dirty-slot log cap: past it the oldest half is trimmed and the log floor
+# rises (the reference's value)
+_DIRTY_LOG_MAX = 4096
+# _exp_host's piece: a multiple of every CPU vector width torch dispatches
+# to (2 x 8 float64 lanes) and under torch's parallel grain (32768), so
+# each piece runs on one thread with no scalar tail
+_EXP_PIECE = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +140,56 @@ def _pool_prices(alloc: np.ndarray, caps: np.ndarray, U: np.ndarray,
     return L * ratio ** (alloc / c)
 
 
+def _exp_host(x: torch.Tensor) -> torch.Tensor:
+    """``torch.exp`` on the CPU, the same bits for an element wherever it
+    stands.  torch evaluates a contiguous CPU tensor in vectors but its
+    tail (and each thread's tail) with the scalar ``exp``, which differs
+    in the last ulp on ~12 % of inputs; here every piece is a whole number
+    of vectors on one thread, so a slot window prices exactly as the full
+    table does, on any thread count."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pad = -n % 16
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    out = torch.empty_like(flat)
+    for i in range(0, flat.numel(), _EXP_PIECE):
+        torch.exp(flat[i:i + _EXP_PIECE], out=out[i:i + _EXP_PIECE])
+    return out[:n].view(x.shape)
+
+
+class _HostPricer:
+    """The price expression of the decision cores, on the host: ``L *
+    exp((alloc / c) * log(r))`` with ``r = max(U / L, 1 + 1e-9)`` and ``c =
+    max(caps, 1e-12)`` (the reference engine's ``_price_pow`` form), and
+    the live floor ``pmin = L1 * exp(min_h(g / c) * log(r1))`` (T, R):
+    every worker deployed in a slot costs at least ``sum_r wres_r * min_h
+    p[t, h, r]``, and with r >= 1, ``min_h r^(g/c) == r^(min_h g/c)``."""
+
+    def __init__(self, wcaps: np.ndarray, scaps: np.ndarray,
+                 params: PriceParams):
+        t = torch.tensor
+        L1, L2 = t(params.L1, dtype=torch.float64), t(params.L2,
+                                                     dtype=torch.float64)
+        self.L = (L1, L2)
+        self.caps = tuple(torch.clamp(t(c, dtype=torch.float64), min=1e-12)
+                          for c in (wcaps, scaps))
+        self.log_r = tuple(
+            torch.log(torch.clamp(t(U, dtype=torch.float64) / L,
+                                  min=1.0 + 1e-9))
+            for U, L in ((params.U1, L1), (params.U2, L2)))
+
+    def rows(self, pool: int, alloc: np.ndarray) -> torch.Tensor:
+        """Price table of ``alloc`` (n, S, R) of pool 0 (workers) or 1
+        (PS), float64 on the CPU."""
+        x = torch.from_numpy(alloc) / self.caps[pool][None]
+        return self.L[pool] * _exp_host(x * self.log_r[pool])
+
+    def floor(self, g: np.ndarray) -> torch.Tensor:
+        umin = (torch.from_numpy(g) / self.caps[0][None]).amin(dim=1)
+        return self.L[0] * _exp_host(umin * self.log_r[0])
+
+
 class PriceState:
     """Allocations g_h^r(t), v_k^r(t) and the derived price tables.
 
@@ -158,16 +229,26 @@ class PriceState:
         T, H, K = cluster.T, cluster.H, cluster.K
         self._g_host = np.zeros((T, H, R))  # alloc on worker servers
         self._v_host = np.zeros((T, K, R))  # alloc on PS servers
-        # device residency: (g_dev, v_dev) tensors or None; static side
+        # device residency: [g, v, p, q, pmin] tensors or None; static side
         # tables (caps + price params) cached per dtype
         self._dev = None
         self._dev_dtype: Optional[torch.dtype] = None
         self._dev_static = {}
         self._commits_since_sync = 0
         self.device_uploads = 0
-        # bumped on every commit/release (the decision core keys its
-        # padded-state cache on it, with the residency it padded)
+        # the decision cores' price expression, on the host (empty pools
+        # padded with one zero-capacity server, as the residency is)
+        self._pricer = _HostPricer(*self._padded_caps(), params)
+        # bumped on every commit/release (consumers key caches on it)
         self.version = 0
+        # dirty-slot log: (version, t0, t1) per commit/release slot window,
+        # so caches can patch only the slots a commit touched.
+        # ``_dirty_floor`` is the oldest version the log still covers:
+        # ``dirty_spans_since`` answers None (unknowable) for anything
+        # older.  Mutable ``g``/``v`` access moves the floor past
+        # ``version``: it may change prices outside any logged window.
+        self._dirty_log: list = []
+        self._dirty_floor = 0
 
     @property
     def horizon(self) -> int:
@@ -175,28 +256,35 @@ class PriceState:
         return self._g_host.shape[0]
 
     # -- host views --------------------------------------------------------
+    def _host_write(self) -> None:
+        """The caller may write the host mirror: drop the residency
+        (re-uploaded on the next ``device_state``) and make every earlier
+        version's delta unknowable."""
+        self._dev = None
+        self._dirty_log.clear()
+        self._dirty_floor = self.version + 1
+
     @property
     def g(self) -> np.ndarray:
         """Worker-pool allocation (T, H, R), host numpy.  Hands out the
-        mutable mirror, so the device residency is dropped (re-uploaded on
-        the next ``device_state``)."""
-        self._dev = None
+        mutable mirror (``_host_write``)."""
+        self._host_write()
         return self._g_host
 
     @g.setter
     def g(self, value: np.ndarray) -> None:
         self._g_host = np.asarray(value, dtype=np.float64)
-        self._dev = None
+        self._host_write()
 
     @property
     def v(self) -> np.ndarray:
-        self._dev = None
+        self._host_write()
         return self._v_host
 
     @v.setter
     def v(self, value: np.ndarray) -> None:
         self._v_host = np.asarray(value, dtype=np.float64)
-        self._dev = None
+        self._host_write()
 
     # -- price tables -----------------------------------------------------
     def worker_prices(self) -> np.ndarray:
@@ -256,11 +344,24 @@ class PriceState:
                 # _F32_RESYNC_EVERY commits.
                 self._dev = None
             else:
-                for pool, _, t0, delta in deltas:
-                    self._dev[pool][t0:t0 + delta.shape[0]] += torch.tensor(
+                for pool, host, t0, delta in deltas:
+                    win = slice(t0, t0 + delta.shape[0])
+                    self._dev[pool][win] += torch.tensor(
                         delta, dtype=self._dev_dtype, device=self.device)
+                    # the window's prices, priced on the host
+                    self._dev[2 + pool][win] = self._to_dev(
+                        self._pricer.rows(pool, host[win]))
+                    if pool == 0:
+                        self._dev[4][win] = self._to_dev(
+                            self._pricer.floor(host[win]))
                 self._commits_since_sync += 1
         self.version += 1
+        for _, _, t0, delta in deltas:
+            self._dirty_log.append((self.version, t0, t0 + delta.shape[0]))
+        if len(self._dirty_log) > _DIRTY_LOG_MAX:
+            drop = len(self._dirty_log) - _DIRTY_LOG_MAX // 2
+            self._dirty_floor = self._dirty_log[drop - 1][0]
+            del self._dirty_log[:drop]
 
     def commit(self, job: Job, workers: dict, ps: dict) -> None:
         self._apply(workers, ps, job.worker_res, job.ps_res, 1.0)
@@ -268,6 +369,25 @@ class PriceState:
     def release(self, job: Job, workers: dict, ps: dict) -> None:
         """Inverse of commit (preemption / cancellation)."""
         self._apply(workers, ps, job.worker_res, job.ps_res, -1.0)
+
+    def dirty_spans_since(self, version: int):
+        """Slot spans whose prices may have moved since ``version``: a list
+        of ``[t0, t1)`` pairs (possibly overlapping, possibly empty), or
+        None when the delta is unknowable (``version`` predates the log
+        floor: log trimmed, or mutable ``g``/``v`` access), and the caller
+        must invalidate everything."""
+        if version < self._dirty_floor:
+            return None
+        return [(t0, t1) for v, t0, t1 in self._dirty_log if v > version]
+
+    def patch_spans(self, version: int, limit: int = 8):
+        """:meth:`dirty_spans_since` when it names at most ``limit`` spans,
+        else None: past that, patching span by span costs more than one
+        full rebuild."""
+        spans = self.dirty_spans_since(version)
+        if spans is None or len(spans) > limit:
+            return None
+        return spans
 
     # -- whole-state queries -----------------------------------------------
     def capacity_ok(self, tol: float = 1e-6):
@@ -282,17 +402,25 @@ class PriceState:
         return self._g_host[:, :, 0].sum(axis=1)
 
     # -- device residency ---------------------------------------------------
-    def _static_arrays(self, dtype: torch.dtype):
-        cached = self._dev_static.get(dtype)
-        if cached is not None:
-            return cached
+    def _padded_caps(self):
+        """Server capacities, each empty pool padded with one
+        zero-capacity server so gathers stay in bounds (it can never be
+        used)."""
         wcaps, scaps = self.cluster.worker_caps, self.cluster.ps_caps
-        # empty pools are padded with one zero-capacity server so gathers
-        # stay in bounds (it can never be used)
         if wcaps.shape[0] == 0:
             wcaps = np.zeros((1, R))
         if scaps.shape[0] == 0:
             scaps = np.zeros((1, R))
+        return wcaps, scaps
+
+    def _to_dev(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(device=self.device, dtype=self._dev_dtype)
+
+    def _static_arrays(self, dtype: torch.dtype):
+        cached = self._dev_static.get(dtype)
+        if cached is not None:
+            return cached
+        wcaps, scaps = self._padded_caps()
         pp = self.params
         sd = tuple(torch.tensor(x, dtype=dtype, device=self.device)
                    for x in (wcaps, scaps, pp.U1, pp.U2, pp.L1, pp.L2))
@@ -308,9 +436,13 @@ class PriceState:
             v = np.zeros((self.horizon, 1, R))
         self.device_uploads += 1
         # torch.tensor copies; torch.from_numpy would alias the mirror and
-        # the residency would then see (and double-count) host writes
+        # the residency would then see (and double-count) host writes.
+        # The prices are fresh tensors, priced on the host.
+        pr = self._pricer
         return [torch.tensor(g, dtype=dtype, device=self.device),
-                torch.tensor(v, dtype=dtype, device=self.device)]
+                torch.tensor(v, dtype=dtype, device=self.device),
+                self._to_dev(pr.rows(0, g)), self._to_dev(pr.rows(1, v)),
+                self._to_dev(pr.floor(g))]
 
     def device_state(self, dtype: torch.dtype = DEFAULT_DTYPE):
         """Engine view ``(g, v, wcaps, scaps, U1, U2, L1, L2)`` on the
@@ -321,4 +453,12 @@ class PriceState:
         if self._dev is None or self._dev_dtype != dtype:
             self._dev_dtype = dtype
             self._dev = self._upload(dtype)
-        return tuple(self._dev) + self._static_arrays(dtype)
+        return tuple(self._dev[:2]) + self._static_arrays(dtype)
+
+    def device_prices(self, dtype: torch.dtype = DEFAULT_DTYPE):
+        """The resident price tables ``(p (T, H, R), q (T, K, R), pmin (T,
+        R))`` on the state's device (empty pools padded as in
+        ``device_state``), priced on the host (module docstring) and kept
+        fresh in place by ``commit``/``release``."""
+        self.device_state(dtype)
+        return tuple(self._dev[2:])

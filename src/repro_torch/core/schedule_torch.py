@@ -2,45 +2,58 @@
 tiled early-exit route.
 
 ``best_schedule_fused(job, state, core=...)`` picks one; both run on the
-price state's device and decide the same jobs the same way.
+price state's device and decide the same jobs the same way.  Both read
+the dual prices ``p``/``q`` from the price state's residency
+(``PriceState.device_prices``), priced on the host by one expression, so
+the card decides on the CPU's very prices; every prefix sum runs left to
+right (``_prefix_sums``) on both devices.
 
 ``core="whole"`` (the default) is the counterpart of the reference's
 ``core/schedule_jax.py::_decide_core`` (the route ``best_schedule_fused``
 takes on the TPU):
 
-1. dual prices ``p``/``q`` as ``exp(x * log r)`` (``_price_pow``);
-2. per-slot sorted unit costs and capacity prefix sums
+1. per-slot sorted unit costs and capacity prefix sums
    (``_prefix_tables``, stable argsort);
-3. the greedy COST_t rows for every (t, d) (``_greedy_cost``,
+2. the greedy COST_t rows for every (t, d) (``_greedy_cost``,
    searchsorted side="left"), with the padded-d sentinel ``W = 2^30`` and
    the pre-arrival identity rows ``[0, inf, ...]``;
-4. the banded min-plus DP over all T slots — ONE launch of the CUDA
+3. the banded min-plus DP over all T slots — ONE launch of the CUDA
    sweep kernel on the card (``kernels/minplus``), cost only;
-5. the payoff argmax with the ``_PAY_EPS`` tie rule;
-6. the split backtrack with the exact first-index argmin;
-7. the greedy placement of the chosen per-slot counts (``_greedy_place``).
+4. the payoff argmax with the ``_PAY_EPS`` tie rule;
+5. the split backtrack with the exact first-index argmin;
+6. the greedy placement of the chosen per-slot counts (``_greedy_place``).
 
 ``core="tiled"`` is the counterpart of ``_decide_tiled_core``, the route
-the reference takes everywhere but the TPU (one lane at a time):
+the reference takes everywhere but the TPU, over a batch of lanes (the
+jobs of one shape bucket, ``_decide_jobs``):
 
 1. a padded state per price-state version (``_padded_state``): tile-padded
-   allocations, the price tables and the live-floor price ``pmin``;
-2. from the job's arrival tile on, per ``TILE``-slot tile: the tile's
-   COST rows (``_tile_rows``, batched prefix tables), the monotone
-   dispatch (plateau when every row of the tile has at most ``r_max``
-   runs and ``m_pad <= MONO_BAND``, else chain), and the tile's live slots
-   stepped, cost only, straight into their rows of the cost table, from
-   the carry the previous tile left, in ONE launch per tile: a chain tile
-   of the sweep kernel (``ops.minplus_chain``), a plateau tile of the
-   plateau kernel (``ops.minplus_plateau_tile``); dead slots (before
-   arrival, past the horizon) carry the DP unchanged and launch nothing;
-3. per tile, one copy of the tile's ``cost[t, d_tot]`` values to the host,
-   where the payoff scan (``> best + _PAY_EPS`` in slot order) and the
-   exact early exit run: the loop stops once the utility's suffix maximum
-   cannot beat the incumbent plus the live cost floor (``pmin`` times the
-   job's demand, spread over the cheapest feasible slots);
-4. for an accept, the ``_SPLIT_TOL``-banded backtrack (``_backtrack``) and
-   the greedy placement of just the deploying slots (``_place_slots``).
+   allocations, price tables and live-floor price ``pmin``;
+2. from the earliest arrival tile on, per ``TILE``-slot tile: the tile's
+   COST rows for every lane (``_tile_rows``, from batched prefix tables;
+   a tile valid in every lane's ``RowCache`` is served from the cache),
+   the monotone dispatch (one lane only: plateau when every row of the
+   tile has at most ``r_max`` runs and ``m_pad <= MONO_BAND``, else
+   chain), and the tile's live slots stepped, cost only, straight into
+   the cost table, from the carry the previous tile left, in ONE launch
+   per tile for all lanes: a chain tile of the sweep kernel, one cluster
+   per lane (``ops.minplus_chain``), a plateau tile of the plateau kernel
+   (``ops.minplus_plateau_tile``); slots before every lane's arrival and
+   past the horizon launch nothing, and a lane's own dead slots carry
+   identity rows, which leave its carry unchanged;
+3. per tile, one copy of each lane's ``cost[t, d_tot]`` values to the
+   host, where the payoff scan (``> best + _PAY_EPS`` in slot order) and
+   the exact early exit run: the loop stops once no lane's utility suffix
+   maximum can beat its incumbent plus its live cost floor (``pmin``
+   times the job's demand, spread over the cheapest feasible slots);
+4. for an accepted candidate only (``_materialize``), the
+   ``_SPLIT_TOL``-banded backtrack (``_backtrack``) and the greedy
+   placement of just the deploying slots (``_place_slots``).
+
+``decide_burst`` decides a burst speculatively at the current prices,
+one launch per shape bucket and at most ``REPRO_BURST_LANES`` lanes;
+``OASiS.on_arrivals`` commits it and re-solves through each job's
+``RowCache`` once prices have moved.
 
 The sequential scans (payoff, backtrack) run on the host over the few
 values they read; the same IEEE operations give the same bits as the
@@ -48,12 +61,14 @@ reference's.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+import os
+import time
+import weakref
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-import weakref
 
 from .. import DEFAULT_DTYPE
 from ..kernels.minplus.monotone import PATH_CHAIN, PATH_PLATEAU, run_count
@@ -82,23 +97,24 @@ MONO_BAND = 64
 CORES = ("whole", "tiled")
 
 
-def _price_pow(ratio: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``ratio ** x`` computed as ``exp(x * log(ratio))`` — the reference
-    engine's form (its docstring: one shared helper, so decision and
-    placement prices agree to the last ulp).  ``ratio`` is clamped to
-    ``1 + 1e-9`` upstream, and ``x == 0`` still yields exactly 1."""
-    return torch.exp(x * torch.log(ratio))
+def _max_lanes() -> int:
+    """Lanes per tiled launch, ``REPRO_BURST_LANES``: 1 unless set, the
+    reference's default off the TPU.  Read per launch group, so a caller
+    may change it between runs."""
+    return max(1, int(os.environ.get("REPRO_BURST_LANES", "1")))
 
 
-def _price_tables(g, v, wcaps, scaps, U1, U2, L1, L2):
-    """Dual price tables p (T', H, R), q (T', K, R) (eq. 22, 25), priced
-    elementwise, so any slot subset is bit-identical to the same entries
-    of the full tables."""
-    p = L1 * _price_pow(torch.clamp(U1 / L1, min=1.0 + 1e-9)[None, None, :],
-                        g / torch.clamp(wcaps, min=1e-12)[None])
-    q = L2 * _price_pow(torch.clamp(U2 / L2, min=1.0 + 1e-9)[None, None, :],
-                        v / torch.clamp(scaps, min=1e-12)[None])
-    return p, q
+def _prefix_sums(scap: torch.Tensor, scost: torch.Tensor):
+    """``(ccap, ccost)``: prefix sums of ``scap`` and ``scap * scost``
+    along the server axis (the last), added strictly left to right on
+    both devices, in one scan.  The CPU's ``cumsum`` is a sequential loop
+    along any axis; CUDA's is a tree scan along the innermost axis
+    (another rounding) and a sequential loop per column along an outer
+    one, so the pair is stacked innermost and the scan runs along the
+    servers, an outer axis.  ``ccap`` is contiguous (``searchsorted``
+    reads it), ``ccost`` a view."""
+    both = torch.cumsum(torch.stack([scap, scap * scost], dim=-1), dim=-2)
+    return both[..., 0].contiguous(), both[..., 1]
 
 
 def _prefix_tables(prices: torch.Tensor, headroom: torch.Tensor,
@@ -119,8 +135,7 @@ def _prefix_tables(prices: torch.Tensor, headroom: torch.Tensor,
     order = torch.argsort(unit, dim=1, stable=True)
     scost = torch.gather(unit, 1, order)
     scap = torch.gather(cap, 1, order)
-    ccap = torch.cumsum(scap, dim=1)
-    ccost = torch.cumsum(scap * scost, dim=1)
+    ccap, ccost = _prefix_sums(scap, scost)
     return order, scap, scost, ccap, ccost
 
 
@@ -156,11 +171,12 @@ def _greedy_place(order: torch.Tensor, scap: torch.Tensor,
     return torch.round(torch.gather(take, 1, inv)).to(torch.int32)
 
 
-def _decide_core(sd, jd, d1: int):
+def _decide_core(sd, pr, jd, d1: int):
     """One Alg. 2 decision over the whole horizon.
 
     sd: state tensors (g (T,H,R), v (T,K,R), wcaps (H,R), scaps (K,R),
         U1 (R,), U2 (R,), L1 (), L2 ()) on one device
+    pr: the state's price tables (p (T,H,R), q (T,K,R), pmin) there
     jd: job arrays (resbw (2R+2,) = [wres, sres, wbw, psbw] and WZ (2, M)
         int32 on that device; u (T,) float64 host; meta = (a, nchunks,
         workload) ints)
@@ -171,7 +187,8 @@ def _decide_core(sd, jd, d1: int):
     —, d_slots (T,), y (T, H) int32, z (T, K) int32); d_slots, y and z are
     None for a reject.
     """
-    g, v, wcaps, scaps, U1, U2, L1, L2 = sd
+    g, v, wcaps, scaps = sd[:4]
+    p, q = pr[0], pr[1]
     resbw, WZ, u, meta = jd
     wres, sres = resbw[:R], resbw[R:2 * R]
     wbw, psbw = resbw[2 * R], resbw[2 * R + 1]
@@ -182,7 +199,6 @@ def _decide_core(sd, jd, d1: int):
     dt = g.dtype
     dev = g.device
 
-    p, q = _price_tables(*sd)
     w_order, w_scap, w_scost, w_ccap, w_ccost = _prefix_tables(
         p, wcaps[None] - g, wres)
     s_order, s_scap, s_scost, s_ccap, s_ccost = _prefix_tables(
@@ -249,27 +265,26 @@ def _decide_core(sd, jd, d1: int):
 
 
 # ---------------------------------------------------------------------------
-# Tiled early-exit route
+# Tiled early-exit route: the padded state
 # ---------------------------------------------------------------------------
 
 def _pad_tiles(T: int) -> int:
     return ((T + TILE - 1) // TILE) * TILE
 
 
-def _pad_state(g, v, wcaps, scaps, U1, U2, L1, L2, T_pad: int):
-    """Tile-padded allocations plus everything about the state the tiled
-    core needs per tile: the price tables ``p``/``q`` and the live-floor
-    price ``pmin`` (T_pad, R) — every worker a schedule deploys in slot s
-    costs at least ``sum_r wres_r * min_h p[s, h, r]``, and with ratio >= 1,
-    ``min_h ratio^(g/c) == ratio^(min_h g/c)``."""
-    T = g.shape[0]
-    g = torch.cat([g, g.new_zeros((T_pad - T,) + g.shape[1:])])
-    v = torch.cat([v, v.new_zeros((T_pad - T,) + v.shape[1:])])
-    ratio1 = torch.clamp(U1 / L1, min=1.0 + 1e-9)
-    umin = (g / torch.clamp(wcaps, min=1e-12)[None]).amin(dim=1)
-    pmin = L1 * _price_pow(ratio1[None, :], umin)
-    p, q = _price_tables(g, v, wcaps, scaps, U1, U2, L1, L2)
-    return g, v, pmin, p, q
+def _pad_state(sd, pr, T_pad: int):
+    """Tile-padded allocations, price tables and live-floor price ``pmin``
+    (T_pad, R): the residency's T slots, then slots of no allocation,
+    priced exactly ``L`` (``L * exp(0 * log r)``, and ``exp(+0) == 1``
+    exactly)."""
+    g, v, _, _, _, _, L1, L2 = sd
+    p, q, pmin = pr
+    n = T_pad - g.shape[0]
+    return (torch.cat([g, g.new_zeros((n,) + g.shape[1:])]),
+            torch.cat([v, v.new_zeros((n,) + v.shape[1:])]),
+            torch.cat([pmin, L1.expand((n,) + pmin.shape[1:])]),
+            torch.cat([p, L1.expand((n,) + p.shape[1:])]),
+            torch.cat([q, L2.expand((n,) + q.shape[1:])]))
 
 
 _pad_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -278,19 +293,26 @@ _pad_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 def _padded_state(state: PriceState, dtype: torch.dtype, T_pad: int):
     """``state.device_state`` extended with ``_pad_state``'s tables,
     computed once per (state version, residency, T_pad, dtype) and reused
-    by every decision until the next commit or release (then re-padded in
-    full).  Returns ``(g, v, wcaps, scaps, U1, U2, L1, L2, pmin, p, q)``
-    on the device and ``pmin`` on the host."""
+    by every decision until the next commit or release, then re-padded in
+    full.  The reference patches the padded state over the dirty spans
+    (``_pad_patch``) because a re-pad costs it a compiled dispatch; here
+    both are a handful of copies of the resident tables, so the port
+    re-pads.  Returns ``((g, v, wcaps, scaps, U1, U2, L1, L2, pmin, p, q)
+    on the device, pmin on the host)``."""
     sd = state.device_state(dtype)
     hit = _pad_cache.get(state)
     key = (state.version, T_pad, dtype)
     if hit is not None and hit[0] == key and hit[1] is sd[0]:
         return hit[2]
-    g, v, pmin, p, q = _pad_state(*sd, T_pad=T_pad)
+    g, v, pmin, p, q = _pad_state(sd, state.device_prices(dtype), T_pad)
     out = ((g, v) + tuple(sd[2:]) + (pmin, p, q), pmin.cpu().numpy())
     _pad_cache[state] = (key, sd[0], out)
     return out
 
+
+# ---------------------------------------------------------------------------
+# Tiled route: lane arrays and COST rows
+# ---------------------------------------------------------------------------
 
 def _utility_curve(job: Job, T: int, T_pad: int) -> np.ndarray:
     u = np.zeros(T_pad)
@@ -310,14 +332,12 @@ def _cost_lower_bound(W: np.ndarray) -> float:
     return _LB_MARGIN * per_unit
 
 
-def _job_arrays_tiled(job: Job, T: int, T_pad: int, m_pad: int,
-                      dtype: torch.dtype, device: torch.device):
-    """The tiled core's job arrays: ``resbw`` (2R+2,) = [wres, sres, wbw,
-    psbw] and ``WZ`` (2, m_pad) int32 on the device (padded d entries get
-    the infeasible worker count ``_W_PAD``); on the host ``resbw``, the
-    utility curve ``u`` (T_pad,), its suffix maximum ``usmax``, ``meta``
-    = (a, nchunks, d_tot, dcap) and ``lb``, the cost-floor base.  Also
-    returns the workload tables (W, Z)."""
+def _job_arrays_tiled(job: Job, T: int, T_pad: int, m_pad: int):
+    """One lane's host arrays: ``resbw`` (2R+2,) = [wres, sres, wbw,
+    psbw], ``WZ`` (2, m_pad) int32 (padded d entries get the infeasible
+    worker count ``_W_PAD``), the utility curve ``u`` (T_pad,), its suffix
+    maximum ``usmax``, ``meta`` = (a, nchunks, d_tot, dcap) and ``lb``,
+    the cost-floor base.  Also returns the workload tables (W, Z)."""
     dcap = min(job.max_chunks_per_slot, job.workload)
     W, Z = workload_tables(job, dcap)
     WZ = np.zeros((2, m_pad), np.int32)
@@ -330,20 +350,54 @@ def _job_arrays_tiled(job: Job, T: int, T_pad: int, m_pad: int,
                             [job.worker_bw, job.ps_bw]]).astype(np.float64)
     meta = (int(job.arrival), int(job.num_chunks), int(job.workload),
             int(dcap))
-    jd = (torch.tensor(resbw, dtype=dtype, device=device),
-          torch.tensor(WZ, device=device), resbw, u, usmax, meta,
-          _cost_lower_bound(W))
-    return jd, (W, Z)
+    return (resbw, WZ, u, usmax, meta, _cost_lower_bound(W)), (W, Z)
+
+
+class _Lanes(NamedTuple):
+    """A launch's lanes (B jobs of one shape bucket): on the device the
+    demand ``resbw`` (B, 2R+2), the worker counts ``Wf`` (B, M) and PS
+    targets ``deploy`` (B, M) = min(Z, W) as floats, ``feas_n`` (B, 1, M)
+    (W(d) <= nchunks) and ``dead`` (B, T_pad) (before the lane's arrival
+    or past the horizon: identity rows); on the host ``resbw_h``, ``u``,
+    ``usmax`` (B, T_pad), ``meta`` (B, 4) and ``lb`` (B,)."""
+    resbw: torch.Tensor
+    Wf: torch.Tensor
+    deploy: torch.Tensor
+    feas_n: torch.Tensor
+    dead: torch.Tensor
+    resbw_h: np.ndarray
+    u: np.ndarray
+    usmax: np.ndarray
+    meta: np.ndarray
+    lb: np.ndarray
+
+
+def _stack_lanes(lanes, T: int, dtype: torch.dtype, device: torch.device
+                 ) -> _Lanes:
+    """``_job_arrays_tiled`` lanes stacked into one launch's arrays."""
+    resbw, WZ, u, usmax, meta, lb = (np.stack(c) for c in zip(*lanes))
+    W, Z = WZ[:, 0].astype(np.int64), WZ[:, 1].astype(np.int64)
+    ts = np.arange(u.shape[1])
+    dead = (ts[None, :] < meta[:, :1]) | (ts >= T)[None, :]
+
+    def dev(x, dt=dtype):
+        return torch.tensor(x, dtype=dt, device=device)
+    return _Lanes(dev(resbw), dev(W), dev(np.minimum(Z, W)),
+                  dev((W <= meta[:, 1:2])[:, None, :], torch.bool),
+                  dev(dead, torch.bool), resbw, u, usmax, meta,
+                  np.asarray(lb, np.float64))
 
 
 def _prefix_tables_b(prices: torch.Tensor, headroom: torch.Tensor,
                      demand: torch.Tensor):
-    """Lane-batched prefix tables for one tile.
+    """Lane-batched prefix tables over n slots.
 
-    prices/headroom: (TILE, S, R) shared across lanes; demand: (B, R).
-    Returns (scost, ccap, ccost), each (B, TILE, S).  The unit price is
-    summed over resources left to right and the sort is stable, as in
-    ``_prefix_tables``."""
+    prices/headroom: (n, S, R) shared across lanes; demand: (B, R).
+    Returns (scost, ccap, ccost), each (B, n, S).  The unit price is
+    summed over resources left to right, the sort is stable and the
+    prefix sums run left to right, as in ``_prefix_tables``: every slot's
+    tables are a function of its own row alone, so any slot range gives
+    the same bits for its slots."""
     unit = prices[None, :, :, 0] * demand[:, None, None, 0]
     for r in range(1, prices.shape[2]):
         unit = unit + prices[None, :, :, r] * demand[:, None, None, r]
@@ -356,17 +410,16 @@ def _prefix_tables_b(prices: torch.Tensor, headroom: torch.Tensor,
     order = torch.argsort(unit, dim=2, stable=True)
     scost = torch.gather(unit, 2, order)
     scap = torch.gather(cap, 2, order)
-    ccap = torch.cumsum(scap, dim=2)
-    ccost = torch.cumsum(scap * scost, dim=2)
-    return scost, ccap, ccost
+    return (scost,) + _prefix_sums(scap, scost)
 
 
 def _greedy_cost_b(ccap: torch.Tensor, ccost: torch.Tensor,
                    scost: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """Lane-batched greedy cost: (B, TILE, S) tables, (B, TILE, M)
-    counts; +inf where the counts exceed capacity."""
+    """Lane-batched greedy cost: (B, n, S) tables, (B, n, M) counts; +inf
+    where the counts exceed capacity."""
     S = ccap.shape[2]
-    idx = torch.searchsorted(ccap, counts.contiguous(), side="left")
+    idx = torch.searchsorted(ccap.contiguous(), counts.contiguous(),
+                             side="left")
     zcol = ccap.new_zeros(ccap.shape[:2] + (1,))
     prev_cap = torch.gather(torch.cat([zcol, ccap], -1), -1, idx)
     prev_cost = torch.gather(torch.cat([zcol, ccost], -1), -1, idx)
@@ -377,47 +430,99 @@ def _greedy_cost_b(ccap: torch.Tensor, ccost: torch.Tensor,
                                    float("inf")))
 
 
-def _tile_rows(psd, jd, t0: int, T: int) -> torch.Tensor:
-    """COST_t rows of slots [t0, t0 + TILE) for one lane, (TILE, M): the
-    reference's ``rows_for_tile`` on its inline path (tables built from
-    slices of the version-cached price tables).  Dead slots (before
-    arrival, past the horizon) get the identity row ``[0, inf, ...]``."""
+def _tile_rows(psd, jd: _Lanes, t0: int) -> torch.Tensor:
+    """COST_t rows of slots [t0, t0 + TILE) for every lane, (B, TILE, M):
+    the reference's ``rows_for_tile``, its prefix tables built from slices
+    of the version-cached price tables.  The reference can also slice them
+    from per-job sorted tables over the whole horizon (its order cache,
+    ``use_tabs``), which saves it a dispatch per tile under XLA; a torch
+    slice costs no device work, and on the card that cache made the paper
+    scale run slower, so the port builds inline only.  A lane's dead slots
+    get the identity row ``[0, inf, ...]``."""
     g, v, wcaps, scaps = psd[:4]
-    p_pad, q_pad = psd[9], psd[10]
-    resbw, WZ = jd[0][None], jd[1]
-    a = jd[5][0]
-    wres, sres = resbw[:, :R], resbw[:, R:2 * R]
-    wbw, psbw = resbw[:, 2 * R], resbw[:, 2 * R + 1]
-    W, Z = WZ[0][None], WZ[1][None]                       # (1, M)
-    dt = g.dtype
     t1 = t0 + TILE
     w_scost, w_ccap, w_ccost = _prefix_tables_b(
-        p_pad[t0:t1], wcaps[None] - g[t0:t1], wres)
+        psd[9][t0:t1], wcaps[None] - g[t0:t1], jd.resbw[:, :R])
     s_scost, s_ccap, s_ccost = _prefix_tables_b(
-        q_pad[t0:t1], scaps[None] - v[t0:t1], sres)
-    Wt = W.to(dt)[:, None, :].expand(1, TILE, W.shape[1])
+        psd[10][t0:t1], scaps[None] - v[t0:t1], jd.resbw[:, R:2 * R])
+    B, M = jd.Wf.shape
+    wbw, psbw = jd.resbw[:, 2 * R], jd.resbw[:, 2 * R + 1]
+    Wt = jd.Wf[:, None, :].expand(B, TILE, M)
     w_costs = _greedy_cost_b(w_ccap, w_ccost, w_scost, Wt)
-    pool = s_ccap[..., -1:]                               # (1, TILE, 1)
-    deploy = torch.minimum(torch.minimum(Z, W).to(dt)[:, None, :], pool)
-    feas_n = (W <= jd[5][1])[:, None, :]
+    pool = s_ccap[..., -1:]                               # (B, TILE, 1)
+    deploy = torch.minimum(jd.deploy[:, None, :], pool)
     feas_ps = deploy * psbw[:, None, None] >= Wt * wbw[:, None, None] - 1e-9
     z_costs = _greedy_cost_b(s_ccap, s_ccost, s_scost, deploy)
-    rows = torch.where(feas_n & feas_ps, w_costs + z_costs, float("inf"))[0]
-    rows[:, 0] = 0.0
+    rows = torch.where(jd.feas_n & feas_ps, w_costs + z_costs, float("inf"))
+    rows[..., 0] = 0.0
     # pre-arrival and beyond-horizon slots carry the DP unchanged
-    lo, hi = min(max(a - t0, 0), TILE), min(max(T - t0, 0), TILE)
-    rows[:lo, 1:] = float("inf")
-    rows[hi:, 1:] = float("inf")
+    rows[..., 1:].masked_fill_(jd.dead[:, t0:t1, None], float("inf"))
     return rows
 
 
-def _live_floor(pmin_h: np.ndarray, jd, T: int) -> float:
-    """Early-exit cost floor: the base ``lb`` times the cheapest spread of
-    the workload over feasible slots (at most ``dcap`` chunk-passes per
-    slot, each slot at its live per-worker price floor).  A valid lower
-    bound on every schedule's cost (the reference's ``:480-519``)."""
-    resbw_h, meta, lb = jd[2], jd[5], jd[6]
-    a, _, d_tot, dcap = meta
+# ---------------------------------------------------------------------------
+# Tiled route: the row cache and the core
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RowCache:
+    """One job's COST rows across price-state versions.
+
+    ``rows`` holds the (T_pad, m_pad) COST_t table the core computed at
+    ``version``; ``valid`` marks which ``TILE``-slot tiles of it were both
+    visited (computed, not the identity placeholder) and are fresh (no
+    commit or release moved prices inside them since).  The core
+    recomputes exactly the tiles not valid for every lane of a launch;
+    :meth:`sync` invalidates against the price state's dirty-slot log."""
+    rows: Optional[torch.Tensor]
+    valid: np.ndarray
+    version: int
+    m_pad: int
+    d1: int
+
+    @classmethod
+    def empty(cls, state: PriceState, job: Job) -> Optional["RowCache"]:
+        """A cache with no valid tiles (the first decision fills it);
+        None for a dcap-0 job (rejected without solving)."""
+        key = _shape_bucket(job)
+        if key is None:
+            return None
+        m_pad, d1 = key
+        n_tiles = _pad_tiles(state.horizon) // TILE
+        return cls(rows=None, valid=np.zeros(n_tiles, bool),
+                   version=state.version, m_pad=m_pad, d1=d1)
+
+    def invalidate_spans(self, spans) -> None:
+        """Mark every tile overlapping a dirtied [t0, t1) span stale."""
+        for t0, t1 in spans:
+            k0 = max(int(t0) // TILE, 0)
+            k1 = min((int(t1) - 1) // TILE + 1, len(self.valid))
+            self.valid[k0:k1] = False
+
+    def invalidate_all(self) -> None:
+        self.valid[:] = False
+
+    def sync(self, state: PriceState) -> "RowCache":
+        """Invalidate whatever ``state`` dirtied since ``version`` (all of
+        it when the delta is unknowable).  Returns self."""
+        if state.version != self.version:
+            spans = state.dirty_spans_since(self.version)
+            if spans is None:
+                self.invalidate_all()
+            else:
+                self.invalidate_spans(spans)
+            self.version = state.version
+        return self
+
+
+def _live_floor(pmin_h: np.ndarray, jd: _Lanes, b: int, T: int) -> float:
+    """Lane ``b``'s early-exit cost floor: the base ``lb`` times the
+    cheapest spread of the workload over feasible slots (at most ``dcap``
+    chunk-passes per slot, each slot at its live per-worker price floor).
+    A valid lower bound on every schedule's cost (the reference's
+    ``:480-519``)."""
+    resbw_h, lb = jd.resbw_h[b], float(jd.lb[b])
+    a, _, d_tot, dcap = (int(x) for x in jd.meta[b])
     T_pad = pmin_h.shape[0]
     wslot = pmin_h[:, 0] * resbw_h[0]                 # summed left to right
     for r in range(1, R):
@@ -432,74 +537,102 @@ def _live_floor(pmin_h: np.ndarray, jd, T: int) -> float:
     return lb * floor_sum if lb > 0 else 0.0
 
 
-def _decide_tiled_core(psd, jd, *, T: int, d1: int, mono: int):
-    """One lane of the reference's ``_decide_tiled_core``: Alg. 2 over
-    the horizon in ``TILE``-slot tiles from the arrival tile, with the
-    exact early exit (module docstring).
+class _CoreOut(NamedTuple):
+    best_t: np.ndarray       # (B,) int, -1 = reject
+    payoff: np.ndarray       # (B,)
+    rows: torch.Tensor       # (B, T_pad, M): the refreshed row caches
+    cost: torch.Tensor       # (B, T_pad, d1): the visited slots' columns
+    k0: int                  # visited tiles [k0, k_end)
+    k_end: int
+    paths: List[int]         # tiles per branch [dnc, plateau, chain]
+    live: List[int]          # slots stepped per branch (one launch a tile)
+    cached: int              # tiles served from the row caches
+
+
+def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
+                       rows_init: Optional[torch.Tensor] = None,
+                       valid_tiles: Optional[np.ndarray] = None) -> _CoreOut:
+    """The reference's ``_decide_tiled_core`` for a batch of lanes:
+    Alg. 2 over the horizon in ``TILE``-slot tiles from the earliest
+    arrival tile, with the exact early exit (module docstring).
 
     psd: ``_padded_state`` — device tensors (g, v (T_pad, S, R), wcaps,
         scaps, U1, U2, L1, L2, pmin (T_pad, R), p, q) and pmin on the host
-    jd: ``_job_arrays_tiled``
+    jd: ``_stack_lanes``
     T: the real horizon; d1: DP columns (padded D_total + 1)
-    mono: 0 = chain only, 1 = plateau or chain, chosen once per tile: the
-        plateau when every row of the tile is free of NaN/-inf and has at
-        most ``r_max = max(16, M // 4)`` runs.
-
-    Returns ``(best_t (-1 = reject), payoff, rows (T_pad, M), cost
-    (T_pad, d1), k0, k_end, paths, live)``: the device tables hold the
-    visited tiles' rows and the live slots' DP columns; [k0, k_end) is the
-    visited tile range, ``paths`` the per-branch tile counts [dnc,
-    plateau, chain] and ``live`` the live slots stepped per branch (on
-    the card: one plateau-kernel launch per plateau tile, one sweep-kernel
-    launch per chain tile)."""
+    mono: 0 = chain only, 1 = plateau or chain (one lane only), chosen
+        once per tile: the plateau when every row of the tile is free of
+        NaN/-inf and has at most ``r_max = max(16, M // 4)`` runs.
+    rows_init/valid_tiles: the lanes' row caches, (B, T_pad, M) rows and
+        a (B, n_tiles) validity mask; a tile is served from them when it
+        is valid for EVERY lane, else recomputed for all.  The DP steps
+        every visited tile from the carry either way."""
     sdev, pmin_h = psd
-    u, usmax, meta = jd[3], jd[4], jd[5]
-    a, _, d_tot, _ = meta
-    T_pad = u.shape[0]
+    B, T_pad = jd.u.shape
     n_tiles = T_pad // TILE
-    M = jd[1].shape[1]
+    M = jd.Wf.shape[1]
     g = sdev[0]
     dt, dev = g.dtype, g.device
+    a = jd.meta[:, 0]
+    a_min = int(a.min())
+    if mono and B != 1:
+        raise ValueError("the monotone dispatch is single-lane only")
     r_max = max(16, M // 4)
-    lb = _live_floor(pmin_h, jd, T)
+    lb = np.array([_live_floor(pmin_h, jd, b, T) for b in range(B)])
+    d_idx = torch.as_tensor(jd.meta[:, 2], device=dev)
 
-    rows_buf = torch.full((T_pad, M), float("inf"), dtype=dt, device=dev)
-    rows_buf[:, 0] = 0.0
-    cost_buf = torch.empty((T_pad, d1), dtype=dt, device=dev)
-    prev = torch.full((d1,), float("inf"), dtype=dt, device=dev)
-    prev[0] = 0.0
-    best, best_t = 0.0, -1
+    if rows_init is not None:
+        rows_buf = rows_init.clone()
+    else:
+        rows_buf = torch.full((B, T_pad, M), float("inf"), dtype=dt,
+                              device=dev)
+        rows_buf[..., 0] = 0.0
+    cost_buf = torch.empty((B, T_pad, d1), dtype=dt, device=dev)
+    prev = torch.full((B, d1), float("inf"), dtype=dt, device=dev)
+    prev[:, 0] = 0.0
+    best = np.zeros(B)
+    best_t = np.full(B, -1)
     paths = [0, 0, 0]
     live = [0, 0, 0]
-    k0 = k = a // TILE
-    while k < n_tiles and usmax[min(k * TILE, T_pad - 1)] > \
-            best + _PAY_EPS + lb:
+    cached = 0
+    k0 = k = a_min // TILE
+    while k < n_tiles and np.any(
+            jd.usmax[:, min(k * TILE, T_pad - 1)] > best + _PAY_EPS + lb):
         t0 = k * TILE
-        rows = _tile_rows(sdev, jd, t0, T)
-        rows_buf[t0:t0 + TILE] = rows
+        if valid_tiles is not None and valid_tiles[:, k].all():
+            rows = rows_buf[:, t0:t0 + TILE]
+            cached += 1
+        else:
+            rows = _tile_rows(sdev, jd, t0)
+            rows_buf[:, t0:t0 + TILE] = rows
         branch = PATH_CHAIN
         if mono:
             clean = ((rows == rows) & (rows > float("-inf"))).all()
-            if bool(clean & (run_count(rows) <= r_max).all()):
+            if bool(clean & (run_count(rows[0]) <= r_max).all()):
                 branch = PATH_PLATEAU
         paths[branch] += 1
-        lo, hi = max(a, t0), min(T, t0 + TILE)
+        lo, hi = max(a_min, t0), min(T, t0 + TILE)
         if hi > lo:
             if branch == PATH_PLATEAU:
-                minplus_plateau_tile(rows[lo - t0:hi - t0], prev,
-                                     cost_buf[lo:hi], r_max)
+                minplus_plateau_tile(rows[0, lo - t0:hi - t0], prev[0],
+                                     cost_buf[0, lo:hi], r_max)
             else:
-                minplus_chain(rows[lo - t0:hi - t0], prev, cost_buf[lo:hi])
-            prev = cost_buf[hi - 1]
+                minplus_chain(rows[:, lo - t0:hi - t0], prev,
+                              cost_buf[:, lo:hi])
+            prev = cost_buf[:, hi - 1]
             live[branch] += hi - lo
-            cost_d = cost_buf[lo:hi, d_tot].cpu().numpy()
-            for t in range(lo, hi):
-                c = cost_d[t - lo]
-                pay = u[t] - c if np.isfinite(c) else -np.inf
-                if pay > best + _PAY_EPS:
-                    best, best_t = pay, t
+            cost_d = torch.gather(
+                cost_buf[:, lo:hi], 2,
+                d_idx[:, None, None].expand(B, hi - lo, 1)).cpu().numpy()
+            for b in range(B):
+                for t in range(max(lo, int(a[b])), hi):
+                    c = cost_d[b, t - lo, 0]
+                    pay = jd.u[b, t] - c if np.isfinite(c) else -np.inf
+                    if pay > best[b] + _PAY_EPS:
+                        best[b], best_t[b] = pay, t
         k += 1
-    return best_t, best, rows_buf, cost_buf, k0, k, paths, live
+    return _CoreOut(best_t, best, rows_buf, cost_buf, k0, k, paths, live,
+                    cached)
 
 
 def _backtrack(rows_h: np.ndarray, cost_h: np.ndarray, a: int, best_t: int,
@@ -535,36 +668,53 @@ def _backtrack(rows_h: np.ndarray, cost_h: np.ndarray, a: int, best_t: int,
     return d_rem, d_slots
 
 
-def _place_slots(sd, resbw: torch.Tensor, Wc: torch.Tensor,
+def _place_slots(sd, pr, resbw: torch.Tensor, Wc: torch.Tensor,
                  Zc: torch.Tensor, ts: torch.Tensor):
     """Greedy placements (y (n, H'), z (n, K') int32) of the per-slot
     worker and PS-target counts ``Wc``/``Zc`` at the slots ``ts`` — the
-    whole route's fills, priced at just those slots (each slot's fill
-    reads only its own state column)."""
-    g, v, wcaps, scaps, U1, U2, L1, L2 = sd
+    whole route's fills, at the resident prices of just those slots (each
+    slot's fill reads only its own state column)."""
+    g, v, wcaps, scaps = sd[:4]
     g_w, v_w = g[ts], v[ts]
-    p, q = _price_tables(g_w, v_w, wcaps, scaps, U1, U2, L1, L2)
     w_order, w_scap, _, w_ccap, _ = _prefix_tables(
-        p, wcaps[None] - g_w, resbw[:R])
+        pr[0][ts], wcaps[None] - g_w, resbw[:R])
     s_order, s_scap, _, s_ccap, _ = _prefix_tables(
-        q, scaps[None] - v_w, resbw[R:2 * R])
+        pr[1][ts], scaps[None] - v_w, resbw[R:2 * R])
     y = _greedy_place(w_order, w_scap, w_ccap, Wc)
     deploy = torch.minimum(torch.minimum(Zc, Wc), s_ccap[:, -1])
     z = _greedy_place(s_order, s_scap, s_ccap, deploy)
     return y, z
 
 
-def _materialize(job: Job, state: PriceState, best_t: int, rows_buf,
-                 cost_buf, W: np.ndarray, Z: np.ndarray, resbw: torch.Tensor
-                 ) -> Optional[Schedule]:
+@dataclasses.dataclass
+class _Pending:
+    """A decided but not yet placed candidate of the tiled core: the
+    launch's row and cost tables (shared by its lanes) stay on the device
+    until ``_materialize`` runs the backtrack and the placement, for an
+    accept that survives the commit pass only.  Dropping the burst's
+    candidates frees the tables."""
+    job: Job
+    best_t: int
+    payoff: float
+    rows_full: torch.Tensor         # (B, T_pad, M)
+    cost_full: torch.Tensor         # (B, T_pad, d1)
+    lane: int
+    W: np.ndarray                   # (dcap+1,) workload tables
+    Z: np.ndarray
+    cache: RowCache
+
+
+def _materialize(pend: _Pending, state: PriceState) -> Optional[Schedule]:
     """The accepted schedule of a tiled decision (None = reject): the
-    banded backtrack and the placement of the deploying slots, at the
-    price state the decision was made at."""
+    banded backtrack and the placement of the deploying slots.  Must run
+    at the price state the decision was made at."""
+    job, best_t = pend.job, pend.best_t
     if best_t < 0:
         return None
     a, d_tot = job.arrival, job.workload
-    rows_h = rows_buf[a:best_t + 1].cpu().numpy()
-    cost_h = cost_buf[a:best_t + 1, :d_tot + 1].cpu().numpy()
+    rows_h = pend.rows_full[pend.lane, a:best_t + 1].cpu().numpy()
+    cost_h = pend.cost_full[pend.lane, a:best_t + 1, :d_tot + 1].cpu() \
+        .numpy()
     cost = float(cost_h[-1, d_tot])
     d_left, d_slots = _backtrack(rows_h, cost_h[:-1], a, best_t, d_tot)
     if d_left != 0:
@@ -575,11 +725,15 @@ def _materialize(job: Job, state: PriceState, best_t: int, rows_buf,
     workers, ps = {}, {}
     if len(ts_active):
         sd = state.device_state(DEFAULT_DTYPE)
+        pr = state.device_prices(DEFAULT_DTYPE)
         dt, dev = sd[0].dtype, sd[0].device
         d_act = d_slots[ts_active]
+        resbw = np.concatenate([job.worker_res, job.ps_res,
+                                [job.worker_bw, job.ps_bw]])
         y, z = _place_slots(
-            sd, resbw, torch.tensor(W[d_act], dtype=dt, device=dev),
-            torch.tensor(Z[d_act], dtype=dt, device=dev),
+            sd, pr, torch.tensor(resbw, dtype=dt, device=dev),
+            torch.tensor(pend.W[d_act], dtype=dt, device=dev),
+            torch.tensor(pend.Z[d_act], dtype=dt, device=dev),
             torch.as_tensor(ts_active, device=dev))
         y, z = y.cpu().numpy(), z.cpu().numpy()
         H, K = state.cluster.H, state.cluster.K
@@ -590,11 +744,14 @@ def _materialize(job: Job, state: PriceState, best_t: int, rows_buf,
                     cost=cost, payoff=utility - cost, utility=utility)
 
 
-# tiles per branch, live slots stepped (all, and those of plateau tiles)
-# and decisions of the tiled route since the last reset (the reference's
-# monotone fallback counters plus the route's own)
+# tiles per branch, live slots stepped (all, and those of plateau tiles),
+# decisions of the tiled route (lanes decided: speculative ones of
+# decide_burst and re-solves through a row cache among them), core runs
+# and tiles served from the row caches, since the last reset (the
+# reference's monotone fallback counters plus the route's own)
 _monotone_counters = {"dnc": 0, "plateau": 0, "chain": 0, "slots": 0,
-                      "plateau_slots": 0, "decisions": 0}
+                      "plateau_slots": 0, "decisions": 0, "speculative": 0,
+                      "resolves": 0, "launches": 0, "cache_tiles": 0}
 
 
 def monotone_counters_reset() -> None:
@@ -603,31 +760,82 @@ def monotone_counters_reset() -> None:
 
 
 def monotone_counters_snapshot() -> dict:
-    """Tiles processed per min-plus branch since the last reset: ``dnc``
-    (not ported, always 0), ``plateau``, ``chain``; with ``slots``, the
-    live slots the tiled route stepped, ``plateau_slots``, those of
-    plateau tiles, and ``decisions``, the tiled decisions that ran the DP.
-    On the card each plateau tile is one plateau-kernel launch and each
-    chain tile one sweep-kernel launch."""
+    """The tiled route's counts since the last reset: tiles per min-plus
+    branch, ``dnc`` (not ported, always 0), ``plateau``, ``chain``;
+    ``slots``, the live slots stepped, and ``plateau_slots``, those of
+    plateau tiles; ``decisions``, the lanes the core decided, of which
+    ``speculative`` in ``decide_burst`` and ``resolves`` through a row
+    cache; ``launches``, the core's runs (one per group of at most
+    ``REPRO_BURST_LANES`` lanes), and ``cache_tiles``, the visited tiles
+    served from the row caches.  On the card each plateau tile is one
+    plateau-kernel launch and each chain tile one sweep-kernel launch,
+    whatever the lanes."""
     return dict(_monotone_counters)
 
 
-def _decide_tiled(job: Job, state: PriceState, m_pad: int, d1: int
-                  ) -> Optional[Schedule]:
+def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
+                 m_pad: int, d1: int,
+                 caches: Optional[Dict[int, RowCache]] = None
+                 ) -> List[_Pending]:
+    """The tiled core over one shape bucket's jobs, at most
+    ``_max_lanes()`` lanes a launch.  ``caches``: {index: RowCache}
+    serving the lanes.  Returns a ``_Pending`` per job, with its refreshed
+    cache.  Nothing here is compiled per shape, so the reference's
+    padding lanes (``_reject_lane``), its device-cached empty row cache
+    (``_empty_cache``) and its record of compiled launch shapes
+    (``_launch_keys_seen``), all there for XLA's compilation, have no
+    counterpart."""
     T = state.horizon
     T_pad = _pad_tiles(T)
-    psd = _padded_state(state, DEFAULT_DTYPE, T_pad)
-    jd, (W, Z) = _job_arrays_tiled(job, T, T_pad, m_pad, DEFAULT_DTYPE,
-                                   state.device)
-    mono = 1 if m_pad <= MONO_BAND else 0
-    best_t, _, rows_buf, cost_buf, _, _, paths, live = _decide_tiled_core(
-        psd, jd, T=T, d1=d1, mono=mono)
-    for key, n in zip(("dnc", "plateau", "chain"), paths):
-        _monotone_counters[key] += n
-    _monotone_counters["slots"] += sum(live)
-    _monotone_counters["plateau_slots"] += live[PATH_PLATEAU]
-    _monotone_counters["decisions"] += 1
-    return _materialize(job, state, best_t, rows_buf, cost_buf, W, Z, jd[0])
+    n_tiles = T_pad // TILE
+    dtype = DEFAULT_DTYPE
+    psd = _padded_state(state, dtype, T_pad)
+    out: List[_Pending] = []
+    lanes_max = _max_lanes()
+    for c0 in range(0, len(jobs), lanes_max):
+        chunk = jobs[c0:c0 + lanes_max]
+        B = len(chunk)
+        arrays = [_job_arrays_tiled(j, T, T_pad, m_pad) for _, j in chunk]
+        jd = _stack_lanes([la for la, _ in arrays], T, dtype, state.device)
+        cached = [caches.get(i) if caches else None for i, _ in chunk]
+        rows_init = valid = None
+        if any(c is not None for c in cached):
+            valid = np.zeros((B, n_tiles), bool)
+            for bi, c in enumerate(cached):
+                if c is not None and c.rows is not None:
+                    valid[bi] = c.valid
+            if valid.any():
+                ident = torch.full((T_pad, m_pad), float("inf"), dtype=dtype,
+                                   device=state.device)
+                ident[:, 0] = 0.0
+                rows_init = torch.stack([
+                    c.rows if c is not None and c.rows is not None
+                    else ident for c in cached])
+            else:
+                valid = None
+        mono = 1 if B == 1 and m_pad <= MONO_BAND else 0
+        res = _decide_tiled_core(psd, jd, T=T, d1=d1, mono=mono,
+                                 rows_init=rows_init, valid_tiles=valid)
+        for key, n in zip(("dnc", "plateau", "chain"), res.paths):
+            _monotone_counters[key] += n
+        _monotone_counters["slots"] += sum(res.live)
+        _monotone_counters["plateau_slots"] += res.live[PATH_PLATEAU]
+        _monotone_counters["decisions"] += B
+        _monotone_counters["launches"] += 1
+        _monotone_counters["cache_tiles"] += res.cached
+        for bi, (i, job) in enumerate(chunk):
+            v = np.zeros(n_tiles, bool)
+            if cached[bi] is not None:
+                v |= cached[bi].valid
+            v[res.k0:res.k_end] = True
+            cache = RowCache(rows=res.rows[bi], valid=v,
+                             version=state.version, m_pad=m_pad, d1=d1)
+            out.append(_Pending(
+                job=job, best_t=int(res.best_t[bi]),
+                payoff=float(res.payoff[bi]), rows_full=res.rows,
+                cost_full=res.cost, lane=bi, W=arrays[bi][1][0],
+                Z=arrays[bi][1][1], cache=cache))
+    return out
 
 
 def _pow2_bucket(n: int, floor: int) -> int:
@@ -699,24 +907,71 @@ def _schedule_from_outputs(job: Job, state: PriceState, best_t: int,
 
 
 def best_schedule_fused(job: Job, state: PriceState, *,
-                        core: str = "whole") -> Optional[Schedule]:
+                        core: str = "whole",
+                        row_cache: Optional[RowCache] = None
+                        ) -> Optional[Schedule]:
     """Alg. 2 for one job at the state's current prices, on the state's
     device; None = reject.
 
     ``core="whole"``: the whole-horizon route, one DP-sweep launch on the
     card.  ``core="tiled"``: the tiled early-exit route, one kernel launch
     per tile it visits with live slots: the sweep kernel for a chain tile,
-    the plateau kernel for a plateau tile (module docstring)."""
+    the plateau kernel for a plateau tile (module docstring).
+    ``row_cache`` (tiled only): the job's cache from an earlier decision,
+    ``sync``-ed against the state; the core recomputes only its stale
+    tiles and writes the cache back (a re-solve)."""
     if core not in CORES:
         raise ValueError(f"core must be one of {CORES}, not {core!r}")
+    if row_cache is not None and core != "tiled":
+        raise ValueError("a row cache serves the tiled route only")
     key = _shape_bucket(job)
     if key is None:
         return None
     m_pad, d1 = key
     if core == "tiled":
-        return _decide_tiled(job, state, m_pad, d1)
+        caches = {0: row_cache} if row_cache is not None else None
+        pend = _decide_jobs([(0, job)], state, m_pad, d1, caches=caches)[0]
+        if row_cache is not None:
+            _monotone_counters["resolves"] += 1
+            for f in ("rows", "valid", "version"):
+                setattr(row_cache, f, getattr(pend.cache, f))
+        return _materialize(pend, state)
     sd = state.device_state(DEFAULT_DTYPE)
+    pr = state.device_prices(DEFAULT_DTYPE)
     jd = _job_arrays(job, state.horizon, m_pad, DEFAULT_DTYPE, state.device)
-    best_t, cost, d_left, d_slots, y, z = _decide_core(sd, jd, d1)
+    best_t, cost, d_left, d_slots, y, z = _decide_core(sd, pr, jd, d1)
     return _schedule_from_outputs(job, state, best_t, cost, d_left,
                                   d_slots, y, z)
+
+
+def decide_burst(jobs: Sequence[Job], state: PriceState, *,
+                 timings: Optional[List[float]] = None
+                 ) -> List[Optional[_Pending]]:
+    """Speculative batched Alg. 2 on the tiled route: the whole burst
+    decided at the CURRENT prices, one launch group per shape bucket (a
+    small job is never padded up to the burst's largest table).  Returns
+    a ``_Pending`` per job in input order (None for dcap-0 jobs):
+    decision and row cache, with the backtrack and the placement deferred
+    to ``_materialize``.  Committing and re-solving are the caller's
+    (``OASiS.on_arrivals``).  ``timings``, when given, is filled with each
+    job's share of its group's wall time."""
+    out: List[Optional[_Pending]] = [None] * len(jobs)
+    if timings is not None:
+        timings[:] = [0.0] * len(jobs)
+    groups: Dict[Tuple[int, int], list] = {}
+    for i, j in enumerate(jobs):
+        key = _shape_bucket(j)
+        if key is not None:
+            groups.setdefault(key, []).append((i, j))
+    for (m_pad, d1), live in groups.items():
+        t0 = time.perf_counter()
+        pends = _decide_jobs(live, state, m_pad, d1)
+        _monotone_counters["speculative"] += len(live)
+        for (i, _), pend in zip(live, pends):
+            out[i] = pend
+        if timings is not None:
+            share = (time.perf_counter() - t0) / len(live)
+            for i, _ in live:
+                timings[i] = share
+    return out
+

@@ -20,6 +20,18 @@
 //   one launch of csrc/minplus_slot.cu per slot.  minplus_slot.cu stays the
 //   one-slot entry with its argmin (ops.minplus).
 //
+// Lanes.  The tiled route decides a burst's jobs of one shape bucket
+// together (core/schedule_torch.py::_decide_jobs), and a chain tile then
+// steps B lanes' slots from B carries in one launch: a grid of (C, B)
+// blocks in clusters of (C, 1, 1), one cluster per lane, each offsetting
+// rows, carry and cost by its lane's strides (blockIdx.y).  The lanes
+// share nothing, so each cluster runs the one-lane recurrence below; at
+// the 10x buckets C = 16, and 8 lanes fill 128 of an H100's 132 SMs.
+// The lanes of a burst share the arrival slot's tile range: a lane's own
+// dead slots carry identity rows [0, inf, ...], which step its carry
+// unchanged (0 + x == x; inf + x == inf), so every lane steps the same
+// slots.
+//
 // Why the tile is this kernel with a carry-in and not a minplus_tile.cu of
 // its own: a tile is this recurrence over at most 64 slots from a given
 // column; the cluster design below was measured best for it (PERF.md),
@@ -190,8 +202,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 minplus_sweep_kernel(const T* __restrict__ rows, const T* __restrict__ carry,
                      T* __restrict__ cost, int32_t* __restrict__ split,
                      int n_slots, int dc1, int d1, int w, int jpad,
-                     int n_jgroups) {
+                     int n_jgroups, int64_t rows_ls, int64_t carry_ls,
+                     int64_t cost_ls) {
   cg::cluster_group cluster = cg::this_cluster();
+  // this cluster's lane (the split is one lane's: rows_ls == cost_ls == 0)
+  const int64_t lane = blockIdx.y;
+  rows += lane * rows_ls;
+  if (carry != nullptr) carry += lane * carry_ls;
+  cost += lane * cost_ls;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* slice = reinterpret_cast<T*>(smem_raw);
   T* win = slice + 2 * w;
@@ -418,7 +436,8 @@ cudaError_t prepare(const cudaLaunchConfig_t& cfg, int cluster) {
 template <typename T, bool kSplit>
 int launch_split(const void* rows, const void* carry, void* cost, void* split,
                  int n_slots, int dc1, int d1, int cluster, int w, int jpad,
-                 int n_jgroups, void* stream) {
+                 int n_jgroups, int n_lanes, int64_t rows_ls,
+                 int64_t carry_ls, int64_t cost_ls, void* stream) {
   auto kern = minplus_sweep_kernel<T, kSplit>;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -426,7 +445,7 @@ int launch_split(const void* rows, const void* carry, void* cost, void* split,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.gridDim = dim3(cluster, n_lanes, 1);
   cfg.blockDim = dim3((w / K) * n_jgroups, 1, 1);
   cfg.dynamicSmemBytes = smem_bytes<T>(w, jpad, n_jgroups, kSplit);
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -437,7 +456,7 @@ int launch_split(const void* rows, const void* carry, void* cost, void* split,
   err = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(rows),
                            static_cast<const T*>(carry), static_cast<T*>(cost),
                            static_cast<int32_t*>(split), n_slots, dc1, d1, w,
-                           jpad, n_jgroups);
+                           jpad, n_jgroups, rows_ls, carry_ls, cost_ls);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -445,43 +464,55 @@ int launch_split(const void* rows, const void* carry, void* cost, void* split,
 template <typename T>
 int launch(const void* rows, const void* carry, void* cost, void* split,
            int n_slots, int dc1, int d1, int cluster, int w, int jpad,
-           int n_jgroups, void* stream) {
-  // the plan's invariants (kernel.py::sweep_plan); anything else is refused
+           int n_jgroups, int n_lanes, int64_t rows_ls, int64_t carry_ls,
+           int64_t cost_ls, void* stream) {
+  // the plan's invariants (kernel.py::sweep_plan); anything else is
+  // refused, as is a split of more than one lane
   if (cluster < 1 || cluster > kMaxCluster || w < K || w % K != 0 ||
       jpad < dc1 || jpad % K != 0 ||
       static_cast<int64_t>(cluster) * w < d1 || n_jgroups < 1 ||
-      (w / K) * n_jgroups > kMaxThreads)
+      (w / K) * n_jgroups > kMaxThreads || n_lanes < 1 || n_lanes > 65535 ||
+      (split != nullptr && n_lanes != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (split != nullptr)
     return launch_split<T, true>(rows, carry, cost, split, n_slots, dc1, d1,
-                                 cluster, w, jpad, n_jgroups, stream);
+                                 cluster, w, jpad, n_jgroups, 1, 0, 0, 0,
+                                 stream);
   return launch_split<T, false>(rows, carry, cost, split, n_slots, dc1, d1,
-                                cluster, w, jpad, n_jgroups, stream);
+                                cluster, w, jpad, n_jgroups, n_lanes, rows_ls,
+                                carry_ls, cost_ls, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows (n_slots, dc1), cost (n_slots, d1) contiguous on the device
-// (cost may be rows of a larger table); carry (d1,) the column entering
-// slot 0, or NULL for the identity [0, inf, ...]; split (n_slots, d1)
-// int32 or NULL for cost only; the launch plan (kernel.py::sweep_plan):
-// cluster size, columns per block w, padded band jpad, j
-// groups.  Enqueued on `stream`; returns the cudaError_t of the launch
-// (0 = launched).
+// For each of n_lanes lanes: rows (n_slots, dc1) and cost (n_slots, d1)
+// row-major on the device (cost may be rows of a larger table); carry
+// (d1,) the column entering slot 0, or NULL for the identity
+// [0, inf, ...]; lane l's tensors start rows_ls, carry_ls and cost_ls
+// values after lane l-1's.  split (n_slots, d1) int32, one lane only, or
+// NULL for cost only; the launch plan (kernel.py::sweep_plan): cluster
+// size, columns per block w, padded band jpad, j groups.  Enqueued on
+// `stream`; returns the cudaError_t of the launch (0 = launched).
 int minplus_sweep_f32(const void* rows, const void* carry, void* cost,
                       void* split, int n_slots, int dc1, int d1, int cluster,
-                      int w, int jpad, int n_jgroups, void* stream) {
+                      int w, int jpad, int n_jgroups, int n_lanes,
+                      long long rows_ls, long long carry_ls, long long cost_ls,
+                      void* stream) {
   return launch<float>(rows, carry, cost, split, n_slots, dc1, d1, cluster, w,
-                       jpad, n_jgroups, stream);
+                       jpad, n_jgroups, n_lanes, rows_ls, carry_ls, cost_ls,
+                       stream);
 }
 
 int minplus_sweep_f64(const void* rows, const void* carry, void* cost,
                       void* split, int n_slots, int dc1, int d1, int cluster,
-                      int w, int jpad, int n_jgroups, void* stream) {
+                      int w, int jpad, int n_jgroups, int n_lanes,
+                      long long rows_ls, long long carry_ls, long long cost_ls,
+                      void* stream) {
   return launch<double>(rows, carry, cost, split, n_slots, dc1, d1, cluster, w,
-                        jpad, n_jgroups, stream);
+                        jpad, n_jgroups, n_lanes, rows_ls, carry_ls, cost_ls,
+                        stream);
 }
 
 const char* minplus_error_string(int code) {

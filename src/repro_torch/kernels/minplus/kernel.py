@@ -13,7 +13,8 @@ Three kernels, each in its own ``csrc/*.cu`` with its design notes:
   cannot fit the 227 KB (232,448 bytes) a block may use.
   From a carry-in (``prev``), cost only, the same launch replaces
   ``minplus_pallas`` as the tiled route runs it: the live slots of one
-  chain tile in one launch, under the same plan.
+  chain tile in one launch, under the same plan, for a batch of lanes
+  (one cluster per lane, a grid of (C, B)).
 * :func:`minplus_cuda` (``minplus_slot.cu``), the one-slot entry behind
   ``ops.minplus``: one slot with the first-index argmin (or cost only),
   the function of ``minplus_pallas``.  Grid of
@@ -72,9 +73,9 @@ SLOT_BLOCK = 256               # outputs per block (csrc/minplus_slot.cu kBlock)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "sweep": ("minplus_sweep", [_P, _P, _P, _P] + [_I] * 7 + [_P],
+    "sweep": ("minplus_sweep", [_P, _P, _P, _P] + [_I] * 8 + [_L] * 3 + [_P],
               "minplus_error_string"),
     "slot": ("minplus_slot", [_P, _P, _P, _P, _I, _I, _I, _P],
              "minplus_slot_error_string"),
@@ -103,7 +104,12 @@ def _launch(name: str, dtype: torch.dtype, device: torch.device, *args):
            device, *args)
 
 
-def _check(name: str, **tensors: torch.Tensor) -> torch.dtype:
+def _check(name: str, lanes: bool = False,
+           **tensors: torch.Tensor) -> torch.dtype:
+    """Device, dtype and layout checks; with ``lanes`` a tensor's leading
+    axis is a lane axis, each lane must be row-major and the lanes must
+    not overlap (a stride of at least a lane's extent), since each lane's
+    cluster writes its own."""
     dtype = None
     for arg, t in tensors.items():
         if not t.is_cuda:
@@ -114,8 +120,12 @@ def _check(name: str, **tensors: torch.Tensor) -> torch.dtype:
                             f"{t.dtype}")
         if dtype is not None and t.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
+        if not (t[0] if lanes and t.shape[0] else t).is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous"
+                             + (" in each lane" if lanes else ""))
+        if lanes and t.shape[0] > 1 and t.stride(0) < t[0].numel():
+            raise ValueError(f"{name}: {arg}'s lanes overlap (stride "
+                             f"{t.stride(0)} < {t[0].numel()})")
         dtype = t.dtype
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
@@ -204,43 +214,55 @@ def minplus_sweep_cuda(rows: torch.Tensor, d_total: int, *,
     = min_j rows[i, j] + cost[i-1, d-j]`` with ``cost[-1] = prev``, the
     value of :func:`.tiled.minplus_tile` bit for bit where ``prev`` holds
     no -0 (a DP column started from the identity never does).  The
-    tiled core steps the live slots of a chain tile so.
+    tiled core steps the live slots of a chain tile so, for a batch of
+    lanes at once: ``rows`` (B, T, DC+1), ``prev`` (B, D+1) and ``out``
+    (B, T, D+1), one cluster per lane, cost only.
 
     rows: (T, DC+1) float32 or float64, contiguous, on a CUDA device;
-    ``prev`` and ``out`` likewise, on the same device.  Returns ``(cost
-    (T, D+1), split (T, D+1) int32 or None)``; ``out`` (T, D+1), when
-    given, receives the cost (the tiled core passes rows of its cost
-    table); the split is skipped when ``want_split`` is False or a carry
-    is given.  ``plan`` overrides :func:`sweep_plan` (a test may force a
-    plan of its own).  Launches on the current stream without
-    synchronising; ``minplus_sweep_cuda.launches`` counts the launches;
-    T = 0 launches nothing."""
+    ``prev`` and ``out`` likewise, on the same device (with lanes, each
+    lane contiguous and the lanes at any stride: rows of a larger table).
+    Returns ``(cost (T, D+1), split (T, D+1) int32 or None)``; ``out``
+    (T, D+1), when given, receives the cost (the tiled core passes rows
+    of its cost table); the split is skipped when ``want_split`` is False
+    or a carry is given.  ``plan`` overrides :func:`sweep_plan` (a test
+    may force a plan of its own).  Launches on the current stream without
+    synchronising; ``minplus_sweep_cuda.launches`` counts the launches,
+    one per call whatever the lanes; T = 0 launches nothing."""
     given = {k: t for k, t in (("prev", prev), ("out", out)) if t is not None}
-    _check("minplus_sweep_cuda", rows=rows, **given)
-    if rows.ndim != 2:
-        raise ValueError("rows must be a (T, DC+1) tensor")
-    T, dc1 = rows.shape
+    lanes = rows.ndim == 3
+    if lanes and prev is None:
+        raise ValueError("minplus_sweep_cuda: lanes need a carry (prev)")
+    if rows.ndim not in (2, 3):
+        raise ValueError("rows must be a (T, DC+1) or (B, T, DC+1) tensor")
+    _check("minplus_sweep_cuda", lanes=lanes, rows=rows, **given)
+    B = rows.shape[0] if lanes else 1
+    T, dc1 = rows.shape[-2:]
     d1 = int(d_total) + 1
     if dc1 < 1 or d1 < 1:
         raise ValueError(f"empty band: rows {tuple(rows.shape)}, "
                          f"d_total {d_total}")
-    if prev is not None and prev.shape != (d1,):
+    lead = (B,) if lanes else ()
+    if prev is not None and prev.shape != lead + (d1,):
         raise ValueError(f"minplus_sweep_cuda: prev {tuple(prev.shape)} "
-                         f"must be {(d1,)}")
+                         f"must be {lead + (d1,)}")
     if out is None:
-        out = torch.empty((T, d1), dtype=rows.dtype, device=rows.device)
-    elif out.shape != (T, d1):
+        out = torch.empty(lead + (T, d1), dtype=rows.dtype,
+                          device=rows.device)
+    elif out.shape != lead + (T, d1):
         raise ValueError(f"minplus_sweep_cuda: out {tuple(out.shape)} must "
-                         f"be {(T, d1)}")
+                         f"be {lead + (T, d1)}")
     split = (torch.empty((T, d1), dtype=torch.int32, device=rows.device)
              if want_split and prev is None else None)
-    if T == 0:
+    if T == 0 or B == 0:
         return out, split
     plan = plan or sweep_plan(dc1, d1, rows.dtype)
+    strides = ((rows.stride(0), prev.stride(0), out.stride(0)) if lanes
+               else (0, 0, 0))
     _launch("sweep", rows.dtype, rows.device, rows.data_ptr(),
             prev.data_ptr() if prev is not None else None, out.data_ptr(),
             split.data_ptr() if split is not None else None,
-            T, dc1, d1, plan.cluster, plan.w, plan.jpad, plan.jgroups)
+            T, dc1, d1, plan.cluster, plan.w, plan.jpad, plan.jgroups, B,
+            *strides)
     minplus_sweep_cuda.launches += 1
     return out, split
 

@@ -9,7 +9,7 @@ import torch
 
 from .kernel import minplus_cuda, minplus_plateau_cuda, minplus_sweep_cuda
 from .monotone import plateau_step, run_count
-from .ref import minplus_ref, minplus_sweep_ref
+from .ref import minplus_ref, minplus_sweep_cost, minplus_sweep_ref
 from .tiled import minplus_tile
 
 
@@ -45,20 +45,25 @@ def minplus_sweep(rows: torch.Tensor, d_total: int, *,
     over ``rows`` (T, DC+1) from the carry ``[0, inf, ...]``."""
     if rows.is_cuda:
         return minplus_sweep_cuda(rows, d_total, want_split=want_split)
-    cost, split = minplus_sweep_ref(rows, d_total)
-    return cost, split if want_split else None
+    if not want_split:
+        return minplus_sweep_cost(rows, d_total), None
+    return minplus_sweep_ref(rows, d_total)
 
 
 def minplus_chain(rows: torch.Tensor, prev: torch.Tensor,
                   out: torch.Tensor) -> torch.Tensor:
     """Cost-only DP columns of the slots ``rows`` (n, DC+1) from the carry
-    ``prev`` (D+1,), written into ``out`` (n, D+1): one launch of the
-    sweep kernel from that carry on the card, :func:`.tiled.minplus_tile`
-    on the CPU."""
+    ``prev`` (D+1,), written into ``out`` (n, D+1) — or of B lanes at
+    once: ``rows`` (B, n, DC+1), ``prev`` (B, D+1), ``out`` (B, n, D+1):
+    one launch of the sweep kernel from those carries on the card (one
+    cluster per lane), :func:`.tiled.minplus_tile` on the CPU."""
     if rows.is_cuda:
-        return minplus_sweep_cuda(rows, prev.numel() - 1, prev=prev,
+        return minplus_sweep_cuda(rows, prev.shape[-1] - 1, prev=prev,
                                   out=out)[0]
-    return out.copy_(minplus_tile(rows[:, None, :], prev[None])[1][:, 0])
+    if rows.ndim == 2:
+        return out.copy_(minplus_tile(rows[:, None, :], prev[None])[1][:, 0])
+    return out.copy_(minplus_tile(rows.transpose(0, 1), prev)[1]
+                     .transpose(0, 1))
 
 
 def minplus_plateau_tile(rows: torch.Tensor, prev: torch.Tensor,

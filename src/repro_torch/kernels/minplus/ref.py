@@ -22,7 +22,10 @@ def window_min(row: torch.Tensor, prev: torch.Tensor, want_arg: bool
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``new[..., d] = min_j row[..., j] + prev[..., d - j]`` (+inf where
     ``d - j < 0``) over leading batch axes, with the first-index argmin
-    (int64) when ``want_arg``; evaluated in chunks of output columns."""
+    (int64) when ``want_arg``; evaluated in chunks of output columns.
+    Cost only, the row is reversed instead of every window: the minimum
+    of the same sums in another order (no candidate is NaN, and none is
+    -0 unless both addends are)."""
     dc1 = row.shape[-1]
     d1 = prev.shape[-1]
     lead = prev.shape[:-1]
@@ -31,12 +34,17 @@ def window_min(row: torch.Tensor, prev: torch.Tensor, want_arg: bool
     padded = torch.cat([pad, prev], dim=-1)
     batch = prev.numel() // max(d1, 1)
     step = max(1, _CHUNK_CELLS // (dc1 * max(batch, 1)))
+    rrow = row.flip(-1).unsqueeze(-2)
     vals, args = [], []
     for c0 in range(0, d1, step):
         c1 = min(d1, c0 + step)
+        win = padded[..., c0:c1 + dc1 - 1].unfold(-1, dc1, 1)
+        if not want_arg:
+            # window d of the padded carry: prev[d - j] at dc1 - 1 - j
+            vals.append(torch.amin(rrow + win, dim=-1))
+            continue
         # window d of the padded carry, reversed: prev[d - j] for each j
-        win = padded[..., c0:c1 + dc1 - 1].unfold(-1, dc1, 1).flip(-1)
-        best, arg = torch.min(row.unsqueeze(-2) + win, dim=-1)
+        best, arg = torch.min(row.unsqueeze(-2) + win.flip(-1), dim=-1)
         vals.append(best)
         args.append(arg)
     new = torch.cat(vals, dim=-1)
@@ -55,6 +63,21 @@ def minplus_ref(row: torch.Tensor, prev: torch.Tensor
     +inf."""
     new, arg = window_min(row, prev, want_arg=True)
     return new, arg.to(torch.int32)
+
+
+def minplus_sweep_cost(rows: torch.Tensor, d_total: int) -> torch.Tensor:
+    """The cost of :func:`minplus_sweep_ref` alone, slot by slot through
+    :func:`window_min`'s cost-only path: the same minima, bit for bit,
+    without the split."""
+    T = rows.shape[0]
+    cost = torch.empty((T, d_total + 1), dtype=rows.dtype,
+                       device=rows.device)
+    prev = torch.full((d_total + 1,), float("inf"), dtype=rows.dtype,
+                      device=rows.device)
+    prev[0] = 0.0
+    for t in range(T):
+        prev = cost[t] = window_min(rows[t], prev, want_arg=False)[0]
+    return cost
 
 
 def minplus_sweep_ref(rows: torch.Tensor, d_total: int

@@ -1,7 +1,10 @@
 """The port's CUDA min-plus kernels on the card, against their plain
-versions: the DP sweep, the chain tile (the sweep from a carry-in),
-the one-slot kernel (A) and the plateau tile (B, one launch per plateau
-tile), and both decision routes on the card against the CPU.
+versions: the DP sweep, the chain tile (the sweep from a carry-in, one
+lane or a batch of lanes), the one-slot kernel (A) and the plateau tile
+(B, one launch per plateau tile); the tiled route's tables on the card
+(left-to-right prefix sums, a tile against the whole horizon) against the
+CPU's; and both decision routes and the batched arrival path on the card
+against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
 on a machine that has the card but no JAX:
@@ -314,6 +317,177 @@ def test_cuda_tile_wide_shapes(card, dc1, dtype):
     _tile_equals_plain(rows, _dp_carry(dc1, d1, dtype, 2, slots=2))
 
 
+def _lanes_equal_plain(B, n, dc1, d1, dtype, seed):
+    """One launch over B lanes, each a view into a larger table (rows,
+    carries and outputs at lane strides): bitwise the plain tile lane by
+    lane and B one-lane launches; the table's other rows untouched."""
+    rng = np.random.default_rng(seed)
+    rows = np.round(rng.random((B, n + 4, dc1)) * 8) / 8
+    rows[rng.random(rows.shape) < 0.3] = np.inf
+    rows[..., 0] = 0.0
+    rows = torch.tensor(rows, dtype=dtype, device="cuda")[:, 2:n + 2]
+    carries = torch.stack([_dp_carry(dc1, d1, dtype, seed + b)
+                           for b in range(B)])
+    table = torch.full((B, n + 5, d1), float("nan"), dtype=dtype,
+                       device="cuda")
+    table[:, 0] = carries
+    before = minplus_sweep_cuda.launches
+    ops.minplus_chain(rows, table[:, 0], table[:, 3:n + 3])
+    assert minplus_sweep_cuda.launches == before + 1
+    for b in range(B):
+        want = minplus_tile(rows[b][:, None, :], carries[b][None])[1][:, 0]
+        one = torch.empty((n, d1), dtype=dtype, device="cuda")
+        minplus_sweep_cuda(rows[b].contiguous(), d1 - 1, prev=carries[b],
+                           out=one)
+        torch.cuda.synchronize()
+        assert _bits(table[b, 3:n + 3], want), b
+        assert _bits(one, want), b
+    assert torch.isnan(table[:, 1:3]).all()
+    assert torch.isnan(table[:, n + 3:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("B", [2, 8])
+def test_cuda_tile_lanes_every_cluster_size(card, B, cluster, dtype):
+    """B lanes under every cluster size (d1 = 64 C): one cluster per
+    lane, bitwise the plain tile and one-lane launches."""
+    d1 = 64 * cluster
+    dc1 = min(64, d1)
+    assert kernel.sweep_plan(dc1, d1, dtype).cluster == cluster
+    _lanes_equal_plain(B, 64, dc1, d1, dtype, cluster + B)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dc1", [64, 128, 256, 384, 512, 640])
+def test_cuda_tile_lanes_at_10x_buckets(card, dc1, dtype):
+    """Eight lanes (the burst's lanes at REPRO_BURST_LANES=8) at each 10x
+    bucket, 64 and 17 slots."""
+    for n in (64, 17):
+        _lanes_equal_plain(8, n, dc1, 1280, dtype, dc1 + n)
+
+
+@pytest.mark.cuda
+def test_cuda_tile_lanes_refuse_bad_layouts(card):
+    rows = torch.zeros((2, 4, 64), dtype=torch.float64, device="cuda")
+    prev = torch.zeros((2, 128), dtype=torch.float64, device="cuda")
+    with pytest.raises(ValueError, match="carry"):
+        minplus_sweep_cuda(rows, 127)
+    with pytest.raises(ValueError, match="prev"):
+        minplus_sweep_cuda(rows, 127, prev=prev[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        minplus_sweep_cuda(rows.transpose(1, 2).contiguous()
+                           .transpose(1, 2), 127, prev=prev)
+    with pytest.raises(ValueError, match="overlap"):
+        minplus_sweep_cuda(rows, 127, prev=prev,
+                           out=torch.empty((4, 128), dtype=torch.float64,
+                                           device="cuda").expand(2, 4, 128))
+    with pytest.raises(ValueError, match="overlap"):
+        minplus_sweep_cuda(rows, 127, prev=prev,
+                           out=torch.empty(4 * 128 + 128,
+                                           dtype=torch.float64,
+                                           device="cuda").as_strided(
+                                               (2, 4, 128), (128, 128, 1)))
+    with pytest.raises(ValueError, match="overlap"):
+        minplus_sweep_cuda(rows[:1].expand(2, 4, 64), 127, prev=prev)
+
+
+def _tables_state(T, H, K, n_commits, seed):
+    """Price states on the card and the CPU after the same seeded commits
+    of the 10x trace's jobs (each decided on the CPU), with a job whose
+    tables are compared."""
+    from repro_torch.core.pricing import PriceState, price_params_from_jobs
+    cluster = workload.make_cluster(T=T, H=H, K=K)
+    jobs = [engine._with_quantum(j, 0)
+            for j in workload.make_jobs(40, T=T, seed=seed)]
+    params = price_params_from_jobs(jobs, cluster)
+    gpu = PriceState(cluster, params)
+    cpu = PriceState(cluster, params, device="cpu")
+    versions = []
+    for job in sorted(jobs, key=lambda j: j.arrival)[:n_commits]:
+        sched = schedule_torch.best_schedule_fused(job, cpu, core="tiled")
+        if sched is not None:
+            versions.append(gpu.version)
+            gpu.device_state()
+            for st_ in (gpu, cpu):
+                st_.commit(job, sched.workers, sched.ps)
+    return gpu, cpu, jobs, versions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,K", [(100, 50, 50), (500, 100, 100)])
+def test_cuda_tables_equal_cpu_and_tiles_equal_full(card, T, H, K):
+    """At paper scale and at 10x: the card's resident prices, its padded
+    state, a job's prefix tables over each tile and its tiles' COST rows
+    equal the same slots of a whole-horizon build on the card and the
+    CPU's, bit for bit (the prices come from the host; every prefix sum
+    runs left to right on both devices, over one tile's slots as over the
+    whole horizon)."""
+    gpu, cpu, jobs, versions = _tables_state(T, H, K, 12, 0)
+    assert len(versions) >= 2
+    T_pad = schedule_torch._pad_tiles(T)
+    for a, b in zip(gpu.device_prices(), cpu.device_prices()):
+        assert torch.equal(a.cpu(), b)
+    psd = schedule_torch._padded_state(gpu, torch.float64, T_pad)
+    full = schedule_torch._pad_state(gpu.device_state(),
+                                     gpu.device_prices(), T_pad)
+    psd_cpu = schedule_torch._padded_state(cpu, torch.float64, T_pad)
+    for k, w in zip((0, 1, 8, 9, 10), full):
+        assert torch.equal(psd[0][k], w), k
+        assert torch.equal(psd[0][k].cpu(), psd_cpu[0][k]), k
+    job = max(jobs, key=lambda j: j.worker_res.sum())
+    m_pad, _ = _shape_bucket(job)
+    lane, _ = schedule_torch._job_arrays_tiled(job, T, T_pad, m_pad)
+    jd = schedule_torch._stack_lanes([lane], T, torch.float64, gpu.device)
+    jd_cpu = schedule_torch._stack_lanes([lane], T, torch.float64,
+                                         cpu.device)
+    g, v, wcaps, scaps = psd[0][:4]
+    R = schedule_torch.R
+    whole = (schedule_torch._prefix_tables_b(psd[0][9], wcaps[None] - g,
+                                             jd.resbw[:, :R])
+             + schedule_torch._prefix_tables_b(psd[0][10], scaps[None] - v,
+                                               jd.resbw[:, R:2 * R]))
+    for t0 in range(0, T_pad, 64):
+        sl = slice(t0, t0 + 64)
+        tile = (schedule_torch._prefix_tables_b(
+                    psd[0][9][sl], wcaps[None] - g[sl], jd.resbw[:, :R])
+                + schedule_torch._prefix_tables_b(
+                    psd[0][10][sl], scaps[None] - v[sl], jd.resbw[:, R:2 * R]))
+        for a, b in zip(tile, whole):
+            assert torch.equal(a, b[:, sl]), t0
+        rows = schedule_torch._tile_rows(psd[0], jd, t0)
+        assert torch.equal(rows.cpu(), schedule_torch._tile_rows(
+            psd_cpu[0], jd_cpu, t0))
+
+
+@pytest.mark.cuda
+def test_burst_lanes_on_card_equal_cpu(card, monkeypatch):
+    """The batched arrival path at paper scale on the card, one lane and
+    eight lanes a launch, equals the CPU's (one lane): completions and
+    utility, and each burst's launches step one sweep or plateau launch
+    per tile."""
+    cluster = workload.make_cluster(T=100, H=50, K=50)
+    jobs = workload.make_jobs(200, T=100, seed=0, small=True)
+    cpu = engine.run(cluster, jobs, quantum=0, core="tiled", device="cpu")
+    for lanes in ("1", "8"):
+        monkeypatch.setenv("REPRO_BURST_LANES", lanes)
+        before = (minplus_plateau_cuda.launches, minplus_sweep_cuda.launches)
+        schedule_torch.monotone_counters_reset()
+        gpu = engine.run(cluster, jobs, quantum=0, core="tiled")
+        snap = schedule_torch.monotone_counters_snapshot()
+        plateau, tile = (x - y for x, y in zip(
+            (minplus_plateau_cuda.launches, minplus_sweep_cuda.launches),
+            before))
+        assert gpu.completion == cpu.completion, lanes
+        assert gpu.total_utility == cpu.total_utility, lanes
+        assert tile == snap["chain"] and plateau == snap["plateau"]
+        assert snap["speculative"] > 0 and snap["resolves"] > 0
+        if lanes == "8":
+            assert snap["launches"] < snap["decisions"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_sweep_null_carry_unchanged(card, dtype):
@@ -361,12 +535,11 @@ def test_tiled_route_on_card_equals_cpu_one_launch_per_tile(card):
 @pytest.mark.cuda
 def test_wide_jobs_run_through_both_routes(card):
     """Unquantized full-size jobs (d1 up to 20480) are decided on the card
-    by both routes as by the port on the CPU (the whole route's CPU run
-    takes minutes): the same accepted jobs and utility within rel 1e-9,
-    and for the tiled route the same completions.  The whole route's
-    completions are not held: its exact first-index split meets the
-    card's last-ulp COST differences (``exp``/``log``) and moves one
-    finish slot at equal utility on this instance (ROADMAP.md, Queue 3)."""
+    by both routes as by the port on the CPU: the same completions and
+    the utility within rel 1e-9.  The whole route's exact first-index
+    split meets any last-ulp difference of the COST rows, so its
+    completions hold only because the card reads the CPU's prices and
+    sums left to right."""
     cluster = workload.make_cluster(T=100, H=20, K=20)
     jobs = workload.make_jobs(40, T=100, seed=1)
     assert any(_shape_bucket(j)[1] == 20480 for j in jobs)
@@ -384,8 +557,7 @@ def test_wide_jobs_run_through_both_routes(card):
         assert set(res.completion) == set(cpu.completion)
         assert res.total_utility == pytest.approx(cpu.total_utility,
                                                   rel=1e-9)
-        if core == "tiled":
-            assert res.completion == cpu.completion
+        assert res.completion == cpu.completion, core
 
 
 @pytest.mark.cuda
