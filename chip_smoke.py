@@ -20,9 +20,18 @@ the row cache); it runs at one lane a launch and again at eight
 sequential route's completions and utility.  The one-slot kernel is the
 one-slot entry's (``ops.minplus``), driven on its own with its count set
 to 0.  Unquantized full-size jobs (d1 up to 20480) then go through both
-routes, held to the port on the CPU, as the whole route's 10x run is;
-traced runs show where the time goes (the tiled route one job at a time,
-and in bursts at one and at eight lanes).
+routes, held to the port on the CPU, as the whole route's 10x run is.
+Continuous serving and fleet churn follow, each run with the counts set
+to 0 just before it and read just after and held to the port's
+trajectory on the CPU (``tools/serving_cpu.py``): the reference's
+serving stream in full (SERVING_DIMS: 4,457 full-size jobs over 20,000
+slots, a 64-slot rolling window, H = K = 50) through
+``engine.run_stream`` on both routes, with one upload and 256,000 window
+bytes; its churn instance (CHURN_DIMS) churn-free and at 5 % and 20 %
+churn on both routes; the serving cluster's first 2000 slots under
+churn (down servers re-blocked after every slide).  Traced runs show
+where the time goes (the tiled route one job at a time, and in bursts at
+one and at eight lanes).
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -88,7 +97,9 @@ from repro_torch.models.model import (  # noqa: E402
     decode_step, init_cache, init_model, prefill)
 from repro_torch.serve import steps as serve_steps  # noqa: E402
 from repro_torch.sim import engine  # noqa: E402
-from repro_torch.sim.workload import make_cluster, make_jobs  # noqa: E402
+from repro_torch.sim.fleet import churn_trace  # noqa: E402
+from repro_torch.sim.workload import (  # noqa: E402
+    make_cluster, make_jobs, stream_jobs)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): vector (non-tensor)
 # rates for float32 and float64, the tensor cores' rate for bfloat16, and
@@ -98,12 +109,13 @@ PEAK_OPS = {torch.float32: 67e12, torch.float64: 34e12,
 PEAK_TF32 = 495e12             # the tensor cores' dense TF32 rate
 PEAK_BYTES = 3.35e12
 
-# tests/test_kernels.py's sweep shapes, then the slice's: T in {100, 500},
-# d1 = 1280, every m_pad bucket the 10x instance produces
+# tests/test_kernels.py's sweep shapes, then the slices': T in {64 (the
+# serving window), 100, 500}, d1 = 1280, every m_pad bucket the 10x
+# instance produces
 TEST_SHAPES = [(3, 2, 6), (9, 17, 33), (16, 65, 300), (8, 64, 1280),
                (4, 640, 1280)]
 M_PADS = (64, 128, 256, 384, 512, 640)
-SLICE_SHAPES = [(T, m, 1280) for T in (100, 500) for m in M_PADS]
+SLICE_SHAPES = [(T, m, 1280) for T in (64, 100, 500) for m in M_PADS]
 # unquantized full-size jobs: d1 = 20480 with the narrowest band and the
 # widest of the T=100 trace (2688) and of the 10x trace (8960)
 WIDE_SHAPES = [(100, m, 20480) for m in (64, 2688, 8960)]
@@ -123,15 +135,84 @@ JAX_TILED_UTILITY = 7082.083469185378
 # make_jobs(40, T=100, seed=1), quantum=None), run by the port on a CPU
 # (tools/whole_route_cpu.py --instance wide): (completion slot by job,
 # total utility)
-WIDE_WHOLE_CPU = ({0: 30, 2: 48, 4: 40, 6: 51, 7: 56, 9: 62, 10: 72, 11: 75,
-                   12: 85, 14: 80, 15: 48, 19: 80, 20: 87, 21: 96},
-                  137.0753222827979)
+WIDE_WHOLE_CPU = ({0: 30, 2: 48, 4: 40, 6: 51, 7: 56, 9: 61, 10: 72, 11: 75,
+                   12: 85, 14: 80, 15: 49, 19: 79, 20: 87, 21: 96},
+                  138.62352352300186)
 # the whole route on the 10x instance (quantum=0), run by the port on a CPU
 # (tools/whole_route_cpu.py): total utility, accepted jobs, and the sha256
 # of its completions (_completion_digest)
-SCALE_WHOLE_CPU = (7261.721657287129, 371,
-                   "6f3f82e4f9d80cd61ba6e725d607bf97"
-                   "8830929124979823934f070aca004c7f")
+SCALE_WHOLE_CPU = (7058.477068242661, 367,
+                   "2ef1c5a0cfdc39e171695447f8ea9cb8"
+                   "0c7716ca5ed7289004116c3ef3a8f1fe")
+# the reference's continuous-serving section, never shrunk there
+# (sim/scenarios.py::SERVING_DIMS): a 20,000-slot diurnal x bursty stream
+# of full-size jobs (seed 0) over a 64-slot rolling window, quantum=0
+SERVING = {"H": 50, "K": 50, "window": 64, "slots": 20000, "rate": 0.2,
+           "seed": 0}
+# its fleet-churn section (CHURN_DIMS): T=100, H=K=40, 120 full-size jobs
+# of seed 0, churn_trace(frac, seed=1) at each level, quantum=0
+CHURN = {"T": 100, "H": 40, "K": 40, "n": 120, "seed": 0,
+         "levels": (0.05, 0.20)}
+# the serving cluster's first 2000 slots under churn_trace(frac=0.05,
+# seed=1, T=2000), the whole route
+STREAM_CHURN = {"slots": 2000, "frac": 0.05, "seed": 1}
+# the port's trajectories on a CPU (tools/serving_cpu.py): per route
+# (accepted, total utility, completion sha256, preempted, dropped); churn
+# per (route, frac), frac 0.0 the churn-free run
+SERVING_CPU = {
+    "whole": (3727, 104019.10259413831, "dc6b15d15581a10a1e90153481c134f3"
+              "c23adc4bb21f26b22571a2675c7b61ae", 0, 0),
+    "tiled": (3728, 104577.67550848583, "2ce669a78683dc27495cffc489235e6a"
+              "7d54bf6c90c49a2e2680e6b5a8908d94", 0, 0)}
+CHURN_CPU = {
+    ("whole", 0.0): (27, 212.78412045192178, "5c43c91908bfdd4e06716b5998c0"
+                     "6c1b5e9ab8bdbe762e7a0b71046bfe875b80", 0, 0),
+    ("whole", 0.05): (30, 285.11966916171025, "61753e0ff4bcd31e4062ae145d0"
+                      "29640568ce2ab10d0e40c9e0d588a4a189c3f", 8, 2),
+    ("whole", 0.2): (22, 170.40504791299696, "47a88dd51967d2b59ca8e9bdccef"
+                     "33924d39d969e899dbf4a4e88ccb11d8914f", 55, 7),
+    ("tiled", 0.0): (30, 227.87060824874567, "66e4f4c783a1a8a13fbab107c39a"
+                     "43cde094ac3b731d5a62770b12585e3969d4", 0, 0),
+    ("tiled", 0.05): (33, 266.0969996109676, "11bf0550da093079e654836ce27f"
+                      "b67df738257c5dc7f42ae3e16c536c5000cb", 12, 2),
+    ("tiled", 0.2): (21, 174.91750162920155, "43c7380fe675e3a808f79d6014ce"
+                     "35546dc2cc983e1ac1a7433e54eeb965d6d6", 54, 7)}
+STREAM_CHURN_CPU = (381, 10511.304636994175, "33709bc8bbe3da7ea3dd02a922588a"
+                    "373627debbed823a81a557605c0f64d860", 2, 1)
+
+
+def serving_run(core, device=None, slots=None, frac=None):
+    """The serving stream through ``engine.run_stream`` with ``check=True``
+    on ``device``, cut to ``slots`` and churned by ``churn_trace(frac)``
+    when given."""
+    cluster = make_cluster(T=SERVING["window"], H=SERVING["H"],
+                           K=SERVING["K"])
+    slots = slots or SERVING["slots"]
+    fl = churn_trace(cluster, frac=frac, seed=STREAM_CHURN["seed"],
+                     T=slots) if frac else None
+    jobs = stream_jobs(rate=SERVING["rate"], seed=SERVING["seed"],
+                       max_slots=slots)
+    return engine.run_stream(cluster, jobs, window=SERVING["window"],
+                             quantum=0, check=True, fleet=fl, device=device,
+                             core=core)
+
+
+def churn_run(core, frac, device=None):
+    """The churn instance through ``engine.run`` with ``check=True``; frac
+    0.0 is the churn-free run."""
+    cluster = make_cluster(T=CHURN["T"], H=CHURN["H"], K=CHURN["K"])
+    jobs = make_jobs(CHURN["n"], T=CHURN["T"], seed=CHURN["seed"])
+    fl = churn_trace(cluster, frac=frac, seed=CHURN["seed"] + 1) \
+        if frac else None
+    return engine.run(cluster, jobs, quantum=0, check=True, fleet=fl,
+                      device=device, core=core)
+
+
+def _pin(res):
+    """(accepted, total utility, completion sha256, preempted, dropped)."""
+    return (res.accepted, res.total_utility,
+            _completion_digest(res.completion), res.preempted,
+            res.preempt_dropped)
 
 
 def _completion_digest(completion) -> str:
@@ -699,8 +780,8 @@ def paper_phase():
     the whole route on the card == on the CPU, and the tiled route on the
     card == the tiled route on the CPU == the whole route (both are held
     to the reference's impl="fast" there), with the plateau kernel
-    firing."""
-    for seed in (0, 2):
+    firing.  One seed: the CPU tests hold seeds 0..4 to the reference."""
+    for seed in (0,):
         cluster = make_cluster(T=100, H=50, K=50)
         jobs = make_jobs(200, T=100, seed=seed, small=True)
         gpu = engine.run(cluster, jobs, quantum=0)
@@ -925,7 +1006,7 @@ def burst_phase(one_lane):
     live = [engine._with_quantum(j, 0) for j in jobs if j.arrival < cluster.T]
     dp_decisions = sum(_shape_bucket(j) is not None for j in live)
     params = price_params_from_jobs(jobs, cluster)
-    by_slot = engine._group_events(live, cluster.T)
+    by_slot, _ = engine._group_events(live, None, cluster.T)
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1140,6 +1221,149 @@ def wide_phase():
             raise AssertionError(f"wide jobs, tiled route: launches {counts} "
                                  f"for {snap['chain']} chain and "
                                  f"{snap['plateau']} plateau tiles")
+
+
+def _held(label, core, res, want):
+    """``res`` against its CPU pin ``want``: the whole route exactly
+    (accepted, utility, completions, preemptions); the tiled route with
+    the same completions and counts and its utility within rel 1e-9."""
+    got = _pin(res)
+    rel = abs(got[1] - want[1]) / max(abs(want[1]), 1e-300)
+    same = got == want if core == "whole" else (
+        (got[0],) + got[2:] == (want[0],) + want[2:] and rel <= 1e-9)
+    print(f"{label} against the port on the CPU: held={same} "
+          f"rel_diff={rel!r} completion_sha256={got[2]}")
+    if not same:
+        raise AssertionError(f"{label}: {got} on the card, {want} on the "
+                             "CPU")
+
+
+def _run_line(res, wall, counts):
+    """The common part of a driver run's line: outcome, time, decision
+    latency, the state's upload and window bytes, DP launches."""
+    sweeps, a_n, b_n = counts
+    ds = np.asarray(res.decision_seconds) * 1e3
+    return (f"n_jobs={res.n_jobs} accepted={res.accepted} "
+            f"preempted={res.preempted} dropped={res.preempt_dropped} "
+            f"total_utility={res.total_utility!r} wall_s={wall!r} "
+            f"decisions={len(ds)} decisions_per_s={len(ds) / wall!r} "
+            f"decision_p50_ms={float(np.percentile(ds, 50))!r} "
+            f"decision_p95_ms={float(np.percentile(ds, 95))!r} "
+            f"window_bytes={res.window_bytes} "
+            f"device_uploads={res.device_uploads} sweep_launches={sweeps} "
+            f"plateau_launches={b_n} slot_launches={a_n} "
+            f"dp_launches_per_decision={(sweeps + b_n) / max(len(ds), 1)!r}")
+
+
+def _timed_run(fn):
+    """``fn()`` with the counts set to 0 just before and read just after:
+    (result, wall seconds, (sweep, one-slot, plateau) launches, tiled
+    counters)."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, _counted(), schedule_torch.monotone_counters_snapshot()
+
+
+def _check_launches(label, core, res, counts, snap, dp_decisions=None):
+    """Whole route: one sweep per DP decision (all of them when
+    ``dp_decisions`` is given), nothing else; tiled route: one launch per
+    chain and per plateau tile (``_check_tiled`` when ``dp_decisions`` is
+    given: every job decided once, plus the re-solves)."""
+    sweeps, a_n, b_n = counts
+    if core == "whole":
+        ok = (a_n == b_n == 0 and 0 < sweeps <= len(res.decision_seconds)
+              and (dp_decisions is None or sweeps == dp_decisions))
+        if not ok:
+            raise AssertionError(f"{label}: launches {counts} for "
+                                 f"{len(res.decision_seconds)} decisions")
+    elif dp_decisions is not None:
+        _check_tiled(label, res, snap, counts, dp_decisions, res.n_jobs)
+    elif not (_tiled_launches_ok(snap, counts) and sweeps > 0):
+        raise AssertionError(f"{label}: launches {counts} for "
+                             f"{snap['chain']} chain and {snap['plateau']} "
+                             "plateau tiles")
+
+
+def serving_phase():
+    """The serving stream (:data:`SERVING`, the reference's SERVING_DIMS in
+    full) through ``engine.run_stream`` on both routes, each with the
+    counts set to 0 just before it and read just after: 64-slot window of
+    256,000 host bytes, one upload over the whole stream, every DP
+    decision through the kernels, no capacity violation (``check=True``),
+    and the trajectory held to the port's on the CPU
+    (:data:`SERVING_CPU`)."""
+    live = [engine._with_quantum(j, 0) for j in stream_jobs(
+        rate=SERVING["rate"], seed=SERVING["seed"],
+        max_slots=SERVING["slots"])]
+    dp_decisions = sum(_shape_bucket(j) is not None for j in live)
+    for core in ("whole", "tiled"):
+        res, wall, counts, snap = _timed_run(lambda: serving_run(core))
+        label = f"serving, {core} route"
+        print(f"serving (SERVING_DIMS: H=K={SERVING['H']}, window "
+              f"{SERVING['window']}, {SERVING['slots']} slots, rate "
+              f"{SERVING['rate']}, seed {SERVING['seed']}, full-size jobs, "
+              f"quantum=0, check=True), {core} route: "
+              + _run_line(res, wall, counts))
+        if core == "tiled":
+            _tiled_line("serving, tiled route", wall, res, snap, counts,
+                        dp_decisions)
+        if (res.n_jobs != len(live) or res.window_bytes != 256000
+                or res.device_uploads != 1):
+            raise AssertionError(f"{label}: {res.n_jobs} jobs, "
+                                 f"{res.window_bytes} window bytes, "
+                                 f"{res.device_uploads} uploads")
+        _check_launches(label, core, res, counts, snap, dp_decisions)
+        _held(label, core, res, SERVING_CPU[core])
+
+
+def churn_phase():
+    """The churn instance (:data:`CHURN`, the reference's CHURN_DIMS)
+    churn-free and at each level on both routes, ``check=True``, each run
+    with the counts set to 0 just before it and read just after, held to
+    the port on the CPU (:data:`CHURN_CPU`); retention is the churned
+    run's utility over the churn-free run's."""
+    for core in ("whole", "tiled"):
+        for frac in (0.0,) + CHURN["levels"]:
+            res, wall, counts, snap = _timed_run(
+                lambda: churn_run(core, frac))
+            if frac == 0.0:
+                base = res.total_utility
+            label = f"churn frac={frac}, {core} route"
+            print(f"churn (CHURN_DIMS: T={CHURN['T']}, H=K={CHURN['H']}, "
+                  f"{CHURN['n']} full-size jobs, seed {CHURN['seed']}, "
+                  f"churn_trace(frac={frac}, seed={CHURN['seed'] + 1}), "
+                  f"quantum=0, check=True), {core} route: "
+                  f"retention={res.total_utility / base!r} "
+                  f"live_frac={res.live_frac!r} "
+                  + _run_line(res, wall, counts))
+            _check_launches(label, core, res, counts, snap)
+            _held(label, core, res, CHURN_CPU[(core, frac)])
+
+
+def stream_churn_phase():
+    """The serving cluster's first 2000 slots under churn
+    (:data:`STREAM_CHURN`) on the whole route: down servers re-blocked
+    after every window slide on the card; held to the CPU
+    (:data:`STREAM_CHURN_CPU`)."""
+    sc = STREAM_CHURN
+    res, wall, counts, snap = _timed_run(lambda: serving_run(
+        "whole", slots=sc["slots"], frac=sc["frac"]))
+    label = "streamed churn, whole route"
+    print(f"streamed churn (the serving cluster, its first {sc['slots']} "
+          f"slots, churn_trace(frac={sc['frac']}, seed={sc['seed']}, "
+          f"T={sc['slots']}), check=True), whole route: "
+          f"live_frac={res.live_frac!r} " + _run_line(res, wall, counts))
+    if res.window_bytes != 256000 or res.device_uploads != 1 \
+            or res.preempted == 0:
+        raise AssertionError(f"{label}: {res.window_bytes} window bytes, "
+                             f"{res.device_uploads} uploads, "
+                             f"{res.preempted} preemptions")
+    _check_launches(label, "whole", res, counts, snap)
+    _held(label, "whole", res, STREAM_CHURN_CPU)
 
 
 def profile_phase(core, n_jobs=400, lanes=1, sequential=False):
@@ -1821,6 +2045,7 @@ def main() -> int:
         return 1
     card = _card()
     print(card, flush=True)
+    t_start = time.perf_counter()
     # the model phases compare float32 results: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1839,6 +2064,9 @@ def main() -> int:
     plat = plateau_mix_phase(plateau_tiles)
     del plateau_tiles
     wide_phase()
+    serving_phase()
+    churn_phase()
+    stream_churn_phase()
     profile_phase("whole")
     profile_phase("tiled", sequential=True)
     profile_phase("tiled")
@@ -1895,6 +2123,7 @@ def main() -> int:
               fa_ref, wgmma_launches, wgmma_err, wgmma_t, wgmma_t[5]),
              ("flash_attention_mma", fa_src + "flash_attention_mma.cu",
               fa_ref, flash_launches, flash_err, flash_t, flash_t[5])]
+    print(f"chip_smoke phases: wall_s={time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": n_launch, "max_abs_err": err,

@@ -14,6 +14,7 @@ import torch
 
 from .core.pricing import PriceParams, PriceState
 from .core.types import ClusterSpec, Job, SigmoidUtility
+from .sim.fleet import FleetEvent, FleetTrace
 
 _JOB_FIELDS = ("jid", "arrival", "epochs", "num_chunks",
                "minibatches_per_chunk", "tau", "grad_size", "worker_bw",
@@ -46,12 +47,20 @@ def price_params(ref) -> PriceParams:
 def price_state(ref, device: Optional[Union[str, torch.device]] = None
                 ) -> PriceState:
     """A ``PriceState`` holding copies of the reference state's ``g``/``v``
-    host mirrors (a fixed-horizon state: ``window`` must cover ``T``)."""
+    host mirrors, with its window's place on the clock (``origin``,
+    ``retired_slots``, ``retired_gpu_slots``)."""
     c = cluster(ref.cluster)
     g, v = np.array(ref.g, np.float64), np.array(ref.v, np.float64)
-    if g.shape[0] != c.T:
-        raise ValueError(f"reference state holds {g.shape[0]} slots of "
-                         f"T={c.T}; only fixed-horizon states carry over")
-    state = PriceState(c, price_params(ref.params), device=device)
+    state = PriceState(c, price_params(ref.params), device=device,
+                       window=g.shape[0])
     state.g, state.v = g, v
+    state.origin = int(ref.origin)
+    state.retired_slots = int(ref.retired_slots)
+    state.retired_gpu_slots = float(ref.retired_gpu_slots)
     return state
+
+
+def fleet_trace(ref) -> FleetTrace:
+    """A ``FleetTrace`` with the reference trace's events."""
+    return FleetTrace(tuple(FleetEvent(int(e.slot), str(e.kind), str(e.pool),
+                                       int(e.server)) for e in ref.events))

@@ -48,12 +48,16 @@ class OASiS:
     def __init__(self, cluster: ClusterSpec, params: PriceParams,
                  track_duality: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
-                 core: str = "whole"):
+                 core: str = "whole", window: Optional[int] = None):
         if core not in CORES:
             raise ValueError(f"core must be one of {CORES}, not {core!r}")
         self.cluster = cluster
         self.core = core
-        self.state = PriceState(cluster, params, device=device)
+        # ``window``: the price state's resident slots for the continuous
+        # serving mode (``sim/engine.py::run_stream``); decisions then
+        # index window-local slots and the caller advances the origin
+        self.state = PriceState(cluster, params, device=device,
+                                window=window)
         self.accepted: Dict[int, Schedule] = {}
         self.rejected: List[int] = []
         self.total_utility = 0.0
@@ -100,7 +104,7 @@ class OASiS:
 
         The whole route decides one job at a time: its backtrack takes
         the exact first-index split, the tiled route's a ``_SPLIT_TOL``
-        band, and the two pick different splits on near-ties (7261.72
+        band, and the two pick different splits on near-ties (7058.48
         against 7082.08 at the 10x instance), so feeding it the tiled
         route's candidates would change its trajectory."""
         order = sorted(range(len(jobs)), key=lambda i: jobs[i].arrival)

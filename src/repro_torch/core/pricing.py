@@ -18,21 +18,34 @@ Prices are maintained per (slot t, server, resource r):
 
 The residency also holds the decision cores' price tables ``p``/``q`` and
 the live-floor price ``pmin`` (``device_prices``).  They are priced on
-the host, always, with one expression (``_HostPricer``, ``exp(x log r)``
-in torch on the CPU, position-independent: ``_exp_host``), and written
-into the device tables in place for the slot window a commit or release
-dirtied.  So the card reads the very prices the CPU run computes: CUDA's
-``exp``/``log`` differ from the CPU's in the last ulp, and the whole
-route's exact first-index split turns such a difference into another
-schedule.
+the host, always, with the reference's expression (``_HostPricer``:
+numpy's ``L * r ** (alloc / c)``, the bits of the reference's
+``impl="fast"`` tables), and written into the device tables in place for
+the slot window a mutation dirtied.  So the card reads the very prices
+the CPU run computes: CUDA's ``pow`` differs from the host's in the last
+ulp, and the whole route's exact first-index split turns such a
+difference into another schedule (another split, other servers, and
+under fleet churn other victims).
 
 Reading ``g``/``v`` hands out the mutable host arrays and so drops the
 residency (the caller may write).  Every mutation bumps ``version`` and
 logs its slot windows (the dirty-slot log, ``dirty_spans_since``,
 ``patch_spans``), so a job's ``RowCache`` recomputes only the tiles
 that moved.
-This is the fixed-horizon part of the reference state: the rolling
-window and server blocking are not ported yet.
+
+**Rolling horizon (continuous serving).**  ``PriceState(...,
+window=W)`` keeps a ``W``-slot window: local slot ``i`` is absolute slot
+``origin + i``, and ``advance(now)`` slides it forward, retiring past
+slots into ``retired_slots`` / ``retired_gpu_slots`` and opening
+exact-zero slots at the tail.  The residency slides on the device with no
+upload: surviving slots keep their bits in all five tables, and the tail's
+prices are priced on the host on its zero rows.  A slide remaps every
+local slot, so it clears the dirty-slot log (every cache rebuilds).
+
+**Server blocking (fleet churn).**  ``block_server`` fills a failed or
+drained server's slots to capacity (its headroom drops to exactly 0)
+and ``unblock_server`` removes exactly what it finds there; both go
+through the delta path of ``commit`` (``_apply_deltas``).
 """
 from __future__ import annotations
 
@@ -49,10 +62,6 @@ from .types import ClusterSpec, Job, R
 # dirty-slot log cap: past it the oldest half is trimmed and the log floor
 # rises (the reference's value)
 _DIRTY_LOG_MAX = 4096
-# _exp_host's piece: a multiple of every CPU vector width torch dispatches
-# to (2 x 8 float64 lanes) and under torch's parallel grain (32768), so
-# each piece runs on one thread with no scalar tail
-_EXP_PIECE = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,54 +149,34 @@ def _pool_prices(alloc: np.ndarray, caps: np.ndarray, U: np.ndarray,
     return L * ratio ** (alloc / c)
 
 
-def _exp_host(x: torch.Tensor) -> torch.Tensor:
-    """``torch.exp`` on the CPU, the same bits for an element wherever it
-    stands.  torch evaluates a contiguous CPU tensor in vectors but its
-    tail (and each thread's tail) with the scalar ``exp``, which differs
-    in the last ulp on ~12 % of inputs; here every piece is a whole number
-    of vectors on one thread, so a slot window prices exactly as the full
-    table does, on any thread count."""
-    flat = x.reshape(-1)
-    n = flat.numel()
-    pad = -n % 16
-    if pad:
-        flat = torch.cat([flat, flat.new_zeros(pad)])
-    out = torch.empty_like(flat)
-    for i in range(0, flat.numel(), _EXP_PIECE):
-        torch.exp(flat[i:i + _EXP_PIECE], out=out[i:i + _EXP_PIECE])
-    return out[:n].view(x.shape)
-
-
 class _HostPricer:
-    """The price expression of the decision cores, on the host: ``L *
-    exp((alloc / c) * log(r))`` with ``r = max(U / L, 1 + 1e-9)`` and ``c =
-    max(caps, 1e-12)`` (the reference engine's ``_price_pow`` form), and
-    the live floor ``pmin = L1 * exp(min_h(g / c) * log(r1))`` (T, R):
+    """The decision cores' prices, on the host: ``_pool_prices`` per pool,
+    the very bits of the reference's ``impl="fast"`` tables (numpy's
+    ``**`` is elementwise, so a slot window prices exactly as the full
+    table), and the live floor ``pmin = L1 * r1 ** min_h(g / c)`` (T, R):
     every worker deployed in a slot costs at least ``sum_r wres_r * min_h
-    p[t, h, r]``, and with r >= 1, ``min_h r^(g/c) == r^(min_h g/c)``."""
+    p[t, h, r]``, and with r >= 1 the power is monotone in its exponent.
+    Both return numpy float64; an allocation far over capacity prices at
+    +inf, silently."""
 
     def __init__(self, wcaps: np.ndarray, scaps: np.ndarray,
                  params: PriceParams):
-        t = torch.tensor
-        L1, L2 = t(params.L1, dtype=torch.float64), t(params.L2,
-                                                     dtype=torch.float64)
-        self.L = (L1, L2)
-        self.caps = tuple(torch.clamp(t(c, dtype=torch.float64), min=1e-12)
-                          for c in (wcaps, scaps))
-        self.log_r = tuple(
-            torch.log(torch.clamp(t(U, dtype=torch.float64) / L,
-                                  min=1.0 + 1e-9))
-            for U, L in ((params.U1, L1), (params.U2, L2)))
+        self.caps = (wcaps, scaps)
+        self.U = (params.U1, params.U2)
+        self.L = (params.L1, params.L2)
 
-    def rows(self, pool: int, alloc: np.ndarray) -> torch.Tensor:
+    def rows(self, pool: int, alloc: np.ndarray) -> np.ndarray:
         """Price table of ``alloc`` (n, S, R) of pool 0 (workers) or 1
-        (PS), float64 on the CPU."""
-        x = torch.from_numpy(alloc) / self.caps[pool][None]
-        return self.L[pool] * _exp_host(x * self.log_r[pool])
+        (PS)."""
+        with np.errstate(over="ignore"):
+            return _pool_prices(alloc, self.caps[pool][None],
+                                self.U[pool][None, None], self.L[pool])
 
-    def floor(self, g: np.ndarray) -> torch.Tensor:
-        umin = (torch.from_numpy(g) / self.caps[0][None]).amin(dim=1)
-        return self.L[0] * _exp_host(umin * self.log_r[0])
+    def floor(self, g: np.ndarray) -> np.ndarray:
+        umin = (g / np.maximum(self.caps[0], 1e-12)[None]).min(axis=1)
+        ratio = np.maximum(self.U[0] / self.L[0], 1.0 + 1e-9)
+        with np.errstate(over="ignore"):
+            return self.L[0] * ratio ** umin
 
 
 class PriceState:
@@ -195,6 +184,9 @@ class PriceState:
 
     Host mirror + device residency on ``device`` (module docstring);
     ``device_uploads`` counts full host-to-device state copies.
+    ``window`` bounds the resident slots (``None``: all ``cluster.T``);
+    every slot-indexed method takes window-local slots, offsets from
+    ``origin``, which ``advance`` moves.
 
     Example — prices start at the ``L1`` floor, rise on ``commit`` and
     return exactly on ``release``::
@@ -222,13 +214,20 @@ class PriceState:
     _F32_RESYNC_EVERY = 256
 
     def __init__(self, cluster: ClusterSpec, params: PriceParams,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 window: Optional[int] = None):
         self.cluster = cluster
         self.params = params
         self.device = resolve_device(device)
         T, H, K = cluster.T, cluster.H, cluster.K
-        self._g_host = np.zeros((T, H, R))  # alloc on worker servers
-        self._v_host = np.zeros((T, K, R))  # alloc on PS servers
+        # resident slots; local slot i is absolute slot origin + i
+        self.window = T if window is None else min(int(window), T)
+        self._g_host = np.zeros((self.window, H, R))  # alloc on workers
+        self._v_host = np.zeros((self.window, K, R))  # alloc on PS servers
+        self.origin = 0
+        # slots slid out of the window, and their GPU units in use
+        self.retired_slots = 0
+        self.retired_gpu_slots = 0.0
         # device residency: [g, v, p, q, pmin] tensors or None; static side
         # tables (caps + price params) cached per dtype
         self._dev = None
@@ -239,7 +238,7 @@ class PriceState:
         # the decision cores' price expression, on the host (empty pools
         # padded with one zero-capacity server, as the residency is)
         self._pricer = _HostPricer(*self._padded_caps(), params)
-        # bumped on every commit/release (consumers key caches on it)
+        # bumped on every mutation and slide (caches key on it)
         self.version = 0
         # dirty-slot log: (version, t0, t1) per commit/release slot window,
         # so caches can patch only the slots a commit touched.
@@ -250,10 +249,69 @@ class PriceState:
         self._dirty_log: list = []
         self._dirty_floor = 0
 
+    # -- rolling window ----------------------------------------------------
     @property
     def horizon(self) -> int:
-        """Number of resident slots (== ``cluster.T``)."""
+        """Number of resident slots: ``cluster.T``, or the window.  The
+        decision cores size their tables from it."""
         return self._g_host.shape[0]
+
+    @property
+    def window_bytes(self) -> int:
+        """Host-mirror bytes of the slot-indexed state (the residency, once
+        made, has the same shape)."""
+        return self._g_host.nbytes + self._v_host.nbytes
+
+    def advance(self, now: int) -> None:
+        """Slide the window so local slot 0 is absolute slot ``now``.
+
+        The ``now - origin`` oldest slots retire into the scalar aggregates
+        and as many exact-zero slots open at the tail.  Surviving slots
+        keep their bits in the host mirror and in the float64 residency,
+        which slides on the device (``_slide_dev``, no upload); a float32
+        residency resyncs from the mirror instead.  No-op when ``now ==
+        origin``; the clock never runs backwards."""
+        shift = int(now) - self.origin
+        if shift == 0:
+            return
+        if shift < 0:
+            raise ValueError(f"advance({now}) before origin {self.origin}")
+        W = self.horizon
+        k = min(shift, W)
+        self.retired_gpu_slots += float(self._g_host[:k, :, 0].sum())
+        self.retired_slots += shift
+        self.origin = int(now)
+        for host in (self._g_host, self._v_host):
+            if k < W:
+                host[:W - k] = host[k:].copy()
+            host[W - k:] = 0.0
+        if self._dev is not None:
+            if self._dev_dtype != torch.float64:
+                self._dev = None
+            else:
+                self._slide_dev(k)
+        self.version += 1
+        # every local slot moved: caches from before cannot be patched
+        self._dirty_log.clear()
+        self._dirty_floor = self.version
+
+    def _slide_dev(self, k: int) -> None:
+        """The residency's slide by ``k`` slots: each table's surviving
+        slots moved down (through a temporary: an overlapping in-place copy
+        is refused), ``g``/``v``'s tail zeroed, and the tail's prices
+        priced on the host on those zero rows."""
+        W = self.horizon
+        lo = max(W - k, 0)
+        for buf in self._dev:
+            if lo:
+                buf[:lo] = buf[k:].clone()
+        g, v, p, q, pmin = self._dev
+        g[lo:] = 0.0
+        v[lo:] = 0.0
+        gt, vt = self._host_rows(lo, W)
+        p[lo:] = self._to_dev(self._pricer.rows(0, gt))
+        q[lo:] = self._to_dev(self._pricer.rows(1, vt))
+        pmin[lo:] = self._to_dev(self._pricer.floor(gt))
 
     # -- host views --------------------------------------------------------
     def _host_write(self) -> None:
@@ -331,11 +389,18 @@ class PriceState:
         if ps and self.cluster.K:
             deltas.append((1, self._v_host) + self._window_delta(
                 ps, sres, T, sign))
+        self._apply_deltas(deltas, negative=sign < 0)
+
+    def _apply_deltas(self, deltas, negative: bool) -> None:
+        """Every mutation's tail (commit, release, server block and
+        unblock): the host add, the residency's in-place update, the
+        version bump and the dirty-slot log.  ``deltas``: (pool, host
+        array, t0, dense window delta) per pool."""
         for _, host, t0, delta in deltas:
             host[t0:t0 + delta.shape[0]] += delta
         if self._dev is not None and deltas:
             if self._dev_dtype != torch.float64 and (
-                    sign < 0
+                    negative
                     or self._commits_since_sync >= self._F32_RESYNC_EVERY):
                 # float32 residency: in-place adds round per commit, so it
                 # drifts from the float64 mirror, and (g + d) - d is not
@@ -369,6 +434,58 @@ class PriceState:
     def release(self, job: Job, workers: dict, ps: dict) -> None:
         """Inverse of commit (preemption / cancellation)."""
         self._apply(workers, ps, job.worker_res, job.ps_res, -1.0)
+
+    # -- fleet churn: server blocking ---------------------------------------
+    def _server_pool(self, pool: str):
+        if pool == "worker":
+            return 0, self._g_host, self.cluster.worker_caps
+        if pool == "ps":
+            return 1, self._v_host, self.cluster.ps_caps
+        raise ValueError(f"unknown pool {pool!r}")
+
+    def _server_delta(self, pool: str, server: int, t0: int, fill: bool):
+        """(pool index, host, window start, dense delta, GPU units) of a
+        block (``fill``: to capacity) or an unblock (remove the content)
+        of ``server`` over resident slots ``[t0, horizon)``; None when
+        there is nothing to do.  The window is bucketed as a commit's, and
+        its other entries carry an exact 0.0 delta."""
+        pool_i, host, caps = self._server_pool(pool)
+        T = host.shape[0]
+        t0 = int(min(max(t0, 0), T))
+        if t0 >= T or host.shape[1] == 0:
+            return None
+        amt = (caps[server][None, :] - host[t0:, server, :] if fill
+               else -host[t0:, server, :])
+        win = min(size_bucket(T - t0, floor=8, step=64), T)
+        w0 = T - win
+        delta = np.zeros((win, host.shape[1], R))
+        delta[t0 - w0:, server, :] = amt
+        return pool_i, host, w0, delta, float(amt[:, 0].sum())
+
+    def block_server(self, pool: str, server: int, t0: int = 0) -> float:
+        """Fill one server's resident slots ``[t0, horizon)`` to capacity
+        (after its victims' tails were released): its headroom drops to
+        exactly 0, so no decision can place onto it.  Idempotent per slot
+        (a full slot gets an exact-0.0 delta), so the streaming engine
+        re-blocks after every ``advance`` for the freshly opened slots.
+        Returns the GPU-slot units added."""
+        d = self._server_delta(pool, server, t0, fill=True)
+        if d is None:
+            return 0.0
+        self._apply_deltas([d[:4]], negative=False)
+        return d[4]
+
+    def unblock_server(self, pool: str, server: int, t0: int = 0) -> float:
+        """Inverse of :meth:`block_server`: remove the server's content on
+        ``[t0, horizon)`` when it recovers.  Nothing can have committed
+        onto a blocked server, so its content is the blocked amount and
+        ``x - x`` restores the pre-block zeros exactly, in the mirror and
+        the residency alike.  Returns the GPU-slot units released."""
+        d = self._server_delta(pool, server, t0, fill=False)
+        if d is None:
+            return 0.0
+        self._apply_deltas([d[:4]], negative=True)
+        return -d[4]
 
     def dirty_spans_since(self, version: int):
         """Slot spans whose prices may have moved since ``version``: a list
@@ -413,8 +530,9 @@ class PriceState:
             scaps = np.zeros((1, R))
         return wcaps, scaps
 
-    def _to_dev(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(device=self.device, dtype=self._dev_dtype)
+    def _to_dev(self, x: np.ndarray) -> torch.Tensor:
+        """A host price table as a new tensor on the device."""
+        return torch.tensor(x, device=self.device, dtype=self._dev_dtype)
 
     def _static_arrays(self, dtype: torch.dtype):
         cached = self._dev_static.get(dtype)
@@ -427,13 +545,19 @@ class PriceState:
         self._dev_static[dtype] = sd
         return sd
 
+    def _host_rows(self, lo: int, hi: int):
+        """The mirror's slots ``[lo, hi)``, each empty pool padded with one
+        zero-capacity server as the residency is."""
+        g, v = self._g_host[lo:hi], self._v_host[lo:hi]
+        if g.shape[1] == 0:
+            g = np.zeros((hi - lo, 1, R))
+        if v.shape[1] == 0:
+            v = np.zeros((hi - lo, 1, R))
+        return g, v
+
     def _upload(self, dtype: torch.dtype):
         self._commits_since_sync = 0
-        g, v = self._g_host, self._v_host
-        if g.shape[1] == 0:
-            g = np.zeros((self.horizon, 1, R))
-        if v.shape[1] == 0:
-            v = np.zeros((self.horizon, 1, R))
+        g, v = self._host_rows(0, self.horizon)
         self.device_uploads += 1
         # torch.tensor copies; torch.from_numpy would alias the mirror and
         # the residency would then see (and double-count) host writes.

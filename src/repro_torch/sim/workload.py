@@ -1,12 +1,14 @@
 """Workload/cluster generator following the paper's simulation settings
 (Sec. V-A): EC2-C4-like worker servers, P2/G3-like PS servers, Table-I
 job parameter ranges, Google-trace-style bursty arrivals, sigmoid
-utilities.  The port's own copy of the reference generator: the numpy rng
-draws come in the same order, so a seed gives the same trace.
+utilities, and the open-ended serving stream (``stream_jobs``).  The
+port's own copy of the reference generator: the numpy rng draws come in
+the same order, so a seed gives the same trace.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+import math
+from typing import Iterator, List, Optional
 
 import numpy as np
 
@@ -109,3 +111,50 @@ def make_jobs(n_jobs: int, T: int = 100, seed: int = 0,
     return [_sample_job(jid, int(arrivals[jid]), rng, small,
                         time_insensitive, time_sensitive)
             for jid in range(n_jobs)]
+
+
+def stream_jobs(rate: float = 0.2, seed: int = 0,
+                max_slots: Optional[int] = None, *,
+                diurnal_period: int = 288, diurnal_amp: float = 0.6,
+                burst_prob: float = 0.01, burst_mean_len: int = 12,
+                burst_tail: float = 1.5, burst_cap: float = 8.0,
+                small: bool = False, time_insensitive: float = 0.10,
+                time_sensitive: float = 0.55) -> Iterator[Job]:
+    """Open-ended arrival stream for the continuous serving mode.
+
+    Per-slot Poisson counts with intensity ``rate * (1 + diurnal_amp *
+    sin(2 pi t / diurnal_period)) * burst(t)``, where a burst episode
+    starts with probability ``burst_prob`` per slot, lasts a geometric
+    ``burst_mean_len`` slots and multiplies the rate by ``min(1 +
+    Pareto(burst_tail), burst_cap)``.  Jobs come in nondecreasing arrival
+    order with sequential jids, one at a time (the trace is never held);
+    ``max_slots`` bounds the arrival clock, ``None`` streams forever.
+
+    Example::
+
+        >>> import itertools
+        >>> from repro_torch.sim.workload import stream_jobs
+        >>> jobs = list(itertools.islice(stream_jobs(rate=0.5, seed=1), 5))
+        >>> [j.jid for j in jobs], all(
+        ...     a.arrival <= b.arrival for a, b in zip(jobs, jobs[1:]))
+        ([0, 1, 2, 3, 4], True)
+    """
+    rng = np.random.default_rng(seed)
+    jid = 0
+    t = 0
+    burst_left = 0
+    burst_amp = 1.0
+    while max_slots is None or t < max_slots:
+        if burst_left == 0 and rng.random() < burst_prob:
+            burst_left = int(rng.geometric(1.0 / max(burst_mean_len, 1)))
+            burst_amp = float(min(1.0 + rng.pareto(burst_tail), burst_cap))
+        mult = burst_amp if burst_left > 0 else 1.0
+        if burst_left > 0:
+            burst_left -= 1
+        lam = rate * (1.0 + diurnal_amp
+                      * math.sin(2.0 * math.pi * t / diurnal_period)) * mult
+        for _ in range(int(rng.poisson(max(lam, 0.0)))):
+            yield _sample_job(jid, t, rng, small,
+                              time_insensitive, time_sensitive)
+            jid += 1
+        t += 1

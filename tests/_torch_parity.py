@@ -7,6 +7,11 @@ only for the test that asks for it: monkeypatch undoes both at teardown,
 and JAX's compilation caches are cleared so no executable traced under
 the shims outlives the test.
 
+``one_torch_thread`` (autouse where a test module imports it) runs
+torch's CPU ops on one thread: the scheduler instances of the serving and
+churn tests are small, and on a busy machine (the test workers run side
+by side) a pool of threads mostly waits at each op's barrier.
+
 ``tf32``, ``mm_one_pass`` and ``mm_three_pass`` emulate on the CPU how
 the port's tensor-core kernels (the SSD scan and the float32 flash
 attention) take a float32 product in TF32: the precision argument both
@@ -29,6 +34,14 @@ def jax_shims(monkeypatch):
                             raising=False)
     yield
     jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tf32(a: torch.Tensor) -> torch.Tensor:

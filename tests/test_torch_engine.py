@@ -103,7 +103,7 @@ def test_port_continues_reference_state_mid_trajectory():
 
 
 @pytest.mark.parametrize("kw", [{"scheduler": "fifo"},
-                                {"cancellations": {0: 3}},
+                                {"throughput": lambda job, n, t: 1.0},
                                 {"policy": lambda dp: None}])
 def test_unported_schedulers_and_hooks_raise(kw):
     cluster = workload.make_cluster(T=10, H=2, K=2)

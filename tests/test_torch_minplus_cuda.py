@@ -573,3 +573,113 @@ def test_engine_on_card_equals_cpu_and_launches_once_per_decision(card):
     assert gpu.completion == cpu.completion
     assert gpu.total_utility == pytest.approx(cpu.total_utility, rel=1e-9)
     assert gpu.device_uploads == 1
+
+
+def _churn_cases():
+    """(label, driver call) pairs: the churn and stream parity instances
+    of the CPU tests (tests/test_torch_fleet.py, test_torch_stream.py)."""
+    import itertools
+
+    from repro_torch.sim import fleet
+
+    c60 = workload.make_cluster(T=60, H=12, K=12)
+    jobs60 = workload.make_jobs(30, T=60, seed=0)
+    tr60 = fleet.churn_trace(c60, frac=0.25, seed=2)
+    cancel = {j.jid: j.arrival + 3 for j in jobs60[::4]}
+    c32 = workload.make_cluster(T=32, H=8, K=8)
+    tr32 = fleet.churn_trace(c32, frac=0.25, seed=2, T=200)
+
+    def stream(**kw):
+        return lambda core, device: engine.run_stream(
+            c32, itertools.islice(workload.stream_jobs(rate=0.2, seed=0), 30),
+            window=32, quantum=0, check=True, core=core, device=device, **kw)
+
+    return {
+        "episodic churn": lambda core, device: engine.run(
+            c60, jobs60, quantum=0, check=True, fleet=tr60, core=core,
+            device=device),
+        "episodic churn and cancellations": lambda core, device: engine.run(
+            c60, jobs60, quantum=0, check=True, fleet=tr60,
+            cancellations=cancel, core=core, device=device),
+        "stream": stream(),
+        "stream churn": stream(fleet=tr32),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("core", ["whole", "tiled"])
+@pytest.mark.parametrize("case", ["episodic churn",
+                                  "episodic churn and cancellations",
+                                  "stream", "stream churn"])
+def test_churn_and_stream_on_card_equal_cpu(card, case, core):
+    """Server blocking, preemption, cancellations and the rolling window
+    on the card decide as the port on the CPU: the whole route exactly,
+    the tiled route with the same completions and its utility within rel
+    1e-9; one upload per run, every DP decision through the kernels."""
+    run = _churn_cases()[case]
+    before = (minplus_cuda.launches, minplus_plateau_cuda.launches,
+              minplus_sweep_cuda.launches)
+    schedule_torch.monotone_counters_reset()
+    gpu = run(core, None)
+    snap = schedule_torch.monotone_counters_snapshot()
+    slot, plateau, sweep = (x - y for x, y in zip(
+        (minplus_cuda.launches, minplus_plateau_cuda.launches,
+         minplus_sweep_cuda.launches), before))
+    cpu = run(core, "cpu")
+    assert slot == 0 and sweep > 0
+    if core == "tiled":
+        assert (sweep, plateau) == (snap["chain"], snap["plateau"])
+    else:
+        assert plateau == 0 and sweep <= len(gpu.decision_seconds)
+    assert gpu.device_uploads == 1
+    assert gpu.completion == cpu.completion
+    assert (gpu.accepted, gpu.preempted, gpu.preempt_dropped,
+            gpu.canceled, gpu.window_bytes) == (
+        cpu.accepted, cpu.preempted, cpu.preempt_dropped, cpu.canceled,
+        cpu.window_bytes)
+    if core == "whole":
+        assert gpu.total_utility == cpu.total_utility
+        assert gpu.utilization == cpu.utilization
+    else:
+        assert gpu.total_utility == pytest.approx(cpu.total_utility,
+                                                  rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_window_slide_and_blocks_on_card_equal_cpu(card):
+    """The residency on the card after commits, server blocks, slides and
+    unblocks: all five tables equal the CPU residency's bit for bit, with
+    one upload each."""
+    from repro_torch.core.pricing import PriceState, price_params_from_jobs
+    from repro_torch.core.schedule_torch import best_schedule_fused
+
+    cluster = workload.make_cluster(T=64, H=12, K=12)
+    jobs = workload.make_jobs(20, T=64, seed=3)
+    params = price_params_from_jobs(jobs, cluster)
+    states = [PriceState(cluster, params, device=d, window=64)
+              for d in ("cuda", "cpu")]
+    for st in states:
+        st.device_state()
+    down = {7: [("worker", 2), ("ps", 1)], 14: []}
+    blocked = []
+    for i, job in enumerate(jobs):
+        job = engine._with_quantum(job, 0)
+        s = best_schedule_fused(job, states[1])
+        for st in states:
+            if s is not None:
+                st.commit(job, s.workers, s.ps)
+            if i % 5 == 4:
+                # a slide, then the engine's re-block of the opened slots
+                st.advance(st.origin + 3 + i)
+                for pool, srv in blocked:
+                    st.block_server(pool, srv, 0)
+        if i in down:
+            for st in states:
+                for pool, srv in blocked:
+                    st.unblock_server(pool, srv, 0)
+                for pool, srv in down[i]:
+                    st.block_server(pool, srv, 0)
+            blocked = down[i]
+    for a, b in zip(states[0]._dev, states[1]._dev):
+        assert _bits(a.cpu(), b)
+    assert [st.device_uploads for st in states] == [1, 1]

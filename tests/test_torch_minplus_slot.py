@@ -355,13 +355,18 @@ def test_tile_replay_from_carry_equals_minplus_tile(dc1, dtype):
 
 
 def _trace_buckets():
-    """Every (m_pad, d1) bucket of the two unquantized traces."""
+    """Every (m_pad, d1) bucket of the two unquantized traces and of the
+    serving stream (T = 64: a 64-slot window, quantum=0)."""
     out = set()
     for n, T, seed in ((2000, 500, 0), (40, 100, 1)):
         for job in workload.make_jobs(n, T=T, seed=seed):
             key = _shape_bucket(engine._with_quantum(job, None))
             if key is not None:
                 out.add(key)
+    for job in workload.stream_jobs(rate=0.2, seed=0, max_slots=20000):
+        key = _shape_bucket(engine._with_quantum(job, 0))
+        if key is not None:
+            out.add(key)
     return sorted(out)
 
 
@@ -373,10 +378,12 @@ def test_launch_plans_take_every_trace_bucket():
     shared memory a block may use, for every shape bucket the reference
     decides on the 10x trace and the T=100 full-size trace at quantum=None
     (among them d1 = 20480 with m_pad up to 8960, the tight float64
-    shape); the sweep takes a cluster of several
+    shape) and the port decides on the T = 64 serving stream at quantum=0
+    (d1 = 1280, every m_pad bucket); the sweep takes a cluster of several
     blocks on every bucket, and refuses a band wider than shared memory."""
     buckets = _trace_buckets()
     assert (8960, 20480) in buckets and (2688, 20480) in buckets
+    assert {(m, 1280) for m in (64, 128, 256, 384, 512, 640)} <= set(buckets)
     for m_pad, d1 in buckets:
         for dtype in (torch.float32, torch.float64):
             plan = kernel.sweep_plan(m_pad, d1, dtype)
