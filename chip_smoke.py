@@ -29,9 +29,16 @@ slots, a 64-slot rolling window, H = K = 50) through
 ``engine.run_stream`` on both routes, with one upload and 256,000 window
 bytes; its churn instance (CHURN_DIMS) churn-free and at 5 % and 20 %
 churn on both routes; the serving cluster's first 2000 slots under
-churn (down servers re-blocked after every slide).  Traced runs show
-where the time goes (the tiled route one job at a time, and in bursts at
-one and at eight lanes).
+churn (down servers re-blocked after every slide).  The paper's
+comparison follows: the scenario library (``repro_torch.sim.scenarios``)
+at the reference's full sizes, hetero, cancel, straggler and misest with
+every scheduler they list (OASiS through both routes), scale, serving and
+churn with the reactive baselines (FIFO, DRF, RRH, Dorm, which run on the
+host in numpy and launch no kernel), every OASiS run with the counts set
+to 0 just before it and read just after, every row held to the port on
+the CPU (``tools/scenarios_cpu.py``).  Traced runs show where the time
+goes (the tiled route one job at a time, and in bursts at one and at
+eight lanes).
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -96,7 +103,7 @@ from repro_torch.models.mamba2 import ssd_chunked_plain  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     decode_step, init_cache, init_model, prefill)
 from repro_torch.serve import steps as serve_steps  # noqa: E402
-from repro_torch.sim import engine  # noqa: E402
+from repro_torch.sim import engine, scenarios  # noqa: E402
 from repro_torch.sim.fleet import churn_trace  # noqa: E402
 from repro_torch.sim.workload import (  # noqa: E402
     make_cluster, make_jobs, stream_jobs)
@@ -119,7 +126,7 @@ SLICE_SHAPES = [(T, m, 1280) for T in (64, 100, 500) for m in M_PADS]
 # unquantized full-size jobs: d1 = 20480 with the narrowest band and the
 # widest of the T=100 trace (2688) and of the 10x trace (8960)
 WIDE_SHAPES = [(100, m, 20480) for m in (64, 2688, 8960)]
-SCALE = {"T": 500, "H": 100, "K": 100, "n": 2000}
+SCALE = dict(scenarios.SCALE_DIMS)
 # the one-slot kernels: tests/test_kernels.py's and the slice's shapes,
 # the 10x buckets, the wide jobs'
 SLOT_TEST_SHAPES = [(1, 1), (2, 5), (17, 129), (65, 1281), (641, 1281)]
@@ -147,12 +154,11 @@ SCALE_WHOLE_CPU = (7058.477068242661, 367,
 # the reference's continuous-serving section, never shrunk there
 # (sim/scenarios.py::SERVING_DIMS): a 20,000-slot diurnal x bursty stream
 # of full-size jobs (seed 0) over a 64-slot rolling window, quantum=0
-SERVING = {"H": 50, "K": 50, "window": 64, "slots": 20000, "rate": 0.2,
-           "seed": 0}
+SERVING = {**scenarios.SERVING_DIMS, "seed": 0}
 # its fleet-churn section (CHURN_DIMS): T=100, H=K=40, 120 full-size jobs
 # of seed 0, churn_trace(frac, seed=1) at each level, quantum=0
-CHURN = {"T": 100, "H": 40, "K": 40, "n": 120, "seed": 0,
-         "levels": (0.05, 0.20)}
+CHURN = {**{k: scenarios.CHURN_DIMS[k] for k in ("T", "H", "K", "n")},
+         "seed": 0, "levels": (0.05, 0.20)}
 # the serving cluster's first 2000 slots under churn_trace(frac=0.05,
 # seed=1, T=2000), the whole route
 STREAM_CHURN = {"slots": 2000, "frac": 0.05, "seed": 1}
@@ -179,6 +185,45 @@ CHURN_CPU = {
                      "35546dc2cc983e1ac1a7433e54eeb965d6d6", 54, 7)}
 STREAM_CHURN_CPU = (381, 10511.304636994175, "33709bc8bbe3da7ea3dd02a922588a"
                     "373627debbed823a81a557605c0f64d860", 2, 1)
+
+
+# the scenario library at the reference's full sizes (scenario, runner
+# arguments): hetero, cancel, straggler and misest with every scheduler they
+# list, OASiS through both routes; scale, serving and churn with the
+# reactive baselines only (the phases above run OASiS on those instances)
+SCENARIO_PLAN = (("hetero", {}), ("cancel", {}), ("straggler", {}),
+                 ("misest", {}),
+                 ("scale", {"schedulers": scenarios.REACTIVE}),
+                 ("serving", {"schedulers": scenarios.REACTIVE}),
+                 ("churn", {"schedulers": scenarios.REACTIVE}))
+# the plan's rows run by the port on a CPU (tools/scenarios_cpu.py): by
+# _scenario_key, the row's _scenario_pin
+SCENARIOS_CPU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tools", "scenarios_cpu.json")
+
+
+def scenario_rows(core, device=None):
+    """(scenario, its rows) of every scenario of :data:`SCENARIO_PLAN` with
+    OASiS through ``core``; on the tiled route only the scenarios with an
+    OASiS row."""
+    return [(name, scenarios.run_scenario(name, device=device, core=core,
+                                          **kw))
+            for name, kw in SCENARIO_PLAN
+            if core == "whole" or "schedulers" not in kw]
+
+
+def _scenario_key(row, core):
+    """A row's name: scenario, variant, scheduler, and for OASiS the
+    route."""
+    key = f"{row.scenario}|{row.variant}|{row.scheduler}"
+    return f"{key}|{core}" if row.scheduler == "oasis" else key
+
+
+def _scenario_pin(row):
+    """[accepted, completed, completion sha256, utility, utilization,
+    retention, preempted]."""
+    return [row.accepted, row.completed, _completion_digest(row.completion),
+            row.utility, row.utilization, row.retention, row.preempted]
 
 
 def serving_run(core, device=None, slots=None, frac=None):
@@ -1366,6 +1411,102 @@ def stream_churn_phase():
     _held(label, "whole", res, STREAM_CHURN_CPU)
 
 
+def _dp_decisions(jobs, cluster, quantum):
+    """The DP decisions of an episodic OASiS run of ``jobs``: arrivals
+    before T whose DP has a shape bucket."""
+    return sum(_shape_bucket(engine._with_quantum(j, quantum)) is not None
+               for j in jobs if j.arrival < cluster.T)
+
+
+def scenario_phase():
+    """The scenario library (:data:`SCENARIO_PLAN`) at the reference's full
+    sizes: every OASiS run through each route with the counts set to 0
+    just before it and read just after (``engine.run`` and
+    ``engine.run_stream`` wrapped for the phase), every DP decision
+    through the kernels; every reactive run on the host with no kernel
+    launched.  Each row is held to the port on the CPU
+    (:data:`SCENARIOS_CPU`): reactive and whole-route rows exactly,
+    tiled-route rows with the same accepted and completed jobs and
+    completions and the utility within rel 1e-9.  Returns the phase's
+    (sweep, one-slot, plateau) launches per route."""
+    with open(SCENARIOS_CPU) as f:
+        pins = json.load(f)
+    runs = []
+    run, run_stream = engine.run, engine.run_stream
+
+    def counted(fn):
+        def wrapped(cluster, jobs, **kw):
+            res, wall, counts, snap = _timed_run(
+                lambda: fn(cluster, jobs, **kw))
+            dp = None
+            if kw.get("scheduler", "oasis") == "oasis" and fn is run:
+                dp = _dp_decisions(jobs, cluster, kw.get("quantum"))
+            runs.append((res, wall, counts, snap, dp))
+            return res
+        return wrapped
+
+    launches = {"whole": [0, 0, 0], "tiled": [0, 0, 0]}
+    keys = set()
+    t_phase = time.perf_counter()
+    engine.run, engine.run_stream = counted(run), counted(run_stream)
+    try:
+        for core in ("whole", "tiled"):
+            for name, kw in SCENARIO_PLAN:
+                if core == "tiled" and "schedulers" in kw:
+                    continue
+                runs.clear()
+                t0 = time.perf_counter()
+                rows = scenarios.run_scenario(name, core=core, **kw)
+                wall_s = time.perf_counter() - t0
+                if len(rows) != len(runs):
+                    raise AssertionError(f"{name}: {len(rows)} rows for "
+                                         f"{len(runs)} engine runs")
+                for row, (res, wall, counts, snap, dp) in zip(rows, runs):
+                    key = _scenario_key(row, core)
+                    label = f"scenario {key}"
+                    oasis = row.scheduler == "oasis"
+                    if oasis:
+                        _check_launches(label, core, res, counts, snap, dp)
+                        launches[core] = [a + b for a, b in
+                                          zip(launches[core], counts)]
+                    elif counts != (0, 0, 0):
+                        raise AssertionError(f"{label}: a reactive run "
+                                             f"launched {counts}")
+                    got, want = _scenario_pin(row), pins[key]
+                    rel = abs(got[3] - want[3]) / max(abs(want[3]), 1e-300)
+                    same = got == want if not (oasis and core == "tiled") \
+                        else got[:3] == want[:3] and rel <= 1e-9
+                    ds = np.asarray(res.decision_seconds) * 1e3
+                    what = "decision" if oasis else "repack"
+                    pct = (f"{what}_p50_ms={float(np.percentile(ds, 50))!r} "
+                           f"{what}_p95_ms={float(np.percentile(ds, 95))!r}"
+                           if ds.size else f"{what}s=0")
+                    print(f"{label}: wall_s={wall!r} accepted={got[0]} "
+                          f"completed={got[1]} utility={got[3]!r} "
+                          f"utilization={got[4]!r} retention={got[5]!r} "
+                          f"preempted={got[6]!r} {what}s={ds.size} {pct} "
+                          f"sweep_launches={counts[0]} "
+                          f"plateau_launches={counts[2]} "
+                          f"slot_launches={counts[1]} held={same} "
+                          f"rel_diff={rel!r}")
+                    if not same:
+                        raise AssertionError(f"{label}: {got} on the card, "
+                                             f"{want} on the CPU")
+                    keys.add(key)
+                print(f"scenario {name} ({core} route): rows={len(rows)} "
+                      f"wall_s={wall_s!r}", flush=True)
+    finally:
+        engine.run, engine.run_stream = run, run_stream
+    print(f"scenario phase: {len(keys)} distinct rows held of {len(pins)} "
+          f"pins, wall_s={time.perf_counter() - t_phase!r}, DP launches "
+          f"(sweep, one-slot, plateau) whole={launches['whole']} "
+          f"tiled={launches['tiled']}")
+    if keys != set(pins):
+        raise AssertionError(f"rows {sorted(keys ^ set(pins))} not both run "
+                             "and pinned")
+    return launches
+
+
 def profile_phase(core, n_jobs=400, lanes=1, sequential=False):
     """Where the time goes: a traced run of the 10x trace's first
     ``n_jobs`` arrivals through ``core`` (same price parameters as the
@@ -2067,6 +2208,7 @@ def main() -> int:
     serving_phase()
     churn_phase()
     stream_churn_phase()
+    scen = scenario_phase()
     profile_phase("whole")
     profile_phase("tiled", sequential=True)
     profile_phase("tiled")
@@ -2097,16 +2239,18 @@ def main() -> int:
             / len(M_PADS) for i in range(5)]
     src = "src/repro_torch/kernels/minplus/csrc/"
     ref = "src/repro/kernels/minplus/kernel.py:"
-    rows = [("minplus_sweep", "minplus_sweep.cu", "125", launches, max_err,
-             mean),
-            ("minplus_tile", "minplus_sweep.cu", "54", c_launches,
-             tile_err, tile),
+    # the scenario phase's OASiS runs: sweeps of the whole route, chain
+    # and plateau tiles of the tiled route
+    rows = [("minplus_sweep", "minplus_sweep.cu", "125",
+             launches + scen["whole"][0], max_err, mean),
+            ("minplus_tile", "minplus_sweep.cu", "54",
+             c_launches + scen["tiled"][0], tile_err, tile),
             ("minplus_tile_8_lanes", "minplus_sweep.cu", "54", l_launches,
              lanes_err, tile8),
             ("minplus_slot", "minplus_slot.cu", "54", a_launches,
              slot_err, slot),
-            ("minplus_plateau", "minplus_plateau.cu", "207", b_launches,
-             plateau_err, plat)]
+            ("minplus_plateau", "minplus_plateau.cu", "207",
+             b_launches + scen["tiled"][2], plateau_err, plat)]
     rows = [(name, src + file, ref + line, n_launch, err, t, None)
             for name, file, line, n_launch, err, t in rows]
     # the model kernels: device time per launch at Zamba2-7B's prefill

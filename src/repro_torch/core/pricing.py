@@ -71,6 +71,24 @@ class PriceParams:
     L1: float
     L2: float
 
+    def scaled(self, factor: float) -> "PriceParams":
+        """Scale the U/L *ratio* by ``factor`` keeping L fixed (Fig. 6 sweeps)."""
+        ratio1 = np.maximum(self.U1 / self.L1, 1.0 + 1e-6) ** factor
+        ratio2 = np.maximum(self.U2 / self.L2, 1.0 + 1e-6) ** factor
+        return PriceParams(U1=self.L1 * ratio1, U2=self.L2 * ratio2,
+                           L1=self.L1, L2=self.L2)
+
+    @property
+    def alpha(self) -> float:
+        """Competitive-ratio parameter: alpha = max_r(1, ln U1/L1, ln U2/L2)."""
+        a = 1.0
+        for r in range(len(self.U1)):
+            if self.L1 > 0 and self.U1[r] > 0:
+                a = max(a, math.log(max(self.U1[r] / self.L1, 1.0)))
+            if self.L2 > 0 and self.U2[r] > 0:
+                a = max(a, math.log(max(self.U2[r] / self.L2, 1.0)))
+        return a
+
 
 def price_params_from_jobs(jobs: Sequence[Job], cluster: ClusterSpec,
                            floor_frac: float = 0.05) -> PriceParams:

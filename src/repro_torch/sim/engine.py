@@ -1,54 +1,88 @@
-"""Event-driven simulator for OASiS on PyTorch: the episodic driver
-(``run``) and the continuous-serving driver (``run_stream``).
+"""Event-driven simulator on PyTorch: the episodic driver (``run``) and
+the continuous-serving driver (``run_stream``), for OASiS and for the
+reactive baselines of the paper's comparison (FIFO, DRF, RRH, Dorm).
 
 OASiS commits schedules at arrival, so arrival bursts, cancellations and
 fleet transitions are the only events: each burst goes through
 ``OASiS.on_arrivals`` (one decision per job, in arrival order, on the
 price state's device), per-slot GPU usage is read off the allocation
-tensor, and capacity feasibility is one whole-state comparison.  The
-scenario hooks of the reference engine's OASiS loops
-(``_drive_oasis_gen``, ``_drive_oasis_stream_gen``):
+tensor, and capacity feasibility is one whole-state comparison.
+
+The reactive baselines (``core/baselines.py``) run on the host in numpy,
+as in the reference, and create no torch tensor: between two events a
+scheduler's ``step(t)`` is constant, so the driver repacks only at event
+slots (and only when the scheduler's ``dirty`` flag says the event can
+change the plan) and fast-forwards work with one vectorized update:
+per-job completion slots are ``ceil(remaining / rate)`` over the live
+set, and the clock jumps to the earliest completion or the next event.
+The float arithmetic is the reference's op for op, so every reactive
+result equals the reference's bit for bit.
+
+The scenario hooks of the reference engine (``_drive_oasis_gen``,
+``_drive_reactive``, and their streamed counterparts), for every
+scheduler:
 
 * ``cancellations``: ``{jid: slot}``, the job departs at ``slot``; its
   remaining allocation is released and it earns nothing.  A slot at or
   before the job's arrival, or at or after ``T``, is a no-op.
 * ``fleet``: a ``sim/fleet.py::FleetTrace``.  At each transition slot
   recovered servers are unblocked first; jobs holding a failed or drained
-  server from that slot on are preempted: their tails are released, their
-  work rolls back to the last ``ckpt_interval`` boundary of the global
-  clock (a lossy failure) or to the drain's start (graceful), the down
-  servers are blocked (``PriceState.block_server``), and the rescaled
-  remainder is re-admitted through ``OASiS.on_arrival`` with its utility
-  curve shifted (``_shift_utility``), or dropped.  An empty trace is an
-  exact no-op.
+  server from that slot on are preempted: their work rolls back to the
+  last ``ckpt_interval`` boundary of the global clock (a lossy failure)
+  or to the drain's start (graceful).  OASiS releases their tails, blocks
+  the down servers (``PriceState.block_server``) and re-admits the
+  rescaled remainder through ``OASiS.on_arrival`` with its utility curve
+  shifted (``_shift_utility``), or drops it; a reactive scheduler keeps
+  the victim enrolled and repacks over the survivors
+  (``ReactiveScheduler.preempt``, ``set_capacity``).  An empty trace is
+  an exact no-op.
+* ``throughput``: ``fn(job, n_workers, slot) -> factor in (0, 1]``, a
+  per-(job, slot) work-rate perturbation (``sim/scenarios.py``'s
+  stragglers).  OASiS keeps its committed schedules and accounts the
+  perturbed work over their slots (accepted jobs in commit order, slots
+  ascending): a schedule that under-delivers completes nothing, and the
+  utility is evaluated at the actual completion against the original
+  curve.  A reactive run consumes the factors as it goes: a ``stateless``
+  fn with ``rate_matrix`` gives a ``(n_live, horizon chunk)`` block per
+  plan span, completions found by row cumsums; a stateful one (straggler
+  detection) is called slot by slot, live jobs in plan order.
 
-``run_stream`` serves an open-ended arrival stream over a rolling
-``window``-slot price state (``PriceState.advance``): each job is decided
-in window-local coordinates (arrival 0), completions are absolute, and
-memory stays bounded by the window (``SimResult.window_bytes``).
+``run_stream`` serves an open-ended arrival stream; for OASiS over a
+rolling ``window``-slot price state (``PriceState.advance``): each job is
+decided in window-local coordinates (arrival 0), completions are
+absolute, and memory stays bounded by the window
+(``SimResult.window_bytes``).
 
-The reactive baselines, the learned scheduler, the ``throughput=``
-perturbation and external deciders (``policy=``) come in later slices.
+The learned scheduler and external deciders (``policy=``) come with the
+port of ``rl/``.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
 import math
-from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+import time
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.baselines import BASELINES, ReactiveScheduler
 from ..core.oasis import OASiS
 from ..core.pricing import PriceParams, price_params_from_jobs
 from ..core.types import ClusterSpec, Job, Schedule, SigmoidUtility
 from .fleet import DOWN_LOSSY, UP, FleetState, FleetTrace
 
+ThroughputFn = Callable[[Job, int, int], float]
+
 # checkpoint cadence for fleet churn, in slots: victims of a lossy failure
 # roll back to the last multiple of this on the global clock
 CKPT_INTERVAL = 20
+
+# horizon chunk of the stateless-throughput rate matrix, in slots
+_RATE_BLOCK = 64
 
 
 @dataclasses.dataclass
@@ -156,15 +190,11 @@ def _check(osched: OASiS, t: int) -> None:
                            f"{ok_w}, PS ok: {ok_ps})")
 
 
-def _unported(scheduler: str, **hooks) -> None:
-    if scheduler != "oasis":
+def _unported(scheduler: str, policy) -> None:
+    if scheduler == "learned" or policy is not None:
         raise NotImplementedError(
-            f"scheduler={scheduler!r}: the reactive baselines and the learned "
-            "scheduler are not ported yet (a later slice of the port)")
-    for name, hook in hooks.items():
-        if hook is not None:
-            raise NotImplementedError(
-                f"{name}=: not ported yet (a later slice of the port)")
+            "scheduler='learned' and policy=: external deciders are not "
+            "ported yet (a later slice of the port, with rl/)")
 
 
 def _holds(sched: Schedule, pool: str, srv: int, s0: int) -> bool:
@@ -196,6 +226,21 @@ def _victim_copy(jcur: Job, orig: Job, sched: Schedule, kind: str, t: int,
         utility=_shift_utility(orig.utility, t - int(orig.arrival))), None
 
 
+def _perturbed_finish(job: Job, sched: Schedule,
+                      throughput: ThroughputFn) -> Optional[int]:
+    """The slot at which ``sched`` delivers ``job``'s work under the rate
+    perturbation ``throughput``, its slots taken in ascending order (the
+    factors of a stateful fn depend on the order of calls); None if it
+    under-delivers.  Under churn ``job`` is the live copy, which carries
+    only the post-checkpoint work, and ``sched`` its final segment."""
+    slots = sorted(sched.workers)
+    w = np.array([float(sched.workers[t].sum()) for t in slots])
+    f = np.array([throughput(job, int(c), t) for t, c in zip(slots, w)])
+    cum = np.cumsum(w * f)
+    hit = np.flatnonzero(cum >= job.total_work_slots - 1e-9)
+    return slots[int(hit[0])] if hit.size else None
+
+
 def _live_alloc(osched: OASiS, s_of, skip) -> Dict[int, tuple]:
     """``{jid: (y, z)}`` of every accepted schedule, not in ``skip``, that
     deploys at its own slot ``s_of(jid)``."""
@@ -211,20 +256,24 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         params: Optional[PriceParams] = None, check: bool = True,
         quantum: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
-        core: str = "whole",
-        cancellations: Optional[Dict[int, int]] = None, throughput=None,
+        core: str = "whole", fixed_workers: int = 8,
+        cancellations: Optional[Dict[int, int]] = None,
+        throughput: Optional[ThroughputFn] = None,
         fleet: Optional[FleetTrace] = None,
         ckpt_interval: int = CKPT_INTERVAL, policy=None) -> SimResult:
-    """Drive OASiS through the trace event by event on ``device`` (None:
-    the CUDA card), every decision through the decision core ``core``
-    (``"whole"`` or ``"tiled"``, see ``core/schedule_torch.py``).  The
-    reference ``engine.run``'s contract for OASiS, with its
-    ``cancellations`` and ``fleet`` hooks (module docstring); price
-    parameters come from the trace when not given.  Under cancellations or
-    churn the utility is evaluated at each job's actual completion against
-    its original curve.
+    """Drive ``scheduler`` (``"oasis"`` or a reactive baseline: ``"fifo"``,
+    ``"drf"``, ``"rrh"``, ``"dorm"``) through the trace event by event.
+    OASiS decides on ``device`` (None: the CUDA card), every decision
+    through the decision core ``core`` (``"whole"`` or ``"tiled"``, see
+    ``core/schedule_torch.py``); a reactive baseline runs on the host,
+    with ``fixed_workers`` workers a job where its rule fixes the count,
+    but the device is resolved first all the same.  The reference
+    ``engine.run``'s contract, with its ``cancellations``, ``fleet`` and
+    ``throughput`` hooks (module docstring); OASiS's price parameters come
+    from the trace when not given.  Under any hook OASiS's utility is
+    evaluated at each job's actual completion against its original curve.
 
-    Example::
+    Example — the same trace under OASiS and a reactive baseline::
 
         >>> from repro_torch.sim import engine
         >>> from repro_torch.sim.fleet import churn_trace
@@ -238,8 +287,16 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         ...                fleet=churn_trace(cluster, frac=0.5, seed=1))
         >>> r.live_frac <= 1.0, r.completed <= r.accepted
         (True, True)
+        >>> r = engine.run(cluster, jobs, scheduler="fifo", device="cpu")
+        >>> (r.n_jobs, r.accepted, r.completed)
+        (4, 4, 4)
     """
-    _unported(scheduler, throughput=throughput, policy=policy)
+    _unported(scheduler, policy)
+    device = resolve_device(device)
+    if scheduler != "oasis":
+        return _drive_reactive(cluster, jobs, scheduler, fixed_workers, check,
+                               quantum, cancellations, throughput, fleet,
+                               ckpt_interval)
     T = cluster.T
     jmap = {j.jid: j for j in jobs}
     by_slot, cancel_slot = _group_events(jobs, cancellations, T)
@@ -326,10 +383,18 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
                                                 canceled),
                              fs.worker_caps, fs.ps_caps)
 
-    completion = {jid: sched.finish for jid, sched in osched.accepted.items()
-                  if jid not in canceled}
+    completion: Dict[int, int] = {}
+    for jid, sched in osched.accepted.items():
+        if jid in canceled:
+            continue
+        if throughput is None:
+            completion[jid] = sched.finish
+        else:
+            done = _perturbed_finish(ljobs[jid], sched, throughput)
+            if done is not None:                # else: under-delivered
+                completion[jid] = done
     completion.update(forced_completion)
-    if not canceled and not churn:
+    if not canceled and throughput is None and not churn:
         total_utility = osched.total_utility
     else:
         # at the actual completion slot, against the original job
@@ -378,15 +443,18 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                warmup_sample: int = 256, fleet: Optional[FleetTrace] = None,
                ckpt_interval: int = CKPT_INTERVAL,
                device: Optional[Union[str, torch.device]] = None,
-               core: str = "whole") -> SimResult:
-    """Drive OASiS over an open-ended arrival stream on ``device`` (None:
-    the CUDA card), through the decision core ``core``.
+               core: str = "whole", fixed_workers: int = 8,
+               policy=None) -> SimResult:
+    """Drive ``scheduler`` over an open-ended arrival stream: OASiS on
+    ``device`` (None: the CUDA card), through the decision core ``core``;
+    a reactive baseline on the host, after the device is resolved, with
+    no slot-indexed state (``window_bytes`` 0).
 
     ``jobs`` is any iterable in nondecreasing arrival order (typically
     ``workload.stream_jobs``), consumed lazily; ``cluster.T`` bounds
-    nothing.  The price state keeps a ``window``-slot rolling horizon,
-    advanced to each event's slot; a job is decided at local arrival 0
-    and its completion is absolute.  ``params`` default to
+    nothing.  For OASiS the price state keeps a ``window``-slot rolling
+    horizon, advanced to each event's slot; a job is decided at local
+    arrival 0 and its completion is absolute.  ``params`` default to
     :func:`stream_price_params` of the first ``warmup_sample`` jobs (which
     are then replayed).  ``fleet`` slots are absolute; down servers are
     re-blocked after every advance.  ``utilization`` is over the elapsed
@@ -405,8 +473,11 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         >>> (r.n_jobs, r.accepted, r.window_bytes, r.device_uploads)
         (12, 12, 3840, 1)
     """
-    _unported(scheduler)
+    _unported(scheduler, policy)
     device = resolve_device(device)
+    if scheduler != "oasis":
+        return _drive_reactive_stream(cluster, jobs, scheduler, fixed_workers,
+                                      check, quantum, fleet, ckpt_interval)
     if params is None:
         it = iter(jobs)
         sample = list(itertools.islice(it, warmup_sample))
@@ -550,3 +621,336 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                      live_frac=fs.live_frac if churn else 1.0,
                      arrivals=arrivals, window_bytes=state.window_bytes,
                      device_uploads=state.device_uploads)
+
+
+# ---------------------------------------------------------------------------
+# Reactive baselines: repack at events, fast-forward in between (host only)
+# ---------------------------------------------------------------------------
+
+def _pool_usage(cur_alloc: Dict[int, tuple], jmap: Dict[int, Job],
+                cluster: ClusterSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """(R,) total worker- and PS-pool usage of one allocation snapshot (the
+    reference's decision points read it; ``rl/`` will)."""
+    used_w = np.zeros(cluster.worker_caps.shape[1])
+    used_s = np.zeros(cluster.ps_caps.shape[1])
+    for jid, (y, z) in cur_alloc.items():
+        used_w += float(y.sum()) * jmap[jid].worker_res
+        if z is not None:
+            used_s += float(z.sum()) * jmap[jid].ps_res
+    return used_w, used_s
+
+
+def _preempt_on(trans, cur_alloc: Dict[int, tuple], remaining, ckpt_rem,
+                jmap: Dict[int, Job], rsched: ReactiveScheduler,
+                t: int) -> int:
+    """Evict the jobs placed on the servers that ``trans`` takes down: a
+    lossy failure rolls a victim back to its last checkpoint, a drain
+    checkpoints it first.  Victims stay enrolled, so the scheduler's own
+    queue or resume order re-places them.  Returns the preemptions."""
+    n = 0
+    for pool, srv, kind in trans:
+        if kind == UP:
+            continue
+        if pool == "worker":
+            vs = [jid for jid, (y, _) in cur_alloc.items() if y[srv] > 0]
+        else:
+            vs = [jid for jid, (_, z) in cur_alloc.items()
+                  if z is not None and z[srv] > 0]
+        for jid in vs:
+            if kind == DOWN_LOSSY:
+                remaining[jid] = ckpt_rem.get(jid,
+                                              jmap[jid].total_work_slots)
+            else:
+                ckpt_rem[jid] = remaining[jid]
+            rsched.preempt(jid, t)
+            cur_alloc.pop(jid, None)
+            n += 1
+    return n
+
+
+def _plan_arrays(cur_alloc: Dict[int, tuple], jmap: Dict[int, Job]):
+    """(live ids, worker counts, the plan's GPUs) of one allocation."""
+    ids = list(cur_alloc)
+    counts = np.array([float(cur_alloc[j][0].sum()) for j in ids])
+    plan_gpu = float(counts @ np.array(
+        [jmap[j].worker_res[0] for j in ids])) if ids else 0.0
+    return ids, counts, plan_gpu
+
+
+def _ckpt_crossed(ids, consumed, remaining, ckpt_rem, t: int, span: int,
+                  ck: int) -> None:
+    """Record the checkpoint crossed inside ``[t, t + span)``, if any: work
+    is consumed uniformly over the span, so the boundary's share of it is
+    ``(cb - t) / span``."""
+    cb = ((t + span) // ck) * ck
+    if cb > t:
+        frac = (cb - t) / span
+        for j, used in zip(ids, consumed):
+            ckpt_rem[j] = max(remaining[j] - float(used) * frac, 0.0)
+
+
+def _first_completion(ids, counts, remaining) -> float:
+    """Slots until the plan's first completion at the plan's constant
+    rates (inf when no live job progresses)."""
+    rem = np.array([remaining[j] for j in ids])
+    active = counts > 0
+    slots_left = np.full(len(ids), np.inf)
+    if active.any():
+        slots_left[active] = np.maximum(
+            np.ceil((rem[active] - 1e-9) / counts[active]), 1.0)
+    return float(slots_left.min()) if ids else math.inf
+
+
+def _consume(ids, consumed, remaining, completion, total_utility: float,
+             jmap: Dict[int, Job], rsched: ReactiveScheduler,
+             cur_alloc: Dict[int, tuple], ckpt_rem, t_end: int):
+    """Take the work ``consumed`` off each live job's remainder; the jobs it
+    finishes complete at ``t_end``, earn their utility there and leave
+    the scheduler.  Returns (the utility total, whether any finished)."""
+    done_now = []
+    for j, used in zip(ids, consumed):
+        remaining[j] -= used
+        if remaining[j] <= 1e-9:
+            done_now.append(j)
+    for jid in done_now:
+        completion[jid] = t_end
+        total_utility += jmap[jid].utility(t_end - jmap[jid].arrival)
+        rsched.on_completion(jid, t_end)
+        del remaining[jid]
+        cur_alloc.pop(jid, None)
+        ckpt_rem.pop(jid, None)
+    return total_utility, bool(done_now)
+
+
+def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
+                    fixed_workers: int, check: bool, quantum: Optional[int],
+                    cancellations: Optional[Dict[int, int]],
+                    throughput: Optional[ThroughputFn],
+                    fleet: Optional[FleetTrace],
+                    ckpt_interval: int) -> SimResult:
+    """The reference's ``_drive_reactive`` without its decision points."""
+    T = cluster.T
+    src = {j.jid: _with_quantum(j, quantum) for j in jobs}
+    jmap = dict(src)
+    by_slot, cancel_slot = _group_events(src.values(), cancellations, T)
+    rsched: ReactiveScheduler = BASELINES[scheduler](
+        cluster, fixed_workers=fixed_workers)
+    total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
+    admitted: List[int] = []
+    remaining: Dict[int, float] = {}
+    completion: Dict[int, int] = {}
+    canceled: set = set()
+    total_utility = 0.0
+    util_sum = 0.0
+    # fleet churn, every branch gated on a non-empty trace.  ``ckpt_rem``:
+    # each admitted job's remaining work at its last checkpoint
+    churn = fleet is not None and bool(fleet)
+    fs = FleetState(cluster, fleet) if churn else None
+    ckpt_rem: Dict[int, float] = {}
+    ck = max(int(ckpt_interval), 1)
+    n_preempted = 0
+    decision_seconds: List[float] = []      # each repack's wall clock
+    # on an event the scheduler leaves clean (``dirty`` unset), the last
+    # allocation, pruned of departed jobs, is what ``step`` would return
+    cur_alloc: Dict[int, tuple] = {}
+    ids: List[int] = []
+    counts = np.zeros(0)
+    plan_gpu = 0.0
+    stale = True            # the plan's arrays need a rebuild
+    use_matrix = (throughput is not None
+                  and getattr(throughput, "stateless", False)
+                  and callable(getattr(throughput, "rate_matrix", None)))
+    event_set = set(by_slot) | set(cancel_slot)
+    if churn:
+        event_set |= set(fs.event_slots)
+    events = sorted(event_set)
+    ei = 0
+    t = events[0] if events else T
+    while t < T:
+        while ei < len(events) and events[ei] <= t:
+            ei += 1
+        if churn:
+            trans = fs.step(t)
+            if trans:
+                n_preempted += _preempt_on(trans, cur_alloc, remaining,
+                                           ckpt_rem, jmap, rsched, t)
+                rsched.set_capacity(fs.worker_caps, fs.ps_caps)
+                stale = True
+        for job in by_slot.pop(t, ()):
+            if rsched.on_arrival(job, t):
+                admitted.append(job.jid)
+                remaining[job.jid] = job.total_work_slots
+        for jid in cancel_slot.get(t, ()):
+            if jid in remaining:                # admitted, still running
+                rsched.on_completion(jid, t)    # out of the pool, no utility
+                del remaining[jid]
+                canceled.add(jid)
+                cur_alloc.pop(jid, None)
+                ckpt_rem.pop(jid, None)
+                stale = True
+        if rsched.dirty:
+            t0 = time.perf_counter()
+            cur_alloc = dict(rsched.step(t))
+            decision_seconds.append(time.perf_counter() - t0)
+            rsched.dirty = False
+            stale = True
+            if check:       # a pruned reuse stays feasible by construction
+                _check_alloc(jmap, cur_alloc,
+                             fs.worker_caps if churn else cluster.worker_caps,
+                             fs.ps_caps if churn else cluster.ps_caps)
+        if stale:
+            ids, counts, plan_gpu = _plan_arrays(cur_alloc, jmap)
+            stale = False
+        next_ev = events[ei] if ei < len(events) else T
+        horizon = min(next_ev, T) - t
+        if throughput is None:
+            span = int(min(_first_completion(ids, counts, remaining),
+                           float(horizon)))
+            span = max(span, 1)
+            consumed = counts * span
+        elif use_matrix and ids:
+            # factors for every (live job, slot) of a block, completions by
+            # row cumsums; only the slots up to the earliest completion are
+            # consumed, the rest recomputed after the repack (stateless fn)
+            h = min(horizon, _RATE_BLOCK)
+            M = np.empty((len(ids), h))
+            for i, jid_ in enumerate(ids):
+                M[i] = throughput.rate_matrix(jmap[jid_], int(counts[i]), t,
+                                              h)
+            M *= counts[:, None]
+            cum = np.cumsum(M, axis=1)
+            rem = np.array([remaining[j] for j in ids])
+            hits = cum >= rem[:, None] - 1e-9
+            first = np.where(hits.any(axis=1), hits.argmax(axis=1), h)
+            k = int(first.min())
+            span = k + 1 if k < h else h
+            consumed = cum[:, span - 1]
+        elif use_matrix:
+            span = min(horizon, _RATE_BLOCK)
+            consumed = counts                   # no live job: empty
+        else:
+            # a stateful fn: one slot, live jobs in plan order
+            consumed = counts * np.array(
+                [throughput(jmap[j], int(c), t) for j, c in zip(ids, counts)]) \
+                if ids else counts
+            span = 1
+        util_sum += (plan_gpu / total_gpu) * span
+        t_end = t + span - 1                    # the plan's last slot
+        if churn and ids:
+            _ckpt_crossed(ids, consumed, remaining, ckpt_rem, t, span, ck)
+        total_utility, done = _consume(ids, consumed, remaining, completion,
+                                       total_utility, jmap, rsched, cur_alloc,
+                                       ckpt_rem, t_end)
+        stale = stale or done
+        t += span
+    return SimResult(name=scheduler, total_utility=total_utility,
+                     accepted=len(admitted), completed=len(completion),
+                     n_jobs=len(jobs), completion=completion,
+                     target_gap=_target_gaps(jmap, completion),
+                     decision_seconds=decision_seconds,
+                     utilization=util_sum / T if T else 0.0,
+                     canceled=len(canceled), preempted=n_preempted,
+                     live_frac=fs.live_frac if churn else 1.0,
+                     arrivals={j.jid: j.arrival for j in src.values()
+                               if j.arrival < T})
+
+
+def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
+                           scheduler: str, fixed_workers: int, check: bool,
+                           quantum: Optional[int],
+                           fleet: Optional[FleetTrace],
+                           ckpt_interval: int) -> SimResult:
+    """The reference's ``_drive_reactive_stream`` without its decision
+    points: the episodic driver over an open-ended stream, the clock
+    unbounded; it ends when the stream does and no live job progresses."""
+    rsched: ReactiveScheduler = BASELINES[scheduler](
+        cluster, fixed_workers=fixed_workers)
+    total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
+    jmap: Dict[int, Job] = {}
+    arrivals: Dict[int, int] = {}
+    admitted: List[int] = []
+    remaining: Dict[int, float] = {}
+    completion: Dict[int, int] = {}
+    total_utility = 0.0
+    util_sum = 0.0
+    cur_alloc: Dict[int, tuple] = {}
+    ids: List[int] = []
+    counts = np.zeros(0)
+    plan_gpu = 0.0
+    stale = True
+    n_jobs = 0
+    churn = fleet is not None and bool(fleet)
+    fs = FleetState(cluster, fleet) if churn else None
+    fe: List[int] = fs.event_slots if churn else []
+    fi = 0
+    ckpt_rem: Dict[int, float] = {}
+    ck = max(int(ckpt_interval), 1)
+    n_preempted = 0
+    decision_seconds: List[float] = []
+    it = iter(jobs)
+    nxt = next(it, None)
+    t = int(nxt.arrival) if nxt is not None else 0
+    while nxt is not None or remaining:
+        if churn:
+            changed = False
+            while fi < len(fe) and fe[fi] <= t:
+                n_preempted += _preempt_on(fs.step(fe[fi]), cur_alloc,
+                                           remaining, ckpt_rem, jmap,
+                                           rsched, t)
+                changed = True
+                fi += 1
+            if changed:
+                rsched.set_capacity(fs.worker_caps, fs.ps_caps)
+                stale = True
+        while nxt is not None and int(nxt.arrival) <= t:
+            job = _with_quantum(nxt, quantum)
+            nxt = next(it, None)
+            n_jobs += 1
+            jmap[job.jid] = job
+            arrivals[job.jid] = int(job.arrival)
+            if rsched.on_arrival(job, t):
+                admitted.append(job.jid)
+                remaining[job.jid] = job.total_work_slots
+        if rsched.dirty:
+            t0 = time.perf_counter()
+            cur_alloc = dict(rsched.step(t))
+            decision_seconds.append(time.perf_counter() - t0)
+            rsched.dirty = False
+            stale = True
+            if check:
+                _check_alloc(jmap, cur_alloc,
+                             fs.worker_caps if churn else cluster.worker_caps,
+                             fs.ps_caps if churn else cluster.ps_caps)
+        if stale:
+            ids, counts, plan_gpu = _plan_arrays(cur_alloc, jmap)
+            stale = False
+        earliest = _first_completion(ids, counts, remaining)
+        horizon = (int(nxt.arrival) - t) if nxt is not None else math.inf
+        if churn and fi < len(fe):
+            # the next fleet event bounds the plan (and may restore the
+            # capacity a waiting queue starves for)
+            horizon = min(horizon, fe[fi] - t)
+        if not math.isfinite(earliest) and not math.isfinite(horizon):
+            # no arrival left and no live job progressing: the plan cannot
+            # change again, the waiting jobs never complete
+            break
+        span = max(int(min(earliest, horizon)), 1)
+        consumed = counts * span
+        util_sum += (plan_gpu / total_gpu) * span
+        t_end = t + span - 1
+        if churn and ids:
+            _ckpt_crossed(ids, consumed, remaining, ckpt_rem, t, span, ck)
+        total_utility, done = _consume(ids, consumed, remaining, completion,
+                                       total_utility, jmap, rsched, cur_alloc,
+                                       ckpt_rem, t_end)
+        stale = stale or done
+        t += span
+    return SimResult(name=scheduler, total_utility=total_utility,
+                     accepted=len(admitted), completed=len(completion),
+                     n_jobs=n_jobs, completion=completion,
+                     target_gap=_target_gaps(jmap, completion),
+                     decision_seconds=decision_seconds,
+                     utilization=util_sum / max(t, 1),
+                     preempted=n_preempted,
+                     live_frac=fs.live_frac if churn else 1.0,
+                     arrivals=arrivals, window_bytes=0)

@@ -102,8 +102,9 @@ def test_port_continues_reference_state_mid_trajectory():
     assert np.array_equal(port.state._g_host, ref.state._g_host)
 
 
-@pytest.mark.parametrize("kw", [{"scheduler": "fifo"},
-                                {"throughput": lambda job, n, t: 1.0},
+@pytest.mark.parametrize("kw", [{"scheduler": "learned"},
+                                {"scheduler": "fifo",
+                                 "policy": lambda dp: None},
                                 {"policy": lambda dp: None}])
 def test_unported_schedulers_and_hooks_raise(kw):
     cluster = workload.make_cluster(T=10, H=2, K=2)
