@@ -202,13 +202,11 @@ SCENARIOS_CPU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                              "tools", "scenarios_cpu.json")
 
 
-def scenario_rows(core, device=None):
-    """(scenario, its rows) of every scenario of :data:`SCENARIO_PLAN` with
-    OASiS through ``core``; on the tiled route only the scenarios with an
+def scenario_plan(core):
+    """The (scenario, runner arguments) of :data:`SCENARIO_PLAN` that run
+    with OASiS through ``core``: on the tiled route only those with an
     OASiS row."""
-    return [(name, scenarios.run_scenario(name, device=device, core=core,
-                                          **kw))
-            for name, kw in SCENARIO_PLAN
+    return [(name, kw) for name, kw in SCENARIO_PLAN
             if core == "whole" or "schedulers" not in kw]
 
 
@@ -1451,9 +1449,7 @@ def scenario_phase():
     engine.run, engine.run_stream = counted(run), counted(run_stream)
     try:
         for core in ("whole", "tiled"):
-            for name, kw in SCENARIO_PLAN:
-                if core == "tiled" and "schedulers" in kw:
-                    continue
+            for name, kw in scenario_plan(core):
                 runs.clear()
                 t0 = time.perf_counter()
                 rows = scenarios.run_scenario(name, core=core, **kw)

@@ -11,16 +11,11 @@ repack is a few hundred jobs x 5 resources of first-fit scans, so nothing
 here creates a torch tensor, and every placement equals the reference's
 bit for bit.
 
-Each scheduler carries two repack implementations:
-
-* ``step_reference`` — the seed's greedy loops, verbatim: one
-  ``_place(1, ...)`` call per chunk, O(jobs x chunks) interpreter
-  iterations per repack.  Kept as the equivalence oracle and the honest
-  v1 baseline (``simulate_reference`` pins it via ``REPACK_IMPL``).
-* ``step_kernel`` — the vectorized batch-round kernels from
-  ``core/repack.py`` (the default): dense ``(n, R)`` demand arrays,
-  masked whole-round passes, futile-retry elision.  Placement-for-
-  placement equal to the reference (``tests/test_torch_repack.py``).
+Each scheduler's ``step`` is the vectorized batch-round repack of
+``core/repack.py``: dense ``(n, R)`` demand arrays, masked whole-round
+passes, futile-retry elision.  The reference's own greedy loops
+(``step_reference`` there) are the oracle its placements are held to
+(``tests/test_torch_repack.py``).
 
 ``dirty`` tracks whether the next ``step`` can differ from the last one:
 arrivals and repack-relevant completions set it, no-op events (a
@@ -30,36 +25,13 @@ arrival) leave it unset so the sim engine can skip the repack entirely.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 from . import repack
-from .repack import DensePool, _place_fast, _place_loop  # noqa: F401  (re-export)
+from .repack import DensePool, _place_fast
 from .types import ClusterSpec, Job
-
-
-# Placement backend switch: "fast" (whole-pool array ops, the default) or
-# "loop" (the seed's per-server Python scan, kept as the honest baseline
-# for `simulate_reference` / the sim-v2 speedup benchmark).  Both produce
-# bit-identical placements.
-PLACE_IMPL = "fast"
-
-# Repack backend switch: "kernel" (vectorized batch-round kernels from
-# core/repack.py, the default) or "reference" (the seed's greedy loops).
-# ``simulate_reference`` pins "reference" for the honest v1 code path.
-REPACK_IMPL = "kernel"
-
-
-def _place(count: int, free: np.ndarray, demand: np.ndarray) -> Optional[np.ndarray]:
-    """Round-robin placement of ``count`` instances onto servers.
-
-    free: (S, R) remaining capacity (mutated on success).  Returns per-server
-    counts or None if the pool cannot host all instances.
-    """
-    if PLACE_IMPL == "loop":
-        return _place_loop(count, free, demand)
-    return _place_fast(count, free, demand)
 
 
 class ReactiveScheduler:
@@ -147,14 +119,6 @@ class ReactiveScheduler:
         return n, job.ps_for(n)
 
     def step(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
-        if REPACK_IMPL == "reference":
-            return self.step_reference(t)
-        return self.step_kernel(t)
-
-    def step_reference(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
-        raise NotImplementedError
-
-    def step_kernel(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
         raise NotImplementedError
 
 
@@ -168,36 +132,7 @@ class FIFO(ReactiveScheduler):
         # the freed capacity
         return any(j not in self.alloc for j in self.unfinished)
 
-    def step_reference(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
-        free_w = self.worker_caps.astype(float).copy()
-        free_s = self.ps_caps.astype(float).copy()
-        out: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        # running jobs keep their placement (deduct first)
-        for jid in self.unfinished:
-            if jid in self.alloc:
-                y, z = self.alloc[jid]
-                job = self.jobs[jid]
-                free_w -= y[:, None] * job.worker_res[None]
-                free_s -= z[:, None] * job.ps_res[None]
-                out[jid] = (y, z)
-        # admit queued jobs head-of-line
-        for jid in self.unfinished:
-            if jid in self.alloc:
-                continue
-            job = self.jobs[jid]
-            nw, nps = self._counts(job)
-            y = _place(nw, free_w, job.worker_res)
-            if y is None:
-                break                        # FIFO head-of-line blocking
-            z = _place(nps, free_s, job.ps_res)
-            if z is None:
-                free_w += y[:, None] * job.worker_res[None]
-                break
-            self.alloc[jid] = (y, z)
-            out[jid] = (y, z)
-        return out
-
-    def step_kernel(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    def step(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
         free_w = self.worker_caps.astype(float).copy()
         free_s = self.ps_caps.astype(float).copy()
         out: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
@@ -229,43 +164,7 @@ class DRF(ReactiveScheduler):
 
     name = "drf"
 
-    def step_reference(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
-        free_w = self.worker_caps.astype(float).copy()
-        free_s = self.ps_caps.astype(float).copy()
-        total_w = np.maximum(self.worker_caps.sum(axis=0), 1e-9)
-        counts = {jid: 0 for jid in self.unfinished}
-        shares = {jid: 0.0 for jid in self.unfinished}
-        placements = {jid: (np.zeros(self.cluster.H, dtype=np.int64),
-                            np.zeros(self.cluster.K, dtype=np.int64))
-                      for jid in self.unfinished}
-        blocked: set = set()
-        while len(blocked) < len(counts):
-            cand = [j for j in self.unfinished if j not in blocked]
-            if not cand:
-                break
-            jid = min(cand, key=lambda j: shares[j])
-            job = self.jobs[jid]
-            if counts[jid] >= job.num_chunks:
-                blocked.add(jid)
-                continue
-            y = _place(1, free_w, job.worker_res)
-            if y is None:
-                blocked.add(jid)
-                continue
-            need_ps = job.ps_for(counts[jid] + 1) - int(placements[jid][1].sum())
-            z = _place(need_ps, free_s, job.ps_res) if need_ps > 0 else np.zeros(
-                self.cluster.K, dtype=np.int64)
-            if z is None:
-                free_w += y[:, None] * job.worker_res[None]
-                blocked.add(jid)
-                continue
-            counts[jid] += 1
-            placements[jid] = (placements[jid][0] + y, placements[jid][1] + z)
-            dom = np.max(counts[jid] * job.worker_res / total_w)
-            shares[jid] = float(dom)
-        return {j: pl for j, pl in placements.items() if pl[0].sum() > 0}
-
-    def step_kernel(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    def step(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
         return repack.drf_repack(self.worker_caps, self.ps_caps,
                                  self.pool, self.unfinished)
 
@@ -308,40 +207,7 @@ class RRH(ReactiveScheduler):
         # no paused job to resume -> freed capacity changes nothing
         return any(j not in self.alloc for j in self.unfinished)
 
-    def step_reference(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
-        free_w = self.worker_caps.astype(float).copy()
-        free_s = self.ps_caps.astype(float).copy()
-        out: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
-        for jid in self.unfinished:           # running keep allocation
-            if jid in self.alloc:
-                y, z = self.alloc[jid]
-                job = self.jobs[jid]
-                free_w -= y[:, None] * job.worker_res[None]
-                free_s -= z[:, None] * job.ps_res[None]
-                out[jid] = (y, z)
-        # resume/start paused jobs in order of payoff density
-        waiting = [j for j in self.unfinished if j not in self.alloc]
-        def density(jid: int) -> float:
-            job = self.jobs[jid]
-            nw, _ = self._counts(job)
-            dur = math.ceil(job.total_work_slots / max(nw, 1))
-            return -job.utility(dur + (t - job.arrival)) / max(
-                nw * job.worker_res.sum(), 1e-9)
-        for jid in sorted(waiting, key=density):
-            job = self.jobs[jid]
-            nw, nps = self._counts(job)
-            y = _place(nw, free_w, job.worker_res)
-            if y is None:
-                continue
-            z = _place(nps, free_s, job.ps_res)
-            if z is None:
-                free_w += y[:, None] * job.worker_res[None]
-                continue
-            self.alloc[jid] = (y, z)
-            out[jid] = (y, z)
-        return out
-
-    def step_kernel(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    def step(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
         free_w = self.worker_caps.astype(float).copy()
         free_s = self.ps_caps.astype(float).copy()
         out: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
@@ -376,71 +242,9 @@ class Dorm(ReactiveScheduler):
 
     name = "dorm"
 
-    def step_reference(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
-        free_w = self.worker_caps.astype(float).copy()
-        free_s = self.ps_caps.astype(float).copy()
-        placements = {jid: (np.zeros(self.cluster.H, dtype=np.int64),
-                            np.zeros(self.cluster.K, dtype=np.int64))
-                      for jid in self.unfinished}
-        counts = {jid: 0 for jid in self.unfinished}
-        progress = True
-        while progress:                       # round-robin water filling
-            progress = False
-            for jid in self.unfinished:
-                job = self.jobs[jid]
-                if counts[jid] >= job.num_chunks:
-                    continue
-                y = _place(1, free_w, job.worker_res)
-                if y is None:
-                    continue
-                need_ps = job.ps_for(counts[jid] + 1) - int(placements[jid][1].sum())
-                z = _place(need_ps, free_s, job.ps_res) if need_ps > 0 else np.zeros(
-                    self.cluster.K, dtype=np.int64)
-                if z is None:
-                    free_w += y[:, None] * job.worker_res[None]
-                    continue
-                counts[jid] += 1
-                placements[jid] = (placements[jid][0] + y, placements[jid][1] + z)
-                progress = True
-        return {j: pl for j, pl in placements.items() if pl[0].sum() > 0}
-
-    def step_kernel(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
+    def step(self, t: int) -> Dict[int, Tuple[np.ndarray, np.ndarray]]:
         return repack.dorm_repack(self.worker_caps, self.ps_caps,
                                   self.pool, self.unfinished)
 
 
-class Learned(FIFO):
-    """FIFO allocation machinery with *per-job* worker/PS counts chosen by
-    an external policy at admission (the rl/ subsystem's action space).
-
-    A job admitted with counts ``(nw, nps)`` holds exactly that allocation
-    from the moment it fits until completion; waiting jobs start in
-    arrival order with FIFO head-of-line blocking.  With no counts set
-    this degenerates to FIFO verbatim (``_counts`` falls back to the
-    fixed-worker rule), which is the anchor of the env/engine equivalence
-    suite: a policy that replays FIFO's counts must reproduce the FIFO
-    run bit-for-bit.
-    """
-
-    name = "learned"
-
-    def __init__(self, cluster: ClusterSpec, fixed_workers: int = 8):
-        super().__init__(cluster, fixed_workers=fixed_workers)
-        self.counts_for: Dict[int, Tuple[int, int]] = {}
-
-    def set_counts(self, jid: int, nw: int, nps: int) -> None:
-        """Pin the worker/PS counts the next ``step`` will allocate."""
-        self.counts_for[jid] = (int(nw), int(nps))
-
-    def _counts(self, job: Job) -> Tuple[int, int]:
-        if job.jid in self.counts_for:
-            return self.counts_for[job.jid]
-        return super()._counts(job)
-
-    def on_completion(self, jid: int, t: int) -> None:
-        super().on_completion(jid, t)
-        self.counts_for.pop(jid, None)
-
-
-BASELINES = {"fifo": FIFO, "drf": DRF, "rrh": RRH, "dorm": Dorm,
-             "learned": Learned}
+BASELINES = {"fifo": FIFO, "drf": DRF, "rrh": RRH, "dorm": Dorm}

@@ -8,9 +8,8 @@ creates a torch tensor, and the floats replay the reference op for op,
 so every placement equals the reference's bit for bit
 (``tests/test_torch_repack.py``).
 
-The reference implementations (kept verbatim as ``step_reference`` in
-``core/baselines.py``) repack the whole live job set one chunk at a time:
-every event triggers O(jobs x chunks) Python-level ``_place(1, ...)``
+The reference's greedy loops (its ``step_reference``) repack the whole
+live job set one chunk at a time: every event triggers O(jobs x chunks) Python-level ``_place(1, ...)``
 calls, each a freshly-allocated ``(S, R)`` array scan that restarts from
 server 0.  At the fig3-shaped 10x scale (T=500, 100+100 servers, 2000
 jobs) DRF and Dorm each burn ~80 s of a CPU in that loop — the baselines, not
@@ -56,15 +55,13 @@ placements match the greedy loops exactly; the single semantic deviation
 is that a sub-ULP capacity wobble from a PS rollback (``x - d + d > x``)
 can no longer resurrect a previously unfit server for a job whose cursor
 moved past it — beyond the loops' own 1e-9 slack and unobserved on any
-tested instance.  Exact equality of placements against
+tested instance.  Exact equality of placements against the reference's
 ``step_reference`` holds on the seeded paper-scale instances and on
 randomized adversarial instances (full-pool rejection, PS-placement
 rollback, heterogeneous fleets).
 
-The placement primitives ``_place_fast`` / ``_place_loop`` live here too
-(moved from ``core/baselines.py``, which re-exports them): they are the
-shared bottom layer of the reference loops, the RRH/FIFO kernels, and
-the multi-instance PS path.
+The placement primitive ``_place_fast`` lives here too: it is the
+bottom layer of the RRH/FIFO kernels and the multi-instance PS path.
 """
 from __future__ import annotations
 
@@ -106,38 +103,6 @@ def _place_fast(count: int, free: np.ndarray, demand: np.ndarray
         free[take] -= demand[None]
         out[take] += 1
         placed += take.size
-    return out
-
-
-def _place_loop(count: int, free: np.ndarray, demand: np.ndarray
-                ) -> Optional[np.ndarray]:
-    """The seed's per-server scan (v1 baseline; see baselines.PLACE_IMPL)."""
-    S = free.shape[0]
-    out = np.zeros(S, dtype=np.int64)
-    if count == 0:
-        return out
-    placed = 0
-    for rounds in range(count):
-        progressed = False
-        for srv in range(S):
-            if placed >= count:
-                break
-            if np.all(free[srv] >= demand - 1e-9):
-                free[srv] -= demand
-                out[srv] += 1
-                placed += 1
-                progressed = True
-        if placed >= count:
-            break
-        if not progressed:
-            # rollback
-            for srv in range(S):
-                free[srv] += out[srv] * demand
-            return None
-    if placed < count:
-        for srv in range(S):
-            free[srv] += out[srv] * demand
-        return None
     return out
 
 

@@ -256,7 +256,7 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         params: Optional[PriceParams] = None, check: bool = True,
         quantum: Optional[int] = None,
         device: Optional[Union[str, torch.device]] = None,
-        core: str = "whole", fixed_workers: int = 8,
+        core: str = "whole",
         cancellations: Optional[Dict[int, int]] = None,
         throughput: Optional[ThroughputFn] = None,
         fleet: Optional[FleetTrace] = None,
@@ -266,7 +266,6 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     OASiS decides on ``device`` (None: the CUDA card), every decision
     through the decision core ``core`` (``"whole"`` or ``"tiled"``, see
     ``core/schedule_torch.py``); a reactive baseline runs on the host,
-    with ``fixed_workers`` workers a job where its rule fixes the count,
     but the device is resolved first all the same.  The reference
     ``engine.run``'s contract, with its ``cancellations``, ``fleet`` and
     ``throughput`` hooks (module docstring); OASiS's price parameters come
@@ -294,8 +293,8 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     _unported(scheduler, policy)
     device = resolve_device(device)
     if scheduler != "oasis":
-        return _drive_reactive(cluster, jobs, scheduler, fixed_workers, check,
-                               quantum, cancellations, throughput, fleet,
+        return _drive_reactive(cluster, jobs, scheduler, check, quantum,
+                               cancellations, throughput, fleet,
                                ckpt_interval)
     T = cluster.T
     jmap = {j.jid: j for j in jobs}
@@ -443,8 +442,7 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                warmup_sample: int = 256, fleet: Optional[FleetTrace] = None,
                ckpt_interval: int = CKPT_INTERVAL,
                device: Optional[Union[str, torch.device]] = None,
-               core: str = "whole", fixed_workers: int = 8,
-               policy=None) -> SimResult:
+               core: str = "whole", policy=None) -> SimResult:
     """Drive ``scheduler`` over an open-ended arrival stream: OASiS on
     ``device`` (None: the CUDA card), through the decision core ``core``;
     a reactive baseline on the host, after the device is resolved, with
@@ -476,8 +474,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     _unported(scheduler, policy)
     device = resolve_device(device)
     if scheduler != "oasis":
-        return _drive_reactive_stream(cluster, jobs, scheduler, fixed_workers,
-                                      check, quantum, fleet, ckpt_interval)
+        return _drive_reactive_stream(cluster, jobs, scheduler, check,
+                                      quantum, fleet, ckpt_interval)
     if params is None:
         it = iter(jobs)
         sample = list(itertools.islice(it, warmup_sample))
@@ -627,19 +625,6 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
 # Reactive baselines: repack at events, fast-forward in between (host only)
 # ---------------------------------------------------------------------------
 
-def _pool_usage(cur_alloc: Dict[int, tuple], jmap: Dict[int, Job],
-                cluster: ClusterSpec) -> Tuple[np.ndarray, np.ndarray]:
-    """(R,) total worker- and PS-pool usage of one allocation snapshot (the
-    reference's decision points read it; ``rl/`` will)."""
-    used_w = np.zeros(cluster.worker_caps.shape[1])
-    used_s = np.zeros(cluster.ps_caps.shape[1])
-    for jid, (y, z) in cur_alloc.items():
-        used_w += float(y.sum()) * jmap[jid].worker_res
-        if z is not None:
-            used_s += float(z.sum()) * jmap[jid].ps_res
-    return used_w, used_s
-
-
 def _preempt_on(trans, cur_alloc: Dict[int, tuple], remaining, ckpt_rem,
                 jmap: Dict[int, Job], rsched: ReactiveScheduler,
                 t: int) -> int:
@@ -723,7 +708,7 @@ def _consume(ids, consumed, remaining, completion, total_utility: float,
 
 
 def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
-                    fixed_workers: int, check: bool, quantum: Optional[int],
+                    check: bool, quantum: Optional[int],
                     cancellations: Optional[Dict[int, int]],
                     throughput: Optional[ThroughputFn],
                     fleet: Optional[FleetTrace],
@@ -733,8 +718,7 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
     src = {j.jid: _with_quantum(j, quantum) for j in jobs}
     jmap = dict(src)
     by_slot, cancel_slot = _group_events(src.values(), cancellations, T)
-    rsched: ReactiveScheduler = BASELINES[scheduler](
-        cluster, fixed_workers=fixed_workers)
+    rsched: ReactiveScheduler = BASELINES[scheduler](cluster)
     total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
     admitted: List[int] = []
     remaining: Dict[int, float] = {}
@@ -856,15 +840,14 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
 
 
 def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
-                           scheduler: str, fixed_workers: int, check: bool,
+                           scheduler: str, check: bool,
                            quantum: Optional[int],
                            fleet: Optional[FleetTrace],
                            ckpt_interval: int) -> SimResult:
     """The reference's ``_drive_reactive_stream`` without its decision
     points: the episodic driver over an open-ended stream, the clock
     unbounded; it ends when the stream does and no live job progresses."""
-    rsched: ReactiveScheduler = BASELINES[scheduler](
-        cluster, fixed_workers=fixed_workers)
+    rsched: ReactiveScheduler = BASELINES[scheduler](cluster)
     total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
     jmap: Dict[int, Job] = {}
     arrivals: Dict[int, int] = {}

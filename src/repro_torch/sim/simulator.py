@@ -1,44 +1,38 @@
 """Trace-driven cluster simulation (paper Sec. V-A).
 
 ``simulate`` is a thin wrapper over the event-driven engine
-(``sim/engine.py::run``); ``simulate_reference`` is the per-slot loop the
-engine replaced, kept as its equivalence oracle: every slot steps the
-scheduler, checks capacity and accounts work, in Python.  The port's own
-copy of the reference's ``sim/simulator.py``; OASiS decides on ``device``
-through the decision core ``core`` in both, the reactive baselines run on
-the host in numpy.
+(``sim/engine.py::run``).  The port's own copy of the reference's
+``sim/simulator.py``; OASiS decides on ``device`` through the decision
+core ``core``, the reactive baselines run on the host in numpy.  The
+reference's per-slot loop (its ``simulate_reference``) is the oracle the
+engine is held to (``tests/test_torch_reactive.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, Optional, Sequence, Union
 
-import numpy as np
 import torch
 
-from .. import resolve_device
-from ..core import baselines
-from ..core.baselines import BASELINES, ReactiveScheduler
-from ..core.oasis import OASiS
-from ..core.pricing import PriceParams, price_params_from_jobs
+from ..core.pricing import PriceParams
 from ..core.types import ClusterSpec, Job
 from . import engine
 from .engine import SimResult
 
-__all__ = ["SimResult", "simulate", "simulate_reference"]
+__all__ = ["SimResult", "simulate"]
 
 
 def simulate(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
-             params: Optional[PriceParams] = None, fixed_workers: int = 8,
-             check: bool = True, quantum: Optional[int] = None,
+             params: Optional[PriceParams] = None, check: bool = True,
+             quantum: Optional[int] = None,
              cancellations: Optional[Dict[int, int]] = None,
              throughput: Optional[engine.ThroughputFn] = None,
              device: Optional[Union[str, torch.device]] = None,
              core: str = "whole") -> SimResult:
     """Drive ``scheduler`` through T slots on the event engine.
 
-    Equals the per-slot loop (``simulate_reference``) on cancellation-free,
-    unperturbed workloads; ``cancellations`` and ``throughput`` are the
-    engine's scenario hooks (``sim/engine.py``).
+    Equals the reference's per-slot loop on cancellation-free, unperturbed
+    workloads; ``cancellations`` and ``throughput`` are the engine's
+    scenario hooks (``sim/engine.py``).
 
     Example::
 
@@ -51,126 +45,6 @@ def simulate(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis"
         (4, 4)
     """
     return engine.run(cluster, jobs, scheduler=scheduler, params=params,
-                      fixed_workers=fixed_workers, check=check,
-                      quantum=quantum, cancellations=cancellations,
-                      throughput=throughput, device=device, core=core)
-
-
-def _check_capacity(cluster: ClusterSpec, jobs: Dict[int, Job],
-                    alloc: Dict[int, tuple]) -> None:
-    used_w = np.zeros_like(cluster.worker_caps, dtype=float)
-    used_s = np.zeros_like(cluster.ps_caps, dtype=float)
-    for jid, (y, z) in alloc.items():
-        job = jobs[jid]
-        used_w += y[:, None] * job.worker_res[None]
-        if z is not None:
-            used_s += z[:, None] * job.ps_res[None]
-    if not np.all(used_w <= cluster.worker_caps + 1e-6):
-        raise RuntimeError("worker capacity violated")
-    if not np.all(used_s <= cluster.ps_caps + 1e-6):
-        raise RuntimeError("PS capacity violated")
-
-
-def simulate_reference(cluster: ClusterSpec, jobs: Sequence[Job],
-                       scheduler: str = "oasis",
-                       params: Optional[PriceParams] = None,
-                       fixed_workers: int = 8, check: bool = True,
-                       quantum: Optional[int] = None,
-                       seed_placement: bool = True,
-                       device: Optional[Union[str, torch.device]] = None,
-                       core: str = "whole") -> SimResult:
-    """The per-slot simulation loop (the engine's equivalence oracle).
-
-    ``seed_placement=True`` also pins the baselines' greedy repack loops
-    (``step_reference``) and runs their round-robin placement through the
-    per-server Python scan (``_place_loop``), so the reactive path is the
-    original code end to end; placements equal the vectorized kernels'
-    either way.
-    """
-    if seed_placement and (baselines.PLACE_IMPL != "loop"
-                           or baselines.REPACK_IMPL != "reference"):
-        saved = (baselines.PLACE_IMPL, baselines.REPACK_IMPL)
-        baselines.PLACE_IMPL = "loop"
-        baselines.REPACK_IMPL = "reference"
-        try:
-            return simulate_reference(cluster, jobs, scheduler=scheduler,
-                                      params=params,
-                                      fixed_workers=fixed_workers,
-                                      check=check, quantum=quantum,
-                                      seed_placement=True, device=device,
-                                      core=core)
-        finally:
-            baselines.PLACE_IMPL, baselines.REPACK_IMPL = saved
-    device = resolve_device(device)
-    jmap = {j.jid: j for j in jobs}
-    by_slot: Dict[int, List[Job]] = {}
-    for j in jobs:
-        by_slot.setdefault(j.arrival, []).append(j)
-
-    total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
-    util_acc = []
-
-    if scheduler == "oasis":
-        params = params or price_params_from_jobs(jobs, cluster)
-        osched = OASiS(cluster, params, device=device, core=core)
-        completion: Dict[int, int] = {}
-        for t in range(cluster.T):
-            batch = [engine._with_quantum(job, quantum)
-                     for job in by_slot.get(t, [])]
-            for job, s in zip(batch, osched.on_arrivals(batch)):
-                if s is not None:
-                    completion[job.jid] = s.finish
-            alloc = osched.allocation_at(t)
-            if check:
-                _check_capacity(cluster, jmap, alloc)
-            gpu = sum(float(y.sum()) * jmap[jid].worker_res[0]
-                      for jid, (y, _) in alloc.items())
-            util_acc.append(gpu / total_gpu)
-        return SimResult(name="oasis", total_utility=osched.total_utility,
-                         accepted=len(osched.accepted),
-                         completed=len(completion),
-                         n_jobs=len(jobs), completion=completion,
-                         target_gap=engine._target_gaps(jmap, completion),
-                         decision_seconds=osched.decision_seconds,
-                         utilization=float(np.mean(util_acc))
-                         if util_acc else 0.0,
-                         arrivals={j.jid: j.arrival for j in jobs
-                                   if j.arrival < cluster.T})
-
-    engine._unported(scheduler, None)
-    rsched: ReactiveScheduler = BASELINES[scheduler](
-        cluster, fixed_workers=fixed_workers)
-    admitted: List[int] = []
-    work_done: Dict[int, float] = {}
-    completion = {}
-    total_utility = 0.0
-    for t in range(cluster.T):
-        for job in by_slot.get(t, []):
-            if rsched.on_arrival(job, t):
-                admitted.append(job.jid)
-                work_done[job.jid] = 0.0
-        alloc = rsched.step(t)
-        if check:
-            _check_capacity(cluster, jmap, alloc)
-        gpu = 0.0
-        done_now = []
-        for jid, (y, z) in alloc.items():
-            job = jmap[jid]
-            gpu += float(y.sum()) * job.worker_res[0]
-            # W workers provide W worker-slots of work per slot
-            work_done[jid] += float(y.sum())
-            if work_done[jid] >= job.total_work_slots - 1e-9:
-                done_now.append(jid)
-        util_acc.append(gpu / total_gpu)
-        for jid in done_now:
-            completion[jid] = t
-            total_utility += jmap[jid].utility(t - jmap[jid].arrival)
-            rsched.on_completion(jid, t)
-    return SimResult(name=scheduler, total_utility=total_utility,
-                     accepted=len(admitted), completed=len(completion),
-                     n_jobs=len(jobs), completion=completion,
-                     target_gap=engine._target_gaps(jmap, completion),
-                     decision_seconds=[],
-                     utilization=float(np.mean(util_acc)) if util_acc else 0.0,
-                     arrivals={j.jid: j.arrival for j in jobs
-                               if j.arrival < cluster.T})
+                      check=check, quantum=quantum,
+                      cancellations=cancellations, throughput=throughput,
+                      device=device, core=core)

@@ -1,14 +1,15 @@
 """The reactive baselines' placements on the port against the JAX
 package's (``core/repack.py``, ``core/baselines.py``).
 
-* ``_place_fast`` / ``_place_loop`` place and roll back exactly as the
-  reference's ``_place_fast``, free capacities included;
-* both ``step_kernel`` and ``step_reference`` of FIFO, DRF, RRH and Dorm
-  give, at every step of a replayed trace, the placements of the
-  reference's ``step_kernel`` and ``step_reference``: paper scale (seeds
-  0..4), full-size jobs, a heterogeneous fleet, randomized instances that
-  force full-pool rejections and PS rollbacks, and a hand-built PS
-  rollback;
+* ``_place_fast`` places and rolls back exactly as the reference's
+  ``_place_fast`` and its per-server scan ``_place_loop``, free
+  capacities included;
+* the ``step`` of FIFO, DRF, RRH and Dorm gives, at every step of a
+  replayed trace, the placements of the reference's ``step_kernel`` and
+  of its greedy loops ``step_reference``: paper scale (seeds 0..4),
+  full-size jobs, a heterogeneous fleet, both worker counts, randomized
+  instances that force full-pool rejections and PS rollbacks, and a
+  hand-built PS rollback;
 * the ``dirty`` contract: no-op events leave the flag unset, and the
   engine repacks only when it is set.
 """
@@ -46,20 +47,16 @@ def _port(cluster, jobs):
 
 
 def _replay(cluster, jobs, name, fixed_workers=8, churn_seed=None):
-    """Drive the port's scheduler on its kernels and on its reference
-    loops, and the reference's on both, through one event sequence; every
-    repack's placements must be equal.  Completions follow the port's
+    """Drive the port's scheduler, and the reference's on its kernels and
+    on its greedy loops, through one event sequence; every repack's
+    placements must be equal.  Completions follow the port's
     kernel allocation; ``churn_seed`` adds random mid-run completions
     (pool removals)."""
     pc, pjobs = _port(cluster, jobs)
-    scheds = [BASELINES[name](pc, fixed_workers=fixed_workers)
-              for _ in range(2)] + [
+    scheds = [BASELINES[name](pc, fixed_workers=fixed_workers)] + [
         ref_baselines.BASELINES[name](cluster, fixed_workers=fixed_workers)
         for _ in range(2)]
-    steps = [lambda t, s=scheds[0]: s.step_kernel(t),
-             lambda t, s=scheds[1]: s.step_reference(t),
-             lambda t, s=scheds[2]: s.step_kernel(t),
-             lambda t, s=scheds[3]: s.step_reference(t)]
+    steps = [scheds[0].step, scheds[1].step_kernel, scheds[2].step_reference]
     by_slot = {}
     for pj, rj in zip(pjobs, jobs):
         if rj.arrival < cluster.T:
@@ -69,7 +66,7 @@ def _replay(cluster, jobs, name, fixed_workers=8, churn_seed=None):
         else None
     for t in range(cluster.T):
         for pj, rj in by_slot.get(t, ()):
-            got = [s.on_arrival(pj if i < 2 else rj, t)
+            got = [s.on_arrival(pj if i < 1 else rj, t)
                    for i, s in enumerate(scheds)]
             assert len(set(got)) == 1, (t, pj.jid)
             if got[0]:
@@ -92,8 +89,9 @@ def _replay(cluster, jobs, name, fixed_workers=8, churn_seed=None):
 
 
 def test_place_primitives_equal_reference():
-    """Round-robin placement, partial fits rolled back: the port's fast
-    and loop placements equal the reference's, free capacity included."""
+    """Round-robin placement, partial fits rolled back: the port's
+    placements equal the reference's fast and loop ones, free capacity
+    included."""
     rng = np.random.default_rng(0)
     for _ in range(200):
         S = int(rng.integers(1, 12))
@@ -103,7 +101,7 @@ def test_place_primitives_equal_reference():
         frees = [free.copy() for _ in range(3)]
         outs = [ref_baselines._place_fast(count, frees[0], demand),
                 baselines._place_fast(count, frees[1], demand),
-                baselines._place_loop(count, frees[2], demand)]
+                ref_baselines._place_loop(count, frees[2], demand)]
         assert len({o is None for o in outs}) == 1
         if outs[0] is not None:
             assert all(np.array_equal(outs[0], o) for o in outs[1:])
@@ -124,6 +122,15 @@ def test_placements_equal_reference_full_size(name):
     PS placements span servers."""
     _replay(make_cluster(T=60, H=12, K=12),
             make_jobs(30, T=60, seed=3, small=False), name, churn_seed=1)
+
+
+@pytest.mark.parametrize("fixed_workers", [2, 8])
+def test_fixed_workers_reaches_the_schedulers(fixed_workers):
+    """The fixed worker count of FIFO and RRH, set at construction."""
+    for name in ("fifo", "rrh"):
+        _replay(make_cluster(T=40, H=8, K=8),
+                make_jobs(25, T=40, seed=2, small=False), name,
+                fixed_workers=fixed_workers, churn_seed=3)
 
 
 @pytest.mark.parametrize("name", REACTIVE)
@@ -162,7 +169,8 @@ def _random_instance(rng, tight_ps=False, tight_pool=False):
 def test_placements_equal_reference_randomized(mode):
     """300 randomized instances a regime: ``tight_ps`` forces PS rollbacks
     (a worker fits, its PS does not), ``tight_pool`` full-pool
-    rejections; every scheduler, both repack implementations."""
+    rejections; every scheduler, against both of the reference's repack
+    implementations."""
     rng = np.random.default_rng({"plain": 0, "tight_ps": 1,
                                  "tight_pool": 2}[mode])
     saw_placement = saw_rejection = False
@@ -171,13 +179,13 @@ def test_placements_equal_reference_randomized(mode):
             rng, tight_ps=mode == "tight_ps", tight_pool=mode == "tight_pool")
         pc, pjobs = _port(cluster, jobs)
         for name in REACTIVE:
-            port = [BASELINES[name](pc) for _ in range(2)]
-            ref = ref_baselines.BASELINES[name](cluster)
+            port = BASELINES[name](pc)
+            ref = [ref_baselines.BASELINES[name](cluster) for _ in range(2)]
             for pj, rj in zip(pjobs, jobs):
-                assert {s.on_arrival(pj, 0) for s in port} == {
-                    ref.on_arrival(rj, 0)}
-            out = [port[0].step_kernel(0), port[1].step_reference(0),
-                   ref.step_kernel(0)]
+                assert {s.on_arrival(rj, 0) for s in ref} == {
+                    port.on_arrival(pj, 0)}
+            out = [port.step(0), ref[0].step_kernel(0),
+                   ref[1].step_reference(0)]
             _same_steps(out, f"{name} {mode}")
             saw_placement = saw_placement or bool(out[0])
             placed = sum(int(y.sum()) for y, _ in out[0].values())
@@ -197,13 +205,12 @@ def test_ps_rollback_blocks_the_job():
                  ps_res=np.full(5, 2.0), utility=RefSigmoid(10.0, 0.1, 4.0))
     pc, (pj,) = _port(cluster, [job])
     for name in ("drf", "dorm"):
-        port = [BASELINES[name](pc) for _ in range(2)]
-        ref = ref_baselines.BASELINES[name](cluster)
-        for s in port:
-            s.on_arrival(pj, 0)
-        ref.on_arrival(job, 0)
-        out = [port[0].step_kernel(0), port[1].step_reference(0),
-               ref.step_reference(0)]
+        port = BASELINES[name](pc)
+        ref = [ref_baselines.BASELINES[name](cluster) for _ in range(2)]
+        port.on_arrival(pj, 0)
+        for s in ref:
+            s.on_arrival(job, 0)
+        out = [port.step(0), ref[0].step_kernel(0), ref[1].step_reference(0)]
         _same_steps(out, name)
         assert out[0] == {}
 

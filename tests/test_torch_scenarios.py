@@ -8,9 +8,10 @@
   reference's: reactive rows and OASiS rows of the whole route exactly
   (the reference's rows use ``impl="fast"``; serving's OASiS row, which
   the reference runs on ``impl="jax"``, is held to a direct
-  ``impl="fast"`` run); the tiled route's OASiS rows on the
-  heterogeneous fleet and under stragglers have the reference's tiled
-  engine's (``impl="jax"``) completions and utility within rel 1e-9;
+  ``impl="fast"`` run); the tiled route's OASiS rows (heterogeneous
+  fleet, stragglers, misestimated bounds, cancellations) have the
+  reference's tiled engine's (``impl="jax"``) completions and utility
+  within rel 1e-9;
 * the paper's claims on the port: OASiS beats every reactive baseline
   under scarcity, and its utility is within the competitive ratio
   ``2 alpha`` of the offline optimum (the reference's ``offline_optimum``
@@ -32,7 +33,7 @@ from repro_torch import compat
 from repro_torch.core.oasis import OASiS
 from repro_torch.core.pricing import price_params_from_jobs
 from repro_torch.runtime import straggler
-from repro_torch.sim import scenarios, simulator, workload
+from repro_torch.sim import engine, scenarios, simulator, workload
 
 from _torch_parity import jax_shims, one_torch_thread  # noqa: F401
 
@@ -154,32 +155,83 @@ def test_quick_serving_rows_equal_reference():
     assert oasis.window_bytes == fast.window_bytes
 
 
-def test_tiled_oasis_rows_match_reference_tiled_engine(jax_shims):
-    """The quick heterogeneous fleet (unequal worker rows through the
-    tiled route's padded state) and the quick straggler rows, the tiled
-    route against the reference's tiled engine on the same instances."""
-    rows = {(r.scenario, r.variant): r for name in ("hetero", "straggler")
-            for r in scenarios.run_scenario(name, quick=True, device="cpu",
-                                            core="tiled")
-            if r.scheduler == "oasis"}
-    hc = ref_scenarios.make_hetero_cluster(T=60, H=20, K=20, seed=0)
-    runs = [(("hetero", "mixed-fleet"), hc, make_jobs(40, T=60, seed=0,
-                                                       small=True), {})]
-    sc, sj = make_cluster(T=60, H=16, K=16), make_jobs(30, T=60, seed=0,
-                                                       small=True)
-    runs += [(("straggler", "none"), sc, sj, {})]
-    for detect, label in [(False, "undetected"), (True, "detected")]:
-        runs.append((("straggler", label), sc, sj, {
-            "throughput": ref_scenarios.StragglerThroughput(
-                seed=0, slow_frac=0.15, slowdown=3.0, detect=detect)}))
-    for key, cluster, jobs, kw in runs:
+def _reference_tiled_runs(name):
+    """(variant, cluster, jobs, run kwargs) of the quick scenario ``name``'s
+    OASiS rows, built as the reference's runner builds them."""
+    if name == "hetero":
+        return [("mixed-fleet",
+                 ref_scenarios.make_hetero_cluster(T=60, H=20, K=20, seed=0),
+                 make_jobs(40, T=60, seed=0, small=True), {})]
+    T, H, n = (60, 16, 30) if name == "straggler" else (60, 16, 40)
+    cluster = make_cluster(T=T, H=H, K=H)
+    jobs = make_jobs(n, T=T, seed=0, small=True)
+    if name == "cancel":
+        return [("none", cluster, jobs, {}),
+                ("frac=0.25", cluster, jobs, {
+                    "cancellations": ref_scenarios.cancellation_trace(
+                        jobs, frac=0.25, seed=0)})]
+    if name == "misest":
+        exact = ref_params(jobs, cluster)
+        return [(f"x{f}", cluster, jobs, {"params": exact.scaled(f)})
+                for f in (0.25, 0.5, 1.0, 2.0, 4.0)]
+    return [("none", cluster, jobs, {})] + [
+        (label, cluster, jobs, {"throughput":
+                                ref_scenarios.StragglerThroughput(
+                                    seed=0, slow_frac=0.15, slowdown=3.0,
+                                    detect=detect)})
+        for detect, label in [(False, "undetected"), (True, "detected")]]
+
+
+@pytest.mark.parametrize("name", ["hetero", "straggler", "misest",
+                                  "cancel"])
+def test_tiled_oasis_rows_match_reference_tiled_engine(jax_shims, name):
+    """Every quick OASiS row of the tiled route against the reference's
+    tiled engine on the same instance: the heterogeneous fleet (unequal
+    worker rows through the tiled route's padded state), stragglers,
+    misestimated price bounds (``PriceParams.scaled``) and
+    cancellations."""
+    rows = {r.variant: r for r in scenarios.run_scenario(
+        name, quick=True, device="cpu", core="tiled")
+        if r.scheduler == "oasis"}
+    runs = _reference_tiled_runs(name)
+    assert sorted(rows) == sorted(v for v, *_ in runs)
+    for variant, cluster, jobs, kw in runs:
         want = ref_engine.run(cluster, jobs, impl="jax", quantum=0,
                               check=False, **kw)
-        got = rows[key]
-        assert got.completion == want.completion, key
-        assert (got.accepted, got.completed) == (want.accepted,
-                                                 want.completed)
+        got = rows[variant]
+        assert got.completion == want.completion, variant
+        assert (got.accepted, got.completed, got.canceled) == (
+            want.accepted, want.completed, want.canceled), variant
         assert got.utility == pytest.approx(want.total_utility, rel=1e-9)
+
+
+def test_full_size_misest_routes_match_reference_engines(jax_shims):
+    """At the full misest size (T 100, H = K = 20, 60 full-size jobs) the
+    two routes part at x0.25 and x4: each follows its reference engine,
+    the whole route ``impl="fast"`` exactly, the tiled route the tiled
+    engine (``impl="jax"``)."""
+    cluster, jobs = make_cluster(T=100, H=20, K=20), make_jobs(
+        60, T=100, seed=0, small=False)
+    exact = ref_params(jobs, cluster)
+    pc, pjobs = compat.cluster(cluster), [compat.job(j) for j in jobs]
+    pexact = price_params_from_jobs(pjobs, pc)
+    parted = 0
+    for f in (0.25, 4.0):
+        fast, tiled_ref = (ref_engine.run(cluster, jobs, impl=impl, quantum=0,
+                                          check=False,
+                                          params=exact.scaled(f))
+                           for impl in ("fast", "jax"))
+        whole, tiled = (engine.run(pc, pjobs, quantum=0, check=False,
+                                   device="cpu", core=core,
+                                   params=pexact.scaled(f))
+                        for core in ("whole", "tiled"))
+        assert whole.completion == fast.completion, f
+        assert whole.total_utility == fast.total_utility, f
+        assert tiled.completion == tiled_ref.completion, f
+        assert tiled.total_utility == pytest.approx(tiled_ref.total_utility,
+                                                    rel=1e-9)
+        parted += whole.completion != tiled.completion
+    assert parted == 2
 
 
 def test_oasis_beats_baselines_under_scarcity():

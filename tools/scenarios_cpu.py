@@ -39,9 +39,8 @@ def main() -> int:
         with open(path) as f:
             pins = json.load(f)
     for core in ("whole", "tiled"):
-        for name, kw in chip_smoke.SCENARIO_PLAN:
-            if name not in args.only or (core == "tiled"
-                                         and "schedulers" in kw):
+        for name, kw in chip_smoke.scenario_plan(core):
+            if name not in args.only:
                 continue
             t0 = time.perf_counter()
             rows = scenarios.run_scenario(name, device="cpu", core=core,
