@@ -36,9 +36,18 @@ every scheduler they list (OASiS through both routes), scale, serving and
 churn with the reactive baselines (FIFO, DRF, RRH, Dorm, which run on the
 host in numpy and launch no kernel), every OASiS run with the counts set
 to 0 just before it and read just after, every row held to the port on
-the CPU (``tools/scenarios_cpu.py``).  Traced runs show where the time
-goes (the tiled route one job at a time, and in bursts at one and at
-eight lanes).
+the CPU (``tools/scenarios_cpu.py``).  The learned scheduler follows
+(``repro_torch.rl``): OASiS replayed through the engine's decision
+points (``engine.decisions``, the rl env) at paper scale on both routes,
+held to the card's runs, its DP launches counted into the kernels line;
+``default_policy(cluster, seed=0)`` on the 10x instance and on the
+serving stream through ``engine.run``/``run_stream(policy=...)``, held
+to the port's CPU runs (``tools/learned_cpu.py``); and REINFORCE training
+at the reference's ``TrainConfig`` (the behaviour-cloning warm start and
+two iterations of lockstep rollouts, autograd and Adam on the card), one
+update held to the CPU's and a checkpoint round trip.  Traced runs show
+where the time goes (the tiled route one job at a time, and in bursts at
+one and at eight lanes).
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -103,6 +112,9 @@ from repro_torch.models.mamba2 import ssd_chunked_plain  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     decode_step, init_cache, init_model, prefill)
 from repro_torch.serve import steps as serve_steps  # noqa: E402
+from repro_torch.rl import env as rl_env  # noqa: E402
+from repro_torch.rl import policy as rl_policy  # noqa: E402
+from repro_torch.rl import train as rl_train  # noqa: E402
 from repro_torch.sim import engine, scenarios  # noqa: E402
 from repro_torch.sim.fleet import churn_trace  # noqa: E402
 from repro_torch.sim.workload import (  # noqa: E402
@@ -823,7 +835,9 @@ def paper_phase():
     the whole route on the card == on the CPU, and the tiled route on the
     card == the tiled route on the CPU == the whole route (both are held
     to the reference's impl="fast" there), with the plateau kernel
-    firing.  One seed: the CPU tests hold seeds 0..4 to the reference."""
+    firing.  One seed: the CPU tests hold seeds 0..4 to the reference.
+    Returns the card's run per route (the learned phase's replays are
+    held to them)."""
     for seed in (0,):
         cluster = make_cluster(T=100, H=50, K=50)
         jobs = make_jobs(200, T=100, seed=seed, small=True)
@@ -872,6 +886,7 @@ def paper_phase():
             raise AssertionError(f"seed {seed}: the tiled route on the card "
                                  "differs from the CPU's or the whole "
                                  "route's, or took no plateau tile")
+    return {"whole": gpu, "tiled": tgpu}
 
 
 def scale_phase():
@@ -1416,6 +1431,209 @@ def _dp_decisions(jobs, cluster, quantum):
                for j in jobs if j.arrival < cluster.T)
 
 
+# the learned scheduler's runs (tools/learned_cpu.py writes their CPU
+# pins): rl.policy.default_policy(cluster, seed=0) on the 10x instance
+# (SCALE_DIMS, engine.run) and on the serving stream (SERVING_DIMS in full,
+# engine.run_stream), check=True
+LEARNED_CPU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "learned_cpu.json")
+
+
+class _Recorded:
+    """A decider that records its answers, (job, counts or None) each."""
+
+    def __init__(self, decider):
+        self.decider = decider
+        self.answers = []
+
+    def __call__(self, dp):
+        a = self.decider(dp)
+        self.answers.append((int(dp.job.jid),
+                             None if a is None else [int(x) for x in a]))
+        return a
+
+
+def learned_run(which, device=None, track_margins=False):
+    """(result, recorded decider) of the learned scheduler with
+    ``default_policy(cluster, seed=0)`` on ``which``: ``"scale"`` (the 10x
+    instance) or ``"serving"`` (the serving stream)."""
+    if which == "scale":
+        cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
+        jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
+    else:
+        cluster = make_cluster(T=SERVING["window"], H=SERVING["H"],
+                               K=SERVING["K"])
+        jobs = stream_jobs(rate=SERVING["rate"], seed=SERVING["seed"],
+                           max_slots=SERVING["slots"])
+    dec = _Recorded(rl_policy.default_policy(cluster, seed=0, device=device,
+                                             track_margins=track_margins))
+    if which == "scale":
+        res = engine.run(cluster, jobs, scheduler="learned", policy=dec,
+                         check=True, device=device)
+    else:
+        res = engine.run_stream(cluster, jobs, scheduler="learned",
+                                window=SERVING["window"], check=True,
+                                policy=dec, device=device)
+    return res, dec
+
+
+def learned_pin(res, dec):
+    """A learned run's pin: counts, utility, and the sha256 of its
+    completions and of every answer of its policy."""
+    import hashlib
+    return {"accepted": res.accepted, "completed": res.completed,
+            "total_utility": res.total_utility,
+            "completion_sha256": _completion_digest(res.completion),
+            "decisions": len(dec.answers),
+            "answers_sha256": hashlib.sha256(json.dumps(
+                dec.answers).encode()).hexdigest()}
+
+
+def _grads_on(params, pcfg, cfg, batch, device):
+    """(loss, gradient leaves) of the REINFORCE loss on ``device``."""
+    p = rl_train._trainable(rl_policy.params_to(params, torch.device(device)))
+    loss, _, _ = rl_train.reinforce_loss(
+        p, pcfg, cfg, *rl_train._batch(torch.device(device), *batch),
+        cfg.entropy_coef)
+    loss.backward()
+    return float(loss.detach()), [x.grad.cpu().numpy()
+                                  for x in rl_train._leaves(p)]
+
+
+def learned_phase(paper):
+    """The learned-scheduler slice on the card, each run with the counts
+    set to 0 just before it and read just after:
+
+    1. OASiS replayed through ``engine.decisions`` (the rl env and
+       ``ReplayPolicy``) at paper scale, seed 0, both routes, held to the
+       card's runs of the paper phase (``paper``): the same completions
+       and accepted jobs, utility within rel 1e-9; every DP decision
+       through the kernels;
+    2. the learned scheduler, ``default_policy(cluster, seed=0)``, on the
+       10x instance (2000 decisions) and the serving stream (4,457), each
+       held exactly to its CPU pin (:data:`LEARNED_CPU`: counts, utility,
+       completions, every answer);
+    3. training at ``TrainConfig``'s defaults (T 100, H = K = 50, 200
+       full-size jobs, batch 8, d_model 64): the behaviour-cloning warm
+       start (8 episodes, 30 steps), then 2 REINFORCE iterations with
+       ``val_every=0``; losses finite; one update's loss and gradients on
+       a fixed batch on the card within rel 1e-4 of the CPU's (a
+       gradient leaf relative to its largest magnitude); a checkpoint
+       round trip evaluating identically.
+
+    Returns each replay's (sweep, one-slot, plateau) launches by route."""
+    t_phase = time.perf_counter()
+    cluster = make_cluster(T=100, H=50, K=50)
+    jobs = make_jobs(200, T=100, seed=0, small=True)
+    launches = {}
+    for core in ("whole", "tiled"):
+        want = paper[core]
+        env = rl_env.ClusterSchedulingEnv(
+            instance_fn=lambda s: (cluster, jobs), scheduler="oasis",
+            check=True, quantum=0, core=core)
+        res, wall, counts, snap = _timed_run(
+            lambda: rl_env.run_episode(env, rl_env.ReplayPolicy()))
+        label = f"learned phase: OASiS replayed through decisions, {core}"
+        rel = abs(res.total_utility - want.total_utility) / max(
+            abs(want.total_utility), 1e-300)
+        print(f"{label}: accepted={res.accepted} utility="
+              f"{res.total_utility!r} rel_diff_run={rel!r} wall_s={wall!r} "
+              f"decisions={len(res.decision_seconds)} sweeps={counts[0]} "
+              f"chain_tiles={snap['chain']} plateau_tiles={snap['plateau']}"
+              f" plateau_launches={counts[2]}", flush=True)
+        if not (res.accepted == want.accepted and res.completion
+                == want.completion and rel <= 1e-9):
+            raise AssertionError(f"{label}: differs from the card's run")
+        if core == "whole":
+            _check_launches(label, core, res, counts, snap)
+        elif not (_tiled_launches_ok(snap, counts) and sum(counts) > 0):
+            # paper scale's tiles are all plateau tiles on this route
+            raise AssertionError(f"{label}: launches {counts} for "
+                                 f"{snap['chain']} chain and "
+                                 f"{snap['plateau']} plateau tiles")
+        launches[core] = counts
+    with open(LEARNED_CPU) as f:
+        pins = json.load(f)
+    for which in ("scale", "serving"):
+        (res, dec), wall, counts, _ = _timed_run(lambda: learned_run(which))
+        got = learned_pin(res, dec)
+        ds = np.asarray(res.decision_seconds) * 1e3
+        print(f"learned scheduler, default_policy seed 0, {which}: "
+              f"total_utility={res.total_utility!r} accepted={res.accepted} "
+              f"completed={res.completed} decisions={len(ds)} "
+              f"policy_p50_ms={float(np.percentile(ds, 50))!r} "
+              f"policy_p95_ms={float(np.percentile(ds, 95))!r} "
+              f"wall_s={wall!r} decisions_per_s={len(ds) / wall!r} "
+              f"minplus_launches={sum(counts)} cpu_min_top2_margin="
+              f"{pins[which]['min_margin']!r} held={got == pins[which]['pin']}",
+              flush=True)
+        if got != pins[which]["pin"] or sum(counts):
+            raise AssertionError(f"learned {which}: {got} on the card, "
+                                 f"{pins[which]['pin']} on the CPU")
+    cfg = rl_train.TrainConfig(iterations=2, val_every=0)
+    pcfg = rl_policy.PolicyConfig()
+    dev = torch.device("cuda")
+    init = rl_policy.params_to(rl_policy.policy_init(
+        torch.Generator().manual_seed(cfg.seed), pcfg), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bc = rl_train.behavior_clone(init, pcfg, cfg, log=None, device=dev)
+    torch.cuda.synchronize()
+    print(f"training: behaviour cloning ({cfg.bc_episodes} episodes, "
+          f"{cfg.bc_steps} steps) wall_s={time.perf_counter() - t0!r}",
+          flush=True)
+    params, history = rl_train.train(cfg, pcfg, params=bc, log=None,
+                                     device=dev)
+    for row in history:
+        print(f"training: iteration {row['iteration']} (batch {cfg.batch}, "
+              f"T {cfg.T}, H = K = {cfg.H}, {cfg.n_jobs} jobs) wall_s="
+              f"{row['iteration_seconds']!r} rollout_decisions="
+              f"{row['decisions']} rollout_decisions_per_s="
+              f"{row['decisions'] / row['rollout_seconds']!r} "
+              f"loss={row['loss']!r} mean_utility={row['mean_utility']!r}",
+              flush=True)
+    if len(history) != 2 or not all(np.isfinite(r["loss"])
+                                    for r in history):
+        raise AssertionError(f"training: {history}")
+    host = rl_policy.params_to(params, torch.device("cpu"))
+    envs = [rl_train._make_env(cfg, "cpu") for _ in range(cfg.batch)]
+    obs, act, credit, mask, expert, _ = rl_train.rollout_batch(
+        host, pcfg, cfg, envs, [cfg.train_seeds[0]] * cfg.batch,
+        torch.Generator().manual_seed(1),
+        rl_train.explore_sampler(pcfg, cfg.explore_eps), "cpu")
+    batch = (obs, act, rl_train._advantages(credit, mask, cfg.rtg_window),
+             mask, expert)
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = (_grads_on(host, pcfg, cfg, batch, d)
+                                      for d in (dev, "cpu"))
+    worst = max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                for a, b in zip(g_gpu, g_cpu))
+    rel_loss = abs(l_gpu - l_cpu) / abs(l_cpu)
+    print(f"training: one update on a fixed batch ({int(mask.sum())} "
+          f"decisions), card against CPU: loss {l_gpu!r} / {l_cpu!r} "
+          f"rel_diff={rel_loss!r}, gradients max abs diff over the leaf's "
+          f"largest magnitude={worst!r}", flush=True)
+    if not (rel_loss <= 1e-4 and worst <= 1e-4):
+        raise AssertionError("training: the card's update differs from the "
+                             "CPU's")
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        rl_policy.save_policy(d, params, pcfg, step=len(history))
+        re_params, re_cfg, _ = rl_policy.load_policy(d, device=dev)
+        a = rl_train.evaluate(params, pcfg, (5,), cfg=cfg,
+                              schedulers=("learned",), device=dev)
+        b = rl_train.evaluate(re_params, re_cfg, (5,), cfg=cfg,
+                              schedulers=("learned",), device=dev)
+    print(f"training: checkpoint round trip, greedy evaluation on seed 5 "
+          f"{a['learned']['per_seed']} / {b['learned']['per_seed']} "
+          f"identical={a == b and re_cfg == pcfg}", flush=True)
+    if a != b or re_cfg != pcfg:
+        raise AssertionError("training: the checkpoint round trip changed "
+                             "the evaluation")
+    print(f"learned phase ok: wall_s={time.perf_counter() - t_phase!r}",
+          flush=True)
+    return launches
+
+
 def scenario_phase():
     """The scenario library (:data:`SCENARIO_PLAN`) at the reference's full
     sizes: every OASiS run through each route with the counts set to 0
@@ -1503,7 +1721,7 @@ def scenario_phase():
     return launches
 
 
-def profile_phase(core, n_jobs=400, lanes=1, sequential=False):
+def profile_phase(core, n_jobs=200, lanes=1, sequential=False):
     """Where the time goes: a traced run of the 10x trace's first
     ``n_jobs`` arrivals through ``core`` (same price parameters as the
     full run, so these are the main run's first decisions); on the tiled
@@ -2176,6 +2394,18 @@ def serve_profile_phase():
     return kern
 
 
+def _phase(fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall time printed after it: where the
+    phases' time goes."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    label = " ".join([fn.__name__] + [str(a) for a in args
+                                      if isinstance(a, str)]
+                     + [f"{k}={v}" for k, v in kw.items()])
+    print(f"phase {label}: wall_s={time.perf_counter() - t0!r}", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2186,35 +2416,36 @@ def main() -> int:
     # the model phases compare float32 results: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    max_err, timings = kernel_phase()
-    slot_err, slot_timings, a_launches = slot_phase()
-    tile_err = tile_phase()
-    plateau_err = plateau_tile_phase()
-    paper_phase()
-    launches, hist, whole_utility = scale_phase()
+    max_err, timings = _phase(kernel_phase)
+    slot_err, slot_timings, a_launches = _phase(slot_phase)
+    tile_err = _phase(tile_phase)
+    plateau_err = _phase(plateau_tile_phase)
+    paper = _phase(paper_phase)
+    launches, hist, whole_utility = _phase(scale_phase)
     c_launches, b_launches, tile_shapes, plateau_tiles, one_lane = \
-        tiled_scale_phase(whole_utility)
-    lanes_err = tile_lanes_phase()
-    l_launches, lane_shapes = burst_phase(one_lane)
-    tile = tile_mix_phase(tile_shapes)
-    tile8 = tile_mix_phase(lane_shapes, "8-lane run's own 10x mix")
-    plat = plateau_mix_phase(plateau_tiles)
+        _phase(tiled_scale_phase, whole_utility)
+    lanes_err = _phase(tile_lanes_phase)
+    l_launches, lane_shapes = _phase(burst_phase, one_lane)
+    tile = _phase(tile_mix_phase, tile_shapes)
+    tile8 = _phase(tile_mix_phase, lane_shapes, "8-lane run's own 10x mix")
+    plat = _phase(plateau_mix_phase, plateau_tiles)
     del plateau_tiles
-    wide_phase()
-    serving_phase()
-    churn_phase()
-    stream_churn_phase()
-    scen = scenario_phase()
-    profile_phase("whole")
-    profile_phase("tiled", sequential=True)
-    profile_phase("tiled")
-    profile_phase("tiled", lanes=8)
-    ssd_err, ssd_t = ssd_phase()
-    (flash_err, flash_t), (wgmma_err, wgmma_t) = flash_phase()
-    model_parity_phase()
-    flash_launches = consistency_phase()
-    ssd_launches, wgmma_launches = serve_phase()
-    serve_profile_phase()
+    _phase(wide_phase)
+    _phase(serving_phase)
+    _phase(churn_phase)
+    _phase(stream_churn_phase)
+    scen = _phase(scenario_phase)
+    replays = _phase(learned_phase, paper)
+    _phase(profile_phase, "whole")
+    _phase(profile_phase, "tiled", sequential=True)
+    _phase(profile_phase, "tiled")
+    _phase(profile_phase, "tiled", lanes=8)
+    ssd_err, ssd_t = _phase(ssd_phase)
+    (flash_err, flash_t), (wgmma_err, wgmma_t) = _phase(flash_phase)
+    _phase(model_parity_phase)
+    flash_launches = _phase(consistency_phase)
+    ssd_launches, wgmma_launches = _phase(serve_phase)
+    _phase(serve_profile_phase)
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); chain tile: launch-weighted over the tiled route's
     # own tiles (tile_mix_phase), at one lane a launch and, as a row of its
@@ -2235,18 +2466,22 @@ def main() -> int:
             / len(M_PADS) for i in range(5)]
     src = "src/repro_torch/kernels/minplus/csrc/"
     ref = "src/repro/kernels/minplus/kernel.py:"
-    # the scenario phase's OASiS runs: sweeps of the whole route, chain
-    # and plateau tiles of the tiled route
+    # the scenario phase's OASiS runs and the learned phase's replays:
+    # sweeps of the whole route, chain and plateau tiles of the tiled
+    # route (every sweep-kernel launch of a tiled run is a chain tile's)
     rows = [("minplus_sweep", "minplus_sweep.cu", "125",
-             launches + scen["whole"][0], max_err, mean),
+             launches + scen["whole"][0] + replays["whole"][0], max_err,
+             mean),
             ("minplus_tile", "minplus_sweep.cu", "54",
-             c_launches + scen["tiled"][0], tile_err, tile),
+             c_launches + scen["tiled"][0] + replays["tiled"][0], tile_err,
+             tile),
             ("minplus_tile_8_lanes", "minplus_sweep.cu", "54", l_launches,
              lanes_err, tile8),
             ("minplus_slot", "minplus_slot.cu", "54", a_launches,
              slot_err, slot),
             ("minplus_plateau", "minplus_plateau.cu", "207",
-             b_launches + scen["tiled"][2], plateau_err, plat)]
+             b_launches + scen["tiled"][2] + replays["tiled"][2],
+             plateau_err, plat)]
     rows = [(name, src + file, ref + line, n_launch, err, t, None)
             for name, file, line, n_launch, err, t in rows]
     # the model kernels: device time per launch at Zamba2-7B's prefill

@@ -1,7 +1,8 @@
 """Baseline schedulers from the paper's evaluation (Sec. V-A):
 
 FIFO, DRF (dominant-resource fairness), RRH (risk-reward heuristic),
-and a Dorm-like utilization-maximizing repacker.  All are *reactive*
+and a Dorm-like utilization-maximizing repacker; and ``Learned``, FIFO's
+machinery with per-job counts from an external policy.  All are *reactive*
 slot-steppers sharing one interface so the simulator can drive any of
 them interchangeably with OASiS.
 
@@ -247,4 +248,36 @@ class Dorm(ReactiveScheduler):
                                   self.pool, self.unfinished)
 
 
-BASELINES = {"fifo": FIFO, "drf": DRF, "rrh": RRH, "dorm": Dorm}
+class Learned(FIFO):
+    """FIFO's machinery with per-job worker/PS counts chosen by an external
+    policy at admission (the ``rl`` package's action space).
+
+    A job admitted with counts ``(nw, nps)`` holds exactly that allocation
+    from the moment it fits until it completes; waiting jobs start in
+    arrival order, head-of-line blocked.  Without counts set it is FIFO
+    verbatim (``_counts`` falls back to the fixed-worker rule): a policy
+    that replays FIFO's counts reproduces the FIFO run bit for bit.
+    """
+
+    name = "learned"
+
+    def __init__(self, cluster: ClusterSpec, fixed_workers: int = 8):
+        super().__init__(cluster, fixed_workers=fixed_workers)
+        self.counts_for: Dict[int, Tuple[int, int]] = {}
+
+    def set_counts(self, jid: int, nw: int, nps: int) -> None:
+        """Pin the worker/PS counts the next ``step`` allocates."""
+        self.counts_for[jid] = (int(nw), int(nps))
+
+    def _counts(self, job: Job) -> Tuple[int, int]:
+        if job.jid in self.counts_for:
+            return self.counts_for[job.jid]
+        return super()._counts(job)
+
+    def on_completion(self, jid: int, t: int) -> None:
+        super().on_completion(jid, t)
+        self.counts_for.pop(jid, None)
+
+
+BASELINES = {"fifo": FIFO, "drf": DRF, "rrh": RRH, "dorm": Dorm,
+             "learned": Learned}

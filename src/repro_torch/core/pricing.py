@@ -536,6 +536,14 @@ class PriceState:
         """(T,) worker-pool GPU units in use per slot (resource 0)."""
         return self._g_host[:, :, 0].sum(axis=1)
 
+    def alloc_window(self, t0: int, w: int):
+        """Per-slot pool totals of the allocation over slots ``[t0, t0 +
+        w)``: ``(g_win, v_win)``, each (min(w, T - t0), R), summed over
+        servers, from the host mirror.  Read-only: the residency stays
+        fresh and no device table is touched."""
+        return (self._g_host[t0:t0 + w].sum(axis=1),
+                self._v_host[t0:t0 + w].sum(axis=1))
+
     # -- device residency ---------------------------------------------------
     def _padded_caps(self):
         """Server capacities, each empty pool padded with one

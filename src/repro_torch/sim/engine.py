@@ -53,8 +53,18 @@ decided in window-local coordinates (arrival 0), completions are
 absolute, and memory stays bounded by the window
 (``SimResult.window_bytes``).
 
-The learned scheduler and external deciders (``policy=``) come with the
-port of ``rl/``.
+Every driver is a *decision generator*, as in the reference: without a
+policy (``run``/``run_stream`` with ``policy=None``) it never yields and
+each scheduler decides for itself on the code paths above.
+:func:`decisions` and :func:`stream_decisions` (and ``policy=``) yield a
+:class:`DecisionPoint` per arrival, and per re-admission of a churn
+victim (``preempted=True``), and apply the answer through the same
+machinery: OASiS proposes one job at a time (``OASiS.propose``) and the
+answer gates the commitment (``OASiS._resolve``); a reactive scheduler
+admits through ``enroll`` on the answer, and ``scheduler="learned"``
+(``core/baselines.py::Learned``) takes the answer's counts, clamped to
+the job's envelope.  A policy that answers with ``DecisionPoint.expert``
+replays ``run`` exactly.  This is the ``rl/`` package's substrate.
 """
 from __future__ import annotations
 
@@ -62,14 +72,14 @@ import dataclasses
 import itertools
 import math
 import time
-from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Callable, Dict, Generator, Iterable, List, Optional,
+                    Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..core.baselines import BASELINES, ReactiveScheduler
+from ..core.baselines import BASELINES, Learned, ReactiveScheduler
 from ..core.oasis import OASiS
 from ..core.pricing import PriceParams, price_params_from_jobs
 from ..core.types import ClusterSpec, Job, Schedule, SigmoidUtility
@@ -80,6 +90,9 @@ ThroughputFn = Callable[[Job, int, int], float]
 # checkpoint cadence for fleet churn, in slots: victims of a lossy failure
 # roll back to the last multiple of this on the global clock
 CKPT_INTERVAL = 20
+
+# slots of look-ahead in a DecisionPoint's capacity windows
+DECISION_WINDOW = 8
 
 # horizon chunk of the stateless-throughput rate matrix, in slots
 _RATE_BLOCK = 64
@@ -110,6 +123,204 @@ class SimResult:
     # episodic runs: every accepted job's committed schedule
     schedules: Dict[int, object] = dataclasses.field(default_factory=dict)
     device_uploads: int = 0                 # full price-state uploads
+
+    def summary(self) -> Dict[str, object]:
+        """Episode digest: accept and completion rates, latency
+        percentiles (completion slot minus arrival; None when nothing
+        completed), total utility.  The rl env's terminal ``info``."""
+        lat = np.array([self.completion[j] - self.arrivals[j]
+                        for j in self.completion if j in self.arrivals],
+                       dtype=float)
+        n = max(self.n_jobs, 1)
+        return {
+            "scheduler": self.name,
+            "n_jobs": self.n_jobs,
+            "accepted": self.accepted,
+            "completed": self.completed,
+            "canceled": self.canceled,
+            "preempted": self.preempted,
+            "preempt_dropped": self.preempt_dropped,
+            "live_frac": float(self.live_frac),
+            "accept_rate": self.accepted / n,
+            "completion_rate": self.completed / n,
+            "total_utility": float(self.total_utility),
+            "mean_latency": float(lat.mean()) if lat.size else None,
+            "p50_latency": float(np.percentile(lat, 50)) if lat.size else None,
+            "p95_latency": float(np.percentile(lat, 95)) if lat.size else None,
+            "utilization": float(self.utilization),
+        }
+
+
+@dataclasses.dataclass
+class DecisionPoint:
+    """One admission decision, yielded by :func:`decisions` and
+    :func:`stream_decisions`.
+
+    ``expert`` replays the wrapped scheduler's own decision: ``(n_workers,
+    n_ps)``, ``n_workers == 0`` meaning reject.  For OASiS the counts mean
+    only admit or reject (the commitment is ``candidate``, Alg. 2's best
+    schedule at current prices); for a reactive scheduler they are its
+    counts, which only ``scheduler="learned"`` takes literally.
+
+    ``free_frac_workers``/``free_frac_ps``: (DECISION_WINDOW, R) free
+    capacity fractions of each pool per slot over ``[t, t + W)`` (slots
+    at or after the horizon read 0.0); a reactive scheduler's allocation
+    is constant between events, so its snapshot is tiled across the
+    window.  ``live_frac`` is the worker pool's GPU fraction alive, and
+    ``preempted`` marks the re-admission of a churn victim; both keep
+    their defaults without churn.
+    """
+
+    job: Job
+    t: int
+    scheduler: str
+    expert: Tuple[int, int]
+    candidate: Optional[Schedule]
+    utility_so_far: float
+    n_running: int
+    n_waiting: int
+    accepted: int
+    rejected: int
+    free_frac_workers: np.ndarray
+    free_frac_ps: np.ndarray
+    live_frac: float = 1.0
+    preempted: bool = False
+
+
+def _as_counts(action) -> Tuple[int, int]:
+    """A decider's answer as ``(n_workers, n_ps)``; ``n_ps`` -1 means the
+    least feasible PS count.  ``None``, ``False`` and 0 reject."""
+    if action is None or action is False:
+        return 0, -1
+    if isinstance(action, (tuple, list, np.ndarray)):
+        a = np.asarray(action).ravel()
+        return max(int(a[0]), 0), int(a[1]) if a.size > 1 else -1
+    return max(int(action), 0), -1
+
+
+def _free_window(used_w: np.ndarray, used_s: np.ndarray,
+                 cluster: ClusterSpec, t: int,
+                 t_max: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(W, R) free capacity fractions of both pools from per-slot pool
+    usage (an (R,) snapshot is tiled across the window).  Slots at or
+    after ``t_max`` (the horizon; None in a stream) read 0.0."""
+    W = DECISION_WINDOW
+    cap_w = np.maximum(cluster.worker_caps.sum(axis=0), 1e-9)
+    cap_s = np.maximum(cluster.ps_caps.sum(axis=0), 1e-9)
+    fw = np.zeros((W, cap_w.shape[0]))
+    fs = np.zeros((W, cap_s.shape[0]))
+    if used_w.ndim == 1:
+        used_w = np.tile(used_w, (W, 1))
+        used_s = np.tile(used_s, (W, 1))
+    fw[:used_w.shape[0]] = np.clip(1.0 - used_w / cap_w, 0.0, 1.0)
+    fs[:used_s.shape[0]] = np.clip(1.0 - used_s / cap_s, 0.0, 1.0)
+    if t_max is not None:
+        live = max(min(t_max - t, W), 0)
+        fw[live:] = 0.0
+        fs[live:] = 0.0
+    return fw, fs
+
+
+def _pool_usage(cur_alloc: Dict[int, tuple], jmap: Dict[int, Job],
+                cluster: ClusterSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """(R,) worker- and PS-pool usage of one allocation snapshot."""
+    used_w = np.zeros(cluster.worker_caps.shape[1])
+    used_s = np.zeros(cluster.ps_caps.shape[1])
+    for jid, (y, z) in cur_alloc.items():
+        used_w += float(y.sum()) * jmap[jid].worker_res
+        if z is not None:
+            used_s += float(z.sum()) * jmap[jid].ps_res
+    return used_w, used_s
+
+
+def _oasis_decision_point(osched: OASiS, cluster: ClusterSpec, job: Job,
+                          t: int, cand: Optional[Schedule], t_win: int,
+                          n_running: int, accepted: int, rejected: int,
+                          t_max: Optional[int], live_frac: float = 1.0,
+                          preempted: bool = False) -> DecisionPoint:
+    """OASiS's decision on ``job`` at ``t`` with the candidate ``cand``;
+    the capacity window is read off the price state's host mirror from
+    its slot ``t_win`` (``t`` episodic, 0 in a stream's local
+    coordinates)."""
+    g_win, v_win = osched.state.alloc_window(t_win, DECISION_WINDOW)
+    fw, fs = _free_window(g_win, v_win, cluster, t, t_max=t_max)
+    return DecisionPoint(
+        job=job, t=t, scheduler="oasis",
+        expert=(1, 0) if cand is not None else (0, 0), candidate=cand,
+        utility_so_far=osched.total_utility, n_running=n_running,
+        n_waiting=0, accepted=accepted, rejected=rejected,
+        free_frac_workers=fw, free_frac_ps=fs, live_frac=live_frac,
+        preempted=preempted)
+
+
+def _reactive_decision_point(rsched: ReactiveScheduler, cluster: ClusterSpec,
+                             job: Job, t: int, scheduler: str,
+                             cur_alloc: Dict[int, tuple],
+                             usage: Tuple[np.ndarray, np.ndarray],
+                             n_admitted: int, n_rejected: int, n_live: int,
+                             utility_so_far: float,
+                             t_max: Optional[int],
+                             live_frac: float = 1.0) -> DecisionPoint:
+    fw, fs = _free_window(*usage, cluster, t, t_max=t_max)
+    admit = rsched.would_admit(job, t)
+    nw, nps = rsched._counts(job)
+    return DecisionPoint(
+        job=job, t=t, scheduler=scheduler,
+        expert=(nw, nps) if admit else (0, 0), candidate=None,
+        utility_so_far=utility_so_far,
+        n_running=len(cur_alloc), n_waiting=n_live - len(cur_alloc),
+        accepted=n_admitted, rejected=n_rejected,
+        free_frac_workers=fw, free_frac_ps=fs, live_frac=live_frac)
+
+
+def _enroll(rsched: ReactiveScheduler, job: Job, t: int, action) -> bool:
+    """Admit ``job`` on a decider's answer: ``scheduler="learned"`` takes
+    its counts, clamped to the job's envelope (at most ``num_chunks``
+    workers, at least the bandwidth-matched PS count).  False: rejected."""
+    nw, nps = _as_counts(action)
+    if nw <= 0:
+        return False
+    if isinstance(rsched, Learned):
+        nw = min(nw, job.num_chunks)
+        rsched.set_counts(job.jid, nw, max(nps, job.ps_for(nw)))
+    rsched.enroll(job, t)
+    return True
+
+
+def _exhaust(gen) -> "SimResult":
+    """Run a driver that decides for itself: it never yields."""
+    try:
+        next(gen)
+    except StopIteration as e:
+        return e.value
+    raise RuntimeError("the engine yielded a decision point without a policy")
+
+
+def _with_policy(gen, policy) -> "SimResult":
+    """Answer each decision point of ``gen`` with ``policy(dp)``.  Where
+    the driver records no decision times (the reactive ones in decide
+    mode), the policy's times take their place."""
+    seconds: List[float] = []
+    try:
+        dp = next(gen)
+        while True:
+            t0 = time.perf_counter()
+            action = policy(dp)
+            seconds.append(time.perf_counter() - t0)
+            dp = gen.send(action)
+    except StopIteration as e:
+        result = e.value
+    if not result.decision_seconds:
+        result.decision_seconds = seconds
+    return result
+
+
+def _needs_policy(scheduler: str, policy) -> None:
+    if scheduler == "learned" and policy is None:
+        raise ValueError(
+            "scheduler='learned' needs a policy: pass policy=... (see "
+            "repro_torch.rl.policy.LearnedDecider) or train one with "
+            "repro_torch.rl.train")
 
 
 def _with_quantum(job: Job, quantum: Optional[int]) -> Job:
@@ -190,13 +401,6 @@ def _check(osched: OASiS, t: int) -> None:
                            f"{ok_w}, PS ok: {ok_ps})")
 
 
-def _unported(scheduler: str, policy) -> None:
-    if scheduler == "learned" or policy is not None:
-        raise NotImplementedError(
-            "scheduler='learned' and policy=: external deciders are not "
-            "ported yet (a later slice of the port, with rl/)")
-
-
 def _holds(sched: Schedule, pool: str, srv: int, s0: int) -> bool:
     """Whether ``sched`` places anything on server ``srv`` of ``pool`` at
     a slot ``>= s0`` (its own slot coordinates)."""
@@ -241,6 +445,12 @@ def _perturbed_finish(job: Job, sched: Schedule,
     return slots[int(hit[0])] if hit.size else None
 
 
+def _oasis_counts(osched: OASiS, t: int) -> Tuple[int, int, int]:
+    """(running, accepted, rejected) of an episodic OASiS run at ``t``."""
+    return (sum(1 for s in osched.accepted.values() if s.finish >= t),
+            len(osched.accepted), len(osched.rejected))
+
+
 def _live_alloc(osched: OASiS, s_of, skip) -> Dict[int, tuple]:
     """``{jid: (y, z)}`` of every accepted schedule, not in ``skip``, that
     deploys at its own slot ``s_of(jid)``."""
@@ -272,6 +482,12 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     from the trace when not given.  Under any hook OASiS's utility is
     evaluated at each job's actual completion against its original curve.
 
+    ``policy`` (``scheduler="learned"`` needs one: ValueError without)
+    answers each decision point of :func:`decisions`; the run's
+    ``decision_seconds`` are then OASiS's own, or the policy's for a
+    reactive scheduler.  Without one each scheduler decides for itself
+    and no decision point is built.
+
     Example — the same trace under OASiS and a reactive baseline::
 
         >>> from repro_torch.sim import engine
@@ -290,12 +506,57 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         >>> (r.n_jobs, r.accepted, r.completed)
         (4, 4, 4)
     """
-    _unported(scheduler, policy)
+    _needs_policy(scheduler, policy)
+    kw = dict(params=params, check=check, quantum=quantum, device=device,
+              core=core, cancellations=cancellations, throughput=throughput,
+              fleet=fleet, ckpt_interval=ckpt_interval)
+    if policy is not None:
+        return _with_policy(decisions(cluster, jobs, scheduler, **kw), policy)
+    return _exhaust(_drivers(cluster, jobs, scheduler, decide=False, **kw))
+
+
+def decisions(cluster: ClusterSpec, jobs: Sequence[Job],
+              scheduler: str = "oasis",
+              params: Optional[PriceParams] = None, check: bool = True,
+              quantum: Optional[int] = None,
+              device: Optional[Union[str, torch.device]] = None,
+              core: str = "whole",
+              cancellations: Optional[Dict[int, int]] = None,
+              throughput: Optional[ThroughputFn] = None,
+              fleet: Optional[FleetTrace] = None,
+              ckpt_interval: int = CKPT_INTERVAL
+              ) -> Generator[DecisionPoint, object, SimResult]:
+    """The engine as a stepwise decision process (the rl env's substrate):
+    :func:`run`'s arguments, a :class:`DecisionPoint` yielded per arrival
+    (and per re-admission of a churn victim), the answer ``send``-ed back:
+    ``(n_workers, n_ps)``, a bare worker count, or ``None``/0 to reject.
+    The :class:`SimResult` is the generator's return value
+    (``StopIteration.value``).  The device is resolved at the call."""
+    return _drivers(cluster, jobs, scheduler, params=params, check=check,
+                    quantum=quantum, device=device, core=core,
+                    cancellations=cancellations, throughput=throughput,
+                    fleet=fleet, ckpt_interval=ckpt_interval, decide=True)
+
+
+def _drivers(cluster, jobs, scheduler, params, check, quantum, device, core,
+             cancellations, throughput, fleet, ckpt_interval, decide):
     device = resolve_device(device)
     if scheduler != "oasis":
         return _drive_reactive(cluster, jobs, scheduler, check, quantum,
                                cancellations, throughput, fleet,
-                               ckpt_interval)
+                               ckpt_interval, decide)
+    return _drive_oasis(cluster, jobs, params, check, quantum, device, core,
+                        cancellations, throughput, fleet, ckpt_interval,
+                        decide)
+
+
+def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
+                 params: Optional[PriceParams], check: bool,
+                 quantum: Optional[int], device: torch.device, core: str,
+                 cancellations: Optional[Dict[int, int]],
+                 throughput: Optional[ThroughputFn],
+                 fleet: Optional[FleetTrace], ckpt_interval: int,
+                 decide: bool) -> Generator[DecisionPoint, object, SimResult]:
     T = cluster.T
     jmap = {j.jid: j for j in jobs}
     by_slot, cancel_slot = _group_events(jobs, cancellations, T)
@@ -358,7 +619,17 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
                     blocked_gpu += state.block_server(pool, srv, t)
             for job_r in readmit:
                 ljobs[job_r.jid] = job_r
-                if osched.on_arrival(job_r) is None:
+                if decide:
+                    cand = osched.propose(job_r)
+                    action = yield _oasis_decision_point(
+                        osched, cluster, job_r, t, cand, t,
+                        *_oasis_counts(osched, t), t_max=T,
+                        live_frac=fs.live_frac, preempted=True)
+                    sched = osched._resolve(
+                        job_r, cand if _as_counts(action)[0] > 0 else None)
+                else:
+                    sched = osched.on_arrival(job_r)
+                if sched is None:
                     n_dropped += 1
         for jid in cancel_slot.get(t, ()):
             sched = osched.accepted.get(jid)
@@ -373,7 +644,19 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         if churn:
             for job in batch:
                 ljobs[job.jid] = job
-        if batch:
+        if decide:
+            # one job at a time at current prices, the answer gating the
+            # commitment: sequential decisions are the burst path's
+            # semantics exactly (``on_arrivals``)
+            for job in sorted(batch, key=lambda j: j.arrival):
+                cand = osched.propose(job)
+                action = yield _oasis_decision_point(
+                    osched, cluster, job, t, cand, t,
+                    *_oasis_counts(osched, t), t_max=T,
+                    live_frac=fs.live_frac if churn else 1.0)
+                osched._resolve(job,
+                                cand if _as_counts(action)[0] > 0 else None)
+        elif batch:
             osched.on_arrivals(batch)
         if check:
             _check(osched, t)
@@ -456,7 +739,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     :func:`stream_price_params` of the first ``warmup_sample`` jobs (which
     are then replayed).  ``fleet`` slots are absolute; down servers are
     re-blocked after every advance.  ``utilization`` is over the elapsed
-    clock, through the last completion.
+    clock, through the last completion.  ``policy`` answers each decision
+    point of :func:`stream_decisions`, as in :func:`run`.
 
     Example — a bounded slice of a stream through a 16-slot window::
 
@@ -471,16 +755,60 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         >>> (r.n_jobs, r.accepted, r.window_bytes, r.device_uploads)
         (12, 12, 3840, 1)
     """
-    _unported(scheduler, policy)
+    _needs_policy(scheduler, policy)
+    kw = dict(params=params, window=window, check=check, quantum=quantum,
+              warmup_sample=warmup_sample, fleet=fleet,
+              ckpt_interval=ckpt_interval, device=device, core=core)
+    if policy is not None:
+        return _with_policy(stream_decisions(cluster, jobs, scheduler, **kw),
+                            policy)
+    return _exhaust(_stream_drivers(cluster, jobs, scheduler, decide=False,
+                                    **kw))
+
+
+def stream_decisions(cluster: ClusterSpec, jobs: Iterable[Job],
+                     scheduler: str = "oasis",
+                     params: Optional[PriceParams] = None, window: int = 64,
+                     check: bool = False, quantum: Optional[int] = None,
+                     warmup_sample: int = 256,
+                     fleet: Optional[FleetTrace] = None,
+                     ckpt_interval: int = CKPT_INTERVAL,
+                     device: Optional[Union[str, torch.device]] = None,
+                     core: str = "whole"
+                     ) -> Generator[DecisionPoint, object, SimResult]:
+    """The streaming counterpart of :func:`decisions`: :func:`run_stream`'s
+    arguments, a :class:`DecisionPoint` yielded per arrival (and per
+    re-admission of a churn victim), the :class:`SimResult` returned.
+    Capacity windows are open-ended (no horizon)."""
+    return _stream_drivers(cluster, jobs, scheduler, params=params,
+                           window=window, check=check, quantum=quantum,
+                           warmup_sample=warmup_sample, fleet=fleet,
+                           ckpt_interval=ckpt_interval, device=device,
+                           core=core, decide=True)
+
+
+def _stream_drivers(cluster, jobs, scheduler, params, window, check, quantum,
+                    warmup_sample, fleet, ckpt_interval, device, core,
+                    decide):
     device = resolve_device(device)
     if scheduler != "oasis":
         return _drive_reactive_stream(cluster, jobs, scheduler, check,
-                                      quantum, fleet, ckpt_interval)
+                                      quantum, fleet, ckpt_interval, decide)
     if params is None:
         it = iter(jobs)
         sample = list(itertools.islice(it, warmup_sample))
         params = stream_price_params(sample, cluster, window)
         jobs = itertools.chain(sample, it)
+    return _drive_oasis_stream(cluster, jobs, params, window, check, quantum,
+                               fleet, ckpt_interval, device, core, decide)
+
+
+def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
+                        params: PriceParams, window: int, check: bool,
+                        quantum: Optional[int], fleet: Optional[FleetTrace],
+                        ckpt_interval: int, device: torch.device, core: str,
+                        decide: bool
+                        ) -> Generator[DecisionPoint, object, SimResult]:
     osched = OASiS(cluster, params, device=device, core=core, window=window)
     state = osched.state
     jmap: Dict[int, Job] = {}
@@ -490,7 +818,7 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     # schedules in osched.accepted, in slots local to their admission) are
     # pruned once the clock passes them
     active: Dict[int, int] = {}
-    n_accepted = n_jobs = 0
+    n_accepted = n_rejected = n_jobs = 0
     t = 0
     churn = fleet is not None and bool(fleet)
     fs = FleetState(cluster, fleet) if churn else None
@@ -568,7 +896,16 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                     blocked_gpu += state.block_server(pool, srv, 0)
             for jid, loc in readmit:
                 ljobs[jid] = loc
-                sched = osched.on_arrival(loc)
+                if decide:
+                    cand = osched.propose(loc)
+                    action = yield _oasis_decision_point(
+                        osched, cluster, jmap[jid], t, cand, 0, len(active),
+                        n_accepted, n_rejected, t_max=None,
+                        live_frac=fs.live_frac, preempted=True)
+                    sched = osched._resolve(
+                        loc, cand if _as_counts(action)[0] > 0 else None)
+                else:
+                    sched = osched.on_arrival(loc)
                 if sched is not None:
                     active[jid] = completion[jid] = t + sched.finish
                     admit_origin[jid] = t
@@ -577,6 +914,7 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                     # utility (subtracted above)
                     n_dropped += 1
                     n_accepted -= 1
+                    n_rejected += 1
                     completion.pop(jid, None)
                     admit_origin.pop(jid, None)
                     ljobs.pop(jid, None)
@@ -588,15 +926,26 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
             jmap[j.jid] = j
             arrivals[j.jid] = int(j.arrival)
         n_jobs += len(batch)
-        if batch:
-            for job, loc, sched in zip(batch, local,
-                                       osched.on_arrivals(local)):
-                if sched is not None:
-                    n_accepted += 1
-                    active[job.jid] = completion[job.jid] = t + sched.finish
-                    if churn:
-                        ljobs[job.jid] = loc
-                        admit_origin[job.jid] = t
+        scheds = osched.on_arrivals(local) if batch and not decide else ()
+        for i, (job, loc) in enumerate(zip(batch, local)):
+            if decide:
+                cand = osched.propose(loc)
+                action = yield _oasis_decision_point(
+                    osched, cluster, job, t, cand, 0, len(active),
+                    n_accepted, n_rejected, t_max=None,
+                    live_frac=fs.live_frac if churn else 1.0)
+                sched = osched._resolve(
+                    loc, cand if _as_counts(action)[0] > 0 else None)
+            else:
+                sched = scheds[i]
+            if sched is not None:
+                n_accepted += 1
+                active[job.jid] = completion[job.jid] = t + sched.finish
+                if churn:
+                    ljobs[job.jid] = loc
+                    admit_origin[job.jid] = t
+            else:
+                n_rejected += 1
         if check:
             _check(osched, t)
             if churn:
@@ -711,9 +1060,13 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
                     check: bool, quantum: Optional[int],
                     cancellations: Optional[Dict[int, int]],
                     throughput: Optional[ThroughputFn],
-                    fleet: Optional[FleetTrace],
-                    ckpt_interval: int) -> SimResult:
-    """The reference's ``_drive_reactive`` without its decision points."""
+                    fleet: Optional[FleetTrace], ckpt_interval: int,
+                    decide: bool
+                    ) -> Generator[DecisionPoint, object, SimResult]:
+    """The reference's ``_drive_reactive``.  In decide mode each arrival is
+    a decision point, all of a burst's read off the allocation before its
+    admissions, and the repacks' times are not recorded (the policy's
+    take their place)."""
     T = cluster.T
     src = {j.jid: _with_quantum(j, quantum) for j in jobs}
     jmap = dict(src)
@@ -749,6 +1102,7 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
         event_set |= set(fs.event_slots)
     events = sorted(event_set)
     ei = 0
+    n_rejected = 0
     t = events[0] if events else T
     while t < T:
         while ei < len(events) and events[ei] <= t:
@@ -760,10 +1114,23 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
                                            ckpt_rem, jmap, rsched, t)
                 rsched.set_capacity(fs.worker_caps, fs.ps_caps)
                 stale = True
-        for job in by_slot.pop(t, ()):
-            if rsched.on_arrival(job, t):
+        arrivals_now = by_slot.pop(t, ())
+        if decide and arrivals_now:
+            usage = _pool_usage(cur_alloc, jmap, cluster)
+        for job in arrivals_now:
+            if decide:
+                action = yield _reactive_decision_point(
+                    rsched, cluster, job, t, scheduler, cur_alloc, usage,
+                    len(admitted), n_rejected, len(remaining), total_utility,
+                    t_max=T, live_frac=fs.live_frac if churn else 1.0)
+                ok = _enroll(rsched, job, t, action)
+            else:
+                ok = rsched.on_arrival(job, t)
+            if ok:
                 admitted.append(job.jid)
                 remaining[job.jid] = job.total_work_slots
+            else:
+                n_rejected += 1
         for jid in cancel_slot.get(t, ()):
             if jid in remaining:                # admitted, still running
                 rsched.on_completion(jid, t)    # out of the pool, no utility
@@ -775,7 +1142,8 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
         if rsched.dirty:
             t0 = time.perf_counter()
             cur_alloc = dict(rsched.step(t))
-            decision_seconds.append(time.perf_counter() - t0)
+            if not decide:
+                decision_seconds.append(time.perf_counter() - t0)
             rsched.dirty = False
             stale = True
             if check:       # a pruned reuse stays feasible by construction
@@ -842,11 +1210,12 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
 def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                            scheduler: str, check: bool,
                            quantum: Optional[int],
-                           fleet: Optional[FleetTrace],
-                           ckpt_interval: int) -> SimResult:
-    """The reference's ``_drive_reactive_stream`` without its decision
-    points: the episodic driver over an open-ended stream, the clock
-    unbounded; it ends when the stream does and no live job progresses."""
+                           fleet: Optional[FleetTrace], ckpt_interval: int,
+                           decide: bool
+                           ) -> Generator[DecisionPoint, object, SimResult]:
+    """The reference's ``_drive_reactive_stream``: the episodic driver over
+    an open-ended stream, the clock unbounded; it ends when the stream
+    does and no live job progresses."""
     rsched: ReactiveScheduler = BASELINES[scheduler](cluster)
     total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
     jmap: Dict[int, Job] = {}
@@ -861,7 +1230,7 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     counts = np.zeros(0)
     plan_gpu = 0.0
     stale = True
-    n_jobs = 0
+    n_jobs = n_rejected = 0
     churn = fleet is not None and bool(fleet)
     fs = FleetState(cluster, fleet) if churn else None
     fe: List[int] = fs.event_slots if churn else []
@@ -885,19 +1254,34 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
             if changed:
                 rsched.set_capacity(fs.worker_caps, fs.ps_caps)
                 stale = True
+        burst: List[Job] = []
         while nxt is not None and int(nxt.arrival) <= t:
-            job = _with_quantum(nxt, quantum)
+            burst.append(_with_quantum(nxt, quantum))
             nxt = next(it, None)
+        if decide and burst:
+            usage = _pool_usage(cur_alloc, jmap, cluster)
+        for job in burst:
             n_jobs += 1
             jmap[job.jid] = job
             arrivals[job.jid] = int(job.arrival)
-            if rsched.on_arrival(job, t):
+            if decide:
+                action = yield _reactive_decision_point(
+                    rsched, cluster, job, t, scheduler, cur_alloc, usage,
+                    len(admitted), n_rejected, len(remaining), total_utility,
+                    t_max=None, live_frac=fs.live_frac if churn else 1.0)
+                ok = _enroll(rsched, job, t, action)
+            else:
+                ok = rsched.on_arrival(job, t)
+            if ok:
                 admitted.append(job.jid)
                 remaining[job.jid] = job.total_work_slots
+            else:
+                n_rejected += 1
         if rsched.dirty:
             t0 = time.perf_counter()
             cur_alloc = dict(rsched.step(t))
-            decision_seconds.append(time.perf_counter() - t0)
+            if not decide:
+                decision_seconds.append(time.perf_counter() - t0)
             rsched.dirty = False
             stale = True
             if check:

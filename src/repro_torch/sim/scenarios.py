@@ -310,13 +310,15 @@ def run_scale(seed: int = 0, quick: bool = False,
               schedulers: Sequence[str] = ("fifo", "rrh", "drf", "dorm"),
               T: int = SCALE_DIMS["T"], H: int = SCALE_DIMS["H"],
               K: int = SCALE_DIMS["K"], n: int = SCALE_DIMS["n"],
-              device: Device = None,
-              core: str = "whole") -> List[ScenarioResult]:
+              device: Device = None, core: str = "whole",
+              policy_ckpt: Optional[str] = None) -> List[ScenarioResult]:
     """The fig3-shaped workload an order of magnitude past the paper's
     T=100 / 100-server / 200-job setting.  Reactive baselines by default;
     pass ``schedulers=("oasis", ...)`` to include OASiS (``quantum=0``,
-    through ``core``).  ``"learned"`` raises ``NotImplementedError`` until
-    ``rl/`` is ported.
+    through ``core``).  ``"learned"`` runs the ``rl`` policy scheduler on
+    ``device``: the checkpoint at ``policy_ckpt`` if given, else a
+    seed-initialized (untrained) network, which exercises the decision
+    path and records its time, not scheduling quality.
 
     Example — the same workload shape at toy dims (the tracked instances
     use ``SCALE_DIMS`` / ``SCALE_DIMS_100X``)::
@@ -333,8 +335,23 @@ def run_scale(seed: int = 0, quick: bool = False,
     jobs = make_jobs(n, T=T, seed=seed, small=False)
     return [_timed("scale", f"T={T};n={n}", cluster, jobs, scheduler=s,
                    check=True, quantum=0 if s == "oasis" else None,
-                   device=device, core=core)
+                   device=device, core=core,
+                   **_learned_kwargs(s, cluster, policy_ckpt, device))
             for s in schedulers]
+
+
+def _learned_kwargs(s: str, cluster: ClusterSpec, policy_ckpt: Optional[str],
+                    device: Device) -> dict:
+    """``policy=`` of a ``"learned"`` row: the checkpoint's policy, else
+    ``default_policy(cluster)``; nothing for the other schedulers."""
+    if s != "learned":
+        return {}
+    from ..rl import policy as rl_policy
+    if policy_ckpt:
+        params, pcfg, _ = rl_policy.load_policy(policy_ckpt, device=device)
+        return {"policy": rl_policy.LearnedDecider(params, pcfg, cluster,
+                                                   device=device)}
+    return {"policy": rl_policy.default_policy(cluster, device=device)}
 
 
 # the tracked continuous-serving instance (and its --quick shrink): a
@@ -351,14 +368,16 @@ def run_serving(seed: int = 0, quick: bool = False,
                 schedulers: Sequence[str] = ALL_SCHEDULERS,
                 slots: Optional[int] = None, window: Optional[int] = None,
                 rate: Optional[float] = None, device: Device = None,
-                core: str = "whole") -> List[ScenarioResult]:
+                core: str = "whole",
+                policy_ckpt: Optional[str] = None) -> List[ScenarioResult]:
     """Continuous serving mode: every scheduler consumes the *same* seeded
     open-ended stream (regenerated per scheduler — ``stream_jobs`` is a
     pure function of the seed) through ``engine.run_stream``.  OASiS runs
     over a rolling ``window``-slot price state whose memory is independent
     of trace length; the reactive baselines are horizon-free already.
     Rows carry sustained decisions/sec and the resident window bytes next
-    to the usual quality columns."""
+    to the usual quality columns.  ``"learned"`` (not listed by default)
+    runs the ``rl`` policy scheduler as in :func:`run_scale`."""
     dims = SERVING_DIMS_QUICK if quick else SERVING_DIMS
     W = int(window if window is not None else dims["window"])
     n_slots = int(slots if slots is not None else dims["slots"])
@@ -372,7 +391,9 @@ def run_serving(seed: int = 0, quick: bool = False,
         r = engine.run_stream(cluster, trace, scheduler=s, window=W,
                               check=(s == "oasis"),
                               quantum=0 if s == "oasis" else None,
-                              device=device, core=core)
+                              device=device, core=core,
+                              **_learned_kwargs(s, cluster, policy_ckpt,
+                                                device))
         wall = time.perf_counter() - t0
         row = _row("serving", f"W={W};slots={n_slots}", r, wall)
         rows.append(dataclasses.replace(

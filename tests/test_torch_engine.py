@@ -17,6 +17,7 @@ import pytest
 from repro.core import OASiS as RefOASiS
 from repro.core import price_params_from_jobs
 from repro.sim import make_cluster, make_jobs, simulate
+from repro.sim import engine as ref_engine
 from repro.sim.engine import _with_quantum as ref_with_quantum
 from repro_torch import compat
 from repro_torch.core.oasis import OASiS
@@ -106,11 +107,26 @@ def test_port_continues_reference_state_mid_trajectory():
                                 {"scheduler": "fifo",
                                  "policy": lambda dp: None},
                                 {"policy": lambda dp: None}])
-def test_unported_schedulers_and_hooks_raise(kw):
+def test_learned_needs_policy_and_reject_all_matches_reference(kw):
+    """``scheduler="learned"`` without a policy raises ``ValueError``, as
+    the reference does; a reject-all policy gives the reference's run."""
     cluster = workload.make_cluster(T=10, H=2, K=2)
     jobs = workload.make_jobs(3, T=10, seed=0, small=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        engine.run(cluster, jobs, device="cpu", **kw)
+    rc, rj = make_cluster(T=10, H=2, K=2), make_jobs(3, T=10, seed=0,
+                                                     small=True)
+    if "policy" not in kw:
+        with pytest.raises(ValueError, match="policy"):
+            engine.run(cluster, jobs, device="cpu", **kw)
+        with pytest.raises(ValueError, match="policy"):
+            ref_engine.run(rc, rj, **kw)
+        return
+    got = engine.run(cluster, jobs, device="cpu", **kw)
+    want = ref_engine.run(rc, rj, **kw)
+    assert (got.accepted, got.completed, got.total_utility, got.completion,
+            got.n_jobs) == (want.accepted, want.completed,
+                            want.total_utility, want.completion,
+                            want.n_jobs) == (0, 0, 0.0, {}, 3)
+    assert len(got.decision_seconds) == 3
 
 
 @pytest.mark.parametrize("name", ["repro_torch.core.oasis",

@@ -11,8 +11,9 @@ against the JAX package.
 * OASiS under ``throughput=``: the whole route equals ``impl="fast"``
   exactly, the tiled route has the reference's tiled engine's
   (``impl="jax"``) completions and its utility within rel 1e-9;
-* the reactive path creates no torch tensor, and ``scheduler="learned"``
-  and ``policy=`` still raise ``NotImplementedError``.
+* the reactive path creates no torch tensor; ``scheduler="learned"``
+  without a policy raises ``ValueError`` and a reject-all ``policy=``
+  gives the reference's runs.
 """
 import itertools
 
@@ -218,13 +219,26 @@ def test_reactive_path_creates_no_tensor(name):
                                 {"policy": lambda dp: None},
                                 {"scheduler": "drf",
                                  "policy": lambda dp: None}])
-def test_learned_and_policy_still_refused(kw):
-    pc = workload.make_cluster(T=10, H=2, K=2)
-    pjobs = workload.make_jobs(3, T=10, seed=0, small=True)
-    with pytest.raises(NotImplementedError, match="rl/"):
-        engine.run(pc, pjobs, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="rl/"):
-        engine.run_stream(pc, iter(pjobs), device="cpu", **kw)
+def test_learned_needs_policy_and_reject_all_streams(kw):
+    """``scheduler="learned"`` without a policy raises ``ValueError`` in
+    ``run`` and ``run_stream``, as the reference does; a reject-all policy
+    through both equals the reference's runs with the same policy."""
+    c, jobs, pc, pjobs = _instance(T=10, H=2, K=2, n=3, seed=0, small=True)
+    if "policy" not in kw:
+        for fn, args in ((engine.run, (pc, pjobs)),
+                         (engine.run_stream, (pc, iter(pjobs))),
+                         (ref_engine.run, (c, jobs)),
+                         (ref_engine.run_stream, (c, iter(jobs)))):
+            with pytest.raises(ValueError, match="policy"):
+                fn(*args, **({"device": "cpu"} if fn in (
+                    engine.run, engine.run_stream) else {}), **kw)
+        return
+    _same(engine.run(pc, pjobs, device="cpu", **kw),
+          ref_engine.run(c, jobs, **kw))
+    got = engine.run_stream(pc, iter(pjobs), device="cpu", window=16, **kw)
+    want = ref_engine.run_stream(c, iter(jobs), window=16, **kw)
+    _same(got, want)
+    assert (got.accepted, got.total_utility, got.n_jobs) == (0, 0.0, 3)
 
 
 def test_reactive_without_card_raises(monkeypatch):

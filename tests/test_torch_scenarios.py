@@ -270,10 +270,20 @@ def test_competitive_ratio_bound(seed):
         assert opt / online <= 2 * params.alpha + 1e-6
 
 
-def test_learned_in_scale_is_refused():
-    with pytest.raises(NotImplementedError, match="rl/"):
+def test_learned_in_scale_is_refused(tmp_path):
+    """A ``"learned"`` row runs the default policy, or the checkpoint at
+    ``policy_ckpt``; a path with no checkpoint is refused, as in the
+    reference."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         scenarios.run_scale(T=30, H=4, K=4, n=6, schedulers=("learned",),
-                            device="cpu")
+                            device="cpu", policy_ckpt=str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        ref_scenarios.run_scale(T=30, H=4, K=4, n=6,
+                                schedulers=("learned",),
+                                policy_ckpt=str(tmp_path))
+    row, = scenarios.run_scale(T=30, H=4, K=4, n=6, schedulers=("learned",),
+                               device="cpu")
+    assert row.scheduler == "learned" and row.accepted <= 6
 
 
 @pytest.mark.parametrize("name", ["repro_torch.sim.scenarios",
