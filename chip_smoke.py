@@ -45,9 +45,17 @@ serving stream through ``engine.run``/``run_stream(policy=...)``, held
 to the port's CPU runs (``tools/learned_cpu.py``); and REINFORCE training
 at the reference's ``TrainConfig`` (the behaviour-cloning warm start and
 two iterations of lockstep rollouts, autograd and Adam on the card), one
-update held to the CPU's and a checkpoint round trip.  Traced runs show
-where the time goes (the tiled route one job at a time, and in bursts at
-one and at eight lanes).
+update held to the CPU's and a checkpoint round trip.  The flight
+recorder follows (``repro_torch.obs``): both routes recorded at paper
+scale, each run equal to its unrecorded run and its readings (counters,
+span and histogram counts) to the port's on the CPU
+(``tools/obs_cpu.py``); the tiled route recorded at 10x, equal to its
+unrecorded run with the same kernel launches, its derived figures and
+host ms per span printed; the ``REPRO_DECIDE_PROFILE`` stage breakdown
+over the 10x trace's first 200 jobs; and the CLI ``python -m
+repro_torch.launch.cluster_sim --scenario churn --quick --trace`` on the
+card.  Traced runs show where the time goes (the tiled route one job at
+a time, and in bursts at one and at eight lanes).
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -101,6 +109,7 @@ from repro_torch.kernels.minplus.monotone import (  # noqa: E402
 from repro_torch.kernels.minplus.ref import (  # noqa: E402
     minplus_ref, minplus_sweep_ref)
 from repro_torch.kernels.minplus.tiled import TILE, minplus_tile  # noqa: E402
+from repro_torch import obs as obslib  # noqa: E402
 from repro_torch.core import schedule_torch  # noqa: E402
 from repro_torch.core.pricing import price_params_from_jobs  # noqa: E402
 from repro_torch.core.schedule_torch import _shape_bucket  # noqa: E402
@@ -1721,6 +1730,184 @@ def scenario_phase():
     return launches
 
 
+# the flight recorder's pins: the deterministic readings (counters, span
+# and histogram counts) of the paper-scale runs on both routes and the
+# quick churn CLI's rows, from the port on the CPU (tools/obs_cpu.py)
+OBS_CPU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "tools", "obs_cpu.json")
+OBS_CLI = ("--scenario", "churn", "--quick")
+
+
+def obs_paper_run(core, device=None):
+    """(result, recorder) of paper_phase's instance (T=100, H = K = 50,
+    200 small jobs of seed 0, quantum 0) through ``core`` with a flight
+    recorder."""
+    ob = obslib.Obs()
+    res = engine.run(make_cluster(T=100, H=50, K=50),
+                     make_jobs(200, T=100, seed=0, small=True), quantum=0,
+                     core=core, device=device, obs=ob)
+    return res, ob
+
+
+def obs_pin(res, ob):
+    """A recorded run's deterministic readings: utility, accepted jobs,
+    completions' digest, every counter, the spans per name and the
+    observations per histogram."""
+    snap = ob.metrics.snapshot()
+    spans = collections.Counter(e["name"] for e in ob.tracer.events())
+    return {"total_utility": res.total_utility, "accepted": res.accepted,
+            "completion_sha256": _completion_digest(res.completion),
+            "counters": dict(sorted(snap["counters"].items())),
+            "spans": dict(sorted(spans.items())),
+            "histogram_counts": {k: h["count"] for k, h in
+                                 sorted(snap["histograms"].items())}}
+
+
+def cli_rows(text):
+    """The scenario rows a ``cluster_sim`` run printed: each row up to its
+    utilization (scheduler, variant, utility to one decimal, accepted and
+    completed jobs), its wall time left out."""
+    return [" ".join(ln[:ln.index(" util=") + 11].split())
+            for ln in text.splitlines() if " util=" in ln]
+
+
+def _span_ms(ob):
+    """Host milliseconds per span name over a recording (nested spans
+    count in their parents too)."""
+    tot = collections.defaultdict(float)
+    for e in ob.tracer.events():
+        if e["dur_us"] is not None:
+            tot[e["name"]] += e["dur_us"] / 1e3
+    return dict(sorted(tot.items(), key=lambda kv: -kv[1]))
+
+
+def obs_phase(paper, one_lane, tile_launches):
+    """The flight recorder (``repro_torch.obs``) on the card:
+
+    1. paper scale, both routes, recorded (``engine.run(..., obs=)``):
+       the same completions and utility as the paper phase's unrecorded
+       card runs (``paper``), and every counter, span count and histogram
+       count equal to the port's CPU run (:data:`OBS_CPU`), one upload;
+    2. the 10x instance, tiled route, recorded: the same completions,
+       utility and kernel launches as the unrecorded run (``one_lane``,
+       ``tile_launches``: its sweep-kernel and plateau launches);
+       ``decide.launches`` equal to the core's own count; the derived
+       figures (row-cache hit rate, early-exit tile fraction, device
+       uploads) and the host ms per span name;
+    3. the decision-stage profile (``REPRO_DECIDE_PROFILE=1``) over the
+       10x trace's first 200 arrivals, profile_phase's window, tiled
+       route: the decisions equal an unprofiled run's, every stage's
+       time positive;
+    4. the CLI, ``python -m repro_torch.launch.cluster_sim --scenario
+       churn --quick --trace`` on the card: the trace parses, its
+       decisions, arrivals and preemptions are positive, and its rows
+       equal the CPU's (:data:`OBS_CPU`).
+
+    Prints its wall."""
+    t_phase = time.perf_counter()
+    with open(OBS_CPU) as f:
+        pins = json.load(f)
+    for core in ("whole", "tiled"):
+        res, ob = obs_paper_run(core)
+        got, want = obs_pin(res, ob), pins["paper"][core]
+        same_run = (res.completion == paper[core].completion
+                    and res.total_utility == paper[core].total_utility)
+        print(f"obs paper scale, {core} route: same run as unrecorded "
+              f"{same_run} same readings as the CPU {got == want} "
+              f"counters={got['counters']} spans={got['spans']}",
+              flush=True)
+        if not same_run or got != want:
+            raise AssertionError(f"obs paper {core}: {got} on the card, "
+                                 f"{want} on the CPU, or the recorded run "
+                                 "differs from the unrecorded one")
+        if got["counters"]["price.device_uploads"] != 1:
+            raise AssertionError(f"obs paper {core}: device uploads")
+    cluster = make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"])
+    jobs = make_jobs(SCALE["n"], T=SCALE["T"], seed=0)
+    ob = obslib.Obs()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine.run(cluster, jobs, quantum=0, core="tiled", check=True,
+                     obs=ob)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counted()
+    snap = schedule_torch.monotone_counters_snapshot()
+    c = ob.metrics.snapshot()["counters"]
+    hit = c.get("decide.cache_tiles_valid", 0) / max(
+        c.get("decide.cache_tiles_total", 0), 1)
+    frac = c["decide.tiles_visited"] / max(c["decide.tiles_horizon"], 1)
+    same = (res.completion == one_lane.completion
+            and res.total_utility == one_lane.total_utility
+            and (counts[0], counts[2]) == tile_launches)
+    print(f"obs 10x tiled route: wall_s={wall!r} row_cache_hit_rate={hit!r}"
+          f" early_exit_frac={frac!r} device_uploads="
+          f"{c['price.device_uploads']} launches={c['decide.launches']} "
+          f"core_launches={snap['launches']} spans={len(ob.tracer)} "
+          f"dropped={ob.tracer.dropped} same_run_and_kernel_launches_as_"
+          f"unrecorded={same} counters={dict(sorted(c.items()))}")
+    print("obs 10x tiled route, host ms per span: " + " ".join(
+        f"{k}={v!r}" for k, v in _span_ms(ob).items()), flush=True)
+    if not (same and c["decide.launches"] == snap["launches"]
+            and c["price.device_uploads"] == 1 and ob.tracer.dropped == 0):
+        raise AssertionError("obs 10x tiled route: the recorded run differs "
+                             "from the unrecorded one, or its counts are "
+                             "off")
+    params = price_params_from_jobs(jobs, cluster)
+    first = jobs[:200]
+    ob = obslib.Obs()
+    base = engine.run(cluster, first, params=params, quantum=0,
+                      core="tiled", obs=ob)
+    schedule_torch.decide_profile_reset()
+    os.environ["REPRO_DECIDE_PROFILE"] = "1"
+    try:
+        prof = engine.run(cluster, first, params=params, quantum=0,
+                          core="tiled")
+    finally:
+        del os.environ["REPRO_DECIDE_PROFILE"]
+    stages = schedule_torch.decide_profile_snapshot()
+    n = max(stages["decisions"], 1.0)
+    print("obs stage profile (REPRO_DECIDE_PROFILE, tiled route, 10x trace, "
+          "first 200 jobs): " + " ".join(
+              f"{k}_ms={v * 1e3!r} {k}_ms_per_decision={v * 1e3 / n!r}"
+              for k, v in stages.items() if k != "decisions")
+          + f" decisions={stages['decisions']!r}; unprofiled, host ms per "
+          "span: " + " ".join(f"{k}={v!r}" for k, v in _span_ms(ob).items()),
+          flush=True)
+    if not (prof.completion == base.completion
+            and prof.total_utility == base.total_utility
+            and min(stages.values()) > 0):
+        raise AssertionError(f"stage profile: {stages}, or the profiled "
+                             "run's decisions differ")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "churn.json")
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.cluster_sim",
+             *OBS_CLI, "--trace", trace], cwd=root, env=env,
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"cluster_sim: {out.stderr[-2000:]}")
+        with open(trace) as f:
+            doc = json.load(f)
+    c = doc["metrics"]["counters"]
+    rows = cli_rows(out.stdout)
+    print(f"obs CLI (cluster_sim {' '.join(OBS_CLI)} --trace, on the card):"
+          f" wall_s={cli_s!r} events={len(doc['traceEvents'])} "
+          f"rows_equal_cpu={rows == pins['cli_rows']} counters={c}")
+    if not (rows == pins["cli_rows"] and all(
+            c.get(k, 0) > 0 for k in ("decide.decisions", "engine.arrivals",
+                                      "engine.preemptions"))):
+        raise AssertionError(f"cluster_sim rows {rows} against the CPU's "
+                             f"{pins['cli_rows']}, or counters {c}")
+    print(f"obs phase: wall_s={time.perf_counter() - t_phase!r}")
+
+
 def profile_phase(core, n_jobs=200, lanes=1, sequential=False):
     """Where the time goes: a traced run of the 10x trace's first
     ``n_jobs`` arrivals through ``core`` (same price parameters as the
@@ -2436,6 +2623,7 @@ def main() -> int:
     _phase(stream_churn_phase)
     scen = _phase(scenario_phase)
     replays = _phase(learned_phase, paper)
+    _phase(obs_phase, paper, one_lane, (c_launches, b_launches))
     _phase(profile_phase, "whole")
     _phase(profile_phase, "tiled", sequential=True)
     _phase(profile_phase, "tiled")

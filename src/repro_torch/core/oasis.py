@@ -16,6 +16,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .pricing import PriceParams, PriceState
 from .schedule_torch import (CORES, _materialize, best_schedule_fused,
                              decide_burst)
@@ -74,8 +75,14 @@ class OASiS:
         """Alg. 2 candidate at current prices (no commitment).  ``None``
         means no schedule has positive payoff — Alg. 1 would reject."""
         t0 = time.perf_counter()
-        sched = best_schedule_fused(job, self.state, core=self.core)
-        self.decision_seconds.append(time.perf_counter() - t0)
+        with (_obs.span("decide", jid=job.jid, core=self.core)
+              if _obs.ENABLED else _obs.NULL_SPAN):
+            sched = best_schedule_fused(job, self.state, core=self.core)
+        dt = time.perf_counter() - t0
+        self.decision_seconds.append(dt)
+        if _obs.ENABLED:
+            _obs.inc("decide.decisions")
+            _obs.observe("decide.seconds", dt)
         return sched
 
     def on_arrival(self, job: Job) -> Optional[Schedule]:
@@ -114,8 +121,10 @@ class OASiS:
                 out[i] = self.on_arrival(jobs[i])
             return out
         times: List[float] = []
-        pends = decide_burst([jobs[i] for i in order], self.state,
-                             timings=times)
+        with (_obs.span("decide_burst", n=len(jobs), core=self.core)
+              if _obs.ENABLED else _obs.NULL_SPAN):
+            pends = decide_burst([jobs[i] for i in order], self.state,
+                                 timings=times)
         prices_moved = False
         for pos, i in enumerate(order):
             pend, pends[pos] = pends[pos], None    # free the launch tables
@@ -125,14 +134,21 @@ class OASiS:
             elif pend.best_t < 0 or not prices_moved:
                 sched = _materialize(pend, self.state)
             else:
-                pend.cache.sync(self.state)
-                sched = best_schedule_fused(jobs[i], self.state,
-                                            core="tiled",
-                                            row_cache=pend.cache)
+                rec = _obs.ENABLED
+                with (_obs.span("decide.row_cache_sync", jid=jobs[i].jid)
+                      if rec else _obs.NULL_SPAN):
+                    pend.cache.sync(self.state)
+                with (_obs.span("decide.resolve", jid=jobs[i].jid)
+                      if rec else _obs.NULL_SPAN):
+                    sched = best_schedule_fused(jobs[i], self.state,
+                                                core="tiled",
+                                                row_cache=pend.cache)
             self.decision_seconds.append(times[pos]
                                          + time.perf_counter() - t0)
             out[i] = self._resolve(jobs[i], sched)
             prices_moved = prices_moved or out[i] is not None
+        if _obs.ENABLED:
+            _obs.inc("decide.decisions", len(jobs))
         return out
 
     def _resolve(self, job: Job, sched: Optional[Schedule]

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DTYPE, resolve_device
+from .. import obs as _obs
 from .types import ClusterSpec, Job, R
 
 # dirty-slot log cap: past it the oldest half is trimmed and the log floor
@@ -294,6 +295,9 @@ class PriceState:
             return
         if shift < 0:
             raise ValueError(f"advance({now}) before origin {self.origin}")
+        if _obs.ENABLED:
+            _obs.inc("price.window_advances")
+            _obs.inc("price.window_slots_retired", shift)
         W = self.horizon
         k = min(shift, W)
         self.retired_gpu_slots += float(self._g_host[:k, :, 0].sum())
@@ -447,11 +451,21 @@ class PriceState:
             del self._dirty_log[:drop]
 
     def commit(self, job: Job, workers: dict, ps: dict) -> None:
-        self._apply(workers, ps, job.worker_res, job.ps_res, 1.0)
+        rec = _obs.ENABLED
+        with (_obs.span("price.commit", jid=job.jid) if rec
+              else _obs.NULL_SPAN):
+            self._apply(workers, ps, job.worker_res, job.ps_res, 1.0)
+        if rec:
+            _obs.inc("price.commits")
 
     def release(self, job: Job, workers: dict, ps: dict) -> None:
         """Inverse of commit (preemption / cancellation)."""
-        self._apply(workers, ps, job.worker_res, job.ps_res, -1.0)
+        rec = _obs.ENABLED
+        with (_obs.span("price.release", jid=job.jid) if rec
+              else _obs.NULL_SPAN):
+            self._apply(workers, ps, job.worker_res, job.ps_res, -1.0)
+        if rec:
+            _obs.inc("price.releases")
 
     # -- fleet churn: server blocking ---------------------------------------
     def _server_pool(self, pool: str):
@@ -491,6 +505,8 @@ class PriceState:
         if d is None:
             return 0.0
         self._apply_deltas([d[:4]], negative=False)
+        if _obs.ENABLED:
+            _obs.inc("price.server_blocks")
         return d[4]
 
     def unblock_server(self, pool: str, server: int, t0: int = 0) -> float:
@@ -503,6 +519,8 @@ class PriceState:
         if d is None:
             return 0.0
         self._apply_deltas([d[:4]], negative=True)
+        if _obs.ENABLED:
+            _obs.inc("price.server_unblocks")
         return -d[4]
 
     def dirty_spans_since(self, version: int):
@@ -585,6 +603,8 @@ class PriceState:
         self._commits_since_sync = 0
         g, v = self._host_rows(0, self.horizon)
         self.device_uploads += 1
+        if _obs.ENABLED:
+            _obs.inc("price.device_uploads")
         # torch.tensor copies; torch.from_numpy would alias the mirror and
         # the residency would then see (and double-count) host writes.
         # The prices are fresh tensors, priced on the host.

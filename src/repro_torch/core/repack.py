@@ -71,6 +71,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs as _obs
 from .types import Job
 
 Placement = Tuple[np.ndarray, np.ndarray]
@@ -374,6 +375,8 @@ def drf_repack(worker_caps: np.ndarray, ps_caps: np.ndarray, pool: DensePool,
         if s < 0:
             blocked[j] = True                 # no fit anywhere: blocked
             n_blocked += 1
+            if _obs.ENABLED:
+                _obs.inc("repack.futile_elisions")
             continue
         wp.take(s, j)
         need = _ps_for(counts[j] + 1, bw[j], psbw[j]) - zsum[j]
@@ -383,6 +386,8 @@ def drf_repack(worker_caps: np.ndarray, ps_caps: np.ndarray, pool: DensePool,
                 wp.give(s, j)
                 blocked[j] = True
                 n_blocked += 1
+                if _obs.ENABLED:
+                    _obs.inc("repack.futile_elisions")
                 continue
             if zs[j] is None:
                 zs[j] = z
@@ -434,12 +439,16 @@ def dorm_repack(worker_caps: np.ndarray, ps_caps: np.ndarray, pool: DensePool,
     zs: List[Optional[Dict[int, int]]] = [None] * n
     active = list(range(n))
     while active:
+        if _obs.ENABLED:
+            _obs.inc("repack.rounds")
         nxt = []
         for j in active:
             if counts[j] >= maxc[j]:
                 continue                      # reached its chunk count
             s = wp.find(j)
             if s < 0:
+                if _obs.ENABLED:
+                    _obs.inc("repack.futile_elisions")
                 continue                      # no server fits, ever again
             wp.take(s, j)
             need = _ps_for(counts[j] + 1, bw[j], psbw[j]) - zsum[j]
@@ -447,6 +456,8 @@ def dorm_repack(worker_caps: np.ndarray, ps_caps: np.ndarray, pool: DensePool,
                 z = ps.place(j, need)
                 if z is None:
                     wp.give(s, j)
+                    if _obs.ENABLED:
+                        _obs.inc("repack.futile_elisions")
                     continue                  # PS rollback -> job is done
                 if zs[j] is None:
                     zs[j] = z

@@ -71,6 +71,7 @@ import numpy as np
 import torch
 
 from .. import DEFAULT_DTYPE
+from .. import obs as _obs
 from ..kernels.minplus.monotone import PATH_CHAIN, PATH_PLATEAU, run_count
 from ..kernels.minplus.ops import (minplus_chain, minplus_plateau_tile,
                                    minplus_sweep)
@@ -95,6 +96,50 @@ _SPLIT_TOL = 1e-12
 MONO_BAND = 64
 # the routes of ``best_schedule_fused``
 CORES = ("whole", "tiled")
+
+
+# ---------------------------------------------------------------------------
+# Decision-stage profile (REPRO_DECIDE_PROFILE=1)
+# ---------------------------------------------------------------------------
+
+_PROFILE_STAGES = ("row_build", "dp_sweep", "backtrack", "placement")
+_profile_acc = {k: 0.0 for k in _PROFILE_STAGES}
+_profile_acc["decisions"] = 0.0
+
+
+def _profiling() -> bool:
+    """``REPRO_DECIDE_PROFILE``, re-read per launch so a caller (the
+    ``cluster_sim --profile`` CLI) may set it after this module is
+    imported."""
+    return os.environ.get("REPRO_DECIDE_PROFILE", "") not in ("", "0")
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def decide_profile_reset() -> None:
+    for k in _profile_acc:
+        _profile_acc[k] = 0.0
+
+
+def decide_profile_snapshot() -> dict:
+    """The tiled route's decision wall clock per stage since the last
+    reset, in seconds, and the lanes decided (``decisions``).
+
+    Stages: ``row_build`` (the COST rows built inside a core run),
+    ``dp_sweep`` (the min-plus tiles and the early-exit loop),
+    ``backtrack`` (split recovery of an accept) and ``placement`` (its
+    greedy fills).  The row/DP split re-runs each core launch with every
+    visited tile served from the row cache the first run just refreshed
+    (its outputs are discarded): that run is DP only, so ``row_build =
+    total - dp_only``.  Each stage's clock starts and ends on a device
+    synchronisation.  A diagnostic mode: it roughly doubles a decision's
+    latency and launches each visited tile's kernel twice, and leaves
+    the decisions unchanged."""
+    return dict(_profile_acc)
 
 
 def _max_lanes() -> int:
@@ -297,13 +342,19 @@ def _padded_state(state: PriceState, dtype: torch.dtype, T_pad: int):
     full.  The reference patches the padded state over the dirty spans
     (``_pad_patch``) because a re-pad costs it a compiled dispatch; here
     both are a handful of copies of the resident tables, so the port
-    re-pads.  Returns ``((g, v, wcaps, scaps, U1, U2, L1, L2, pmin, p, q)
-    on the device, pmin on the host)``."""
+    re-pads (and counts ``decide.pad_full`` where the reference counts
+    ``decide.pad_patch`` or ``decide.pad_full``).  Returns ``((g, v,
+    wcaps, scaps, U1, U2, L1, L2, pmin, p, q) on the device, pmin on the
+    host)``."""
     sd = state.device_state(dtype)
     hit = _pad_cache.get(state)
     key = (state.version, T_pad, dtype)
     if hit is not None and hit[0] == key and hit[1] is sd[0]:
+        if _obs.ENABLED:
+            _obs.inc("decide.pad_hit")
         return hit[2]
+    if _obs.ENABLED:
+        _obs.inc("decide.pad_full")
     g, v, pmin, p, q = _pad_state(sd, state.device_prices(dtype), T_pad)
     out = ((g, v) + tuple(sd[2:]) + (pmin, p, q), pmin.cpu().numpy())
     _pad_cache[state] = (key, sd[0], out)
@@ -509,9 +560,13 @@ class RowCache:
             spans = state.dirty_spans_since(self.version)
             if spans is None:
                 self.invalidate_all()
+                if _obs.ENABLED:
+                    _obs.inc("decide.row_cache_full_invalidations")
             else:
                 self.invalidate_spans(spans)
             self.version = state.version
+            if _obs.ENABLED:
+                _obs.inc("decide.row_cache_syncs")
         return self
 
 
@@ -712,11 +767,19 @@ def _materialize(pend: _Pending, state: PriceState) -> Optional[Schedule]:
     if best_t < 0:
         return None
     a, d_tot = job.arrival, job.workload
-    rows_h = pend.rows_full[pend.lane, a:best_t + 1].cpu().numpy()
-    cost_h = pend.cost_full[pend.lane, a:best_t + 1, :d_tot + 1].cpu() \
-        .numpy()
-    cost = float(cost_h[-1, d_tot])
-    d_left, d_slots = _backtrack(rows_h, cost_h[:-1], a, best_t, d_tot)
+    profiling = _profiling()
+    if profiling:
+        _sync(pend.rows_full.device)
+        t_bt = time.perf_counter()
+    with (_obs.span("decide.backtrack", jid=job.jid) if _obs.ENABLED
+          else _obs.NULL_SPAN):
+        rows_h = pend.rows_full[pend.lane, a:best_t + 1].cpu().numpy()
+        cost_h = pend.cost_full[pend.lane, a:best_t + 1, :d_tot + 1].cpu() \
+            .numpy()
+        cost = float(cost_h[-1, d_tot])
+        d_left, d_slots = _backtrack(rows_h, cost_h[:-1], a, best_t, d_tot)
+    if profiling:
+        _profile_acc["backtrack"] += time.perf_counter() - t_bt
     if d_left != 0:
         raise RuntimeError(
             f"backtrack failed: {d_left} chunk-passes unassigned")
@@ -724,18 +787,25 @@ def _materialize(pend: _Pending, state: PriceState) -> Optional[Schedule]:
     ts_active = np.nonzero(d_slots[a:])[0] + a
     workers, ps = {}, {}
     if len(ts_active):
-        sd = state.device_state(DEFAULT_DTYPE)
-        pr = state.device_prices(DEFAULT_DTYPE)
-        dt, dev = sd[0].dtype, sd[0].device
-        d_act = d_slots[ts_active]
-        resbw = np.concatenate([job.worker_res, job.ps_res,
-                                [job.worker_bw, job.ps_bw]])
-        y, z = _place_slots(
-            sd, pr, torch.tensor(resbw, dtype=dt, device=dev),
-            torch.tensor(pend.W[d_act], dtype=dt, device=dev),
-            torch.tensor(pend.Z[d_act], dtype=dt, device=dev),
-            torch.as_tensor(ts_active, device=dev))
-        y, z = y.cpu().numpy(), z.cpu().numpy()
+        if profiling:
+            t_pl = time.perf_counter()
+        with (_obs.span("decide.placement", jid=job.jid,
+                        slots=len(ts_active)) if _obs.ENABLED
+              else _obs.NULL_SPAN):
+            sd = state.device_state(DEFAULT_DTYPE)
+            pr = state.device_prices(DEFAULT_DTYPE)
+            dt, dev = sd[0].dtype, sd[0].device
+            d_act = d_slots[ts_active]
+            resbw = np.concatenate([job.worker_res, job.ps_res,
+                                    [job.worker_bw, job.ps_bw]])
+            y, z = _place_slots(
+                sd, pr, torch.tensor(resbw, dtype=dt, device=dev),
+                torch.tensor(pend.W[d_act], dtype=dt, device=dev),
+                torch.tensor(pend.Z[d_act], dtype=dt, device=dev),
+                torch.as_tensor(ts_active, device=dev))
+            y, z = y.cpu().numpy(), z.cpu().numpy()
+        if profiling:
+            _profile_acc["placement"] += time.perf_counter() - t_pl
         H, K = state.cluster.H, state.cluster.K
         for i, t in enumerate(ts_active):
             workers[int(t)] = y[i, :H].astype(np.int64)
@@ -804,6 +874,11 @@ def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
             for bi, c in enumerate(cached):
                 if c is not None and c.rows is not None:
                     valid[bi] = c.valid
+            # launches without a row cache stay out of these: the hit rate
+            # measures what the cache saved a re-solve
+            if _obs.ENABLED:
+                _obs.inc("decide.cache_tiles_valid", int(valid.sum()))
+                _obs.inc("decide.cache_tiles_total", B * n_tiles)
             if valid.any():
                 ident = torch.full((T_pad, m_pad), float("inf"), dtype=dtype,
                                    device=state.device)
@@ -814,8 +889,44 @@ def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
             else:
                 valid = None
         mono = 1 if B == 1 and m_pad <= MONO_BAND else 0
-        res = _decide_tiled_core(psd, jd, T=T, d1=d1, mono=mono,
-                                 rows_init=rows_init, valid_tiles=valid)
+        profiling = _profiling()
+        if profiling:
+            _sync(state.device)
+            t_launch = time.perf_counter()
+        dp_span = (_obs.span("decide.dp_sweep", lanes=B, T_pad=T_pad,
+                             m_pad=m_pad) if _obs.ENABLED
+                   else _obs.NULL_SPAN)
+        with dp_span:
+            # the core reads each tile's payoff column back to the host,
+            # so the span closes on work the card has finished
+            res = _decide_tiled_core(psd, jd, T=T, d1=d1, mono=mono,
+                                     rows_init=rows_init, valid_tiles=valid)
+            if _obs.ENABLED:
+                dp_span.set(tiles_visited=res.k_end - res.k0,
+                            n_tiles=n_tiles)
+        if profiling:
+            _sync(state.device)
+            total = time.perf_counter() - t_launch
+            # DP-only re-run: every tile served from the rows the first run
+            # just refreshed (copied, never written back; its outputs are
+            # dropped).  It visits the same tiles from the same carries,
+            # so the difference is the row build
+            t_dp = time.perf_counter()
+            _decide_tiled_core(psd, jd, T=T, d1=d1, mono=mono,
+                               rows_init=res.rows,
+                               valid_tiles=np.ones((B, n_tiles), bool))
+            _sync(state.device)
+            dp_only = time.perf_counter() - t_dp
+            _profile_acc["dp_sweep"] += dp_only
+            _profile_acc["row_build"] += max(total - dp_only, 0.0)
+            _profile_acc["decisions"] += B
+        if _obs.ENABLED:
+            visited = res.k_end - res.k0
+            _obs.inc("decide.launches")
+            _obs.inc("decide.tiles_visited", visited)
+            _obs.inc("decide.tiles_horizon", n_tiles)
+            _obs.observe("decide.early_exit_frac",
+                         visited / max(n_tiles, 1))
         for key, n in zip(("dnc", "plateau", "chain"), res.paths):
             _monotone_counters[key] += n
         _monotone_counters["slots"] += sum(res.live)

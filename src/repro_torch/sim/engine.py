@@ -78,6 +78,7 @@ from typing import (Callable, Dict, Generator, Iterable, List, Optional,
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from .. import resolve_device
 from ..core.baselines import BASELINES, Learned, ReactiveScheduler
 from ..core.oasis import OASiS
@@ -470,7 +471,8 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         cancellations: Optional[Dict[int, int]] = None,
         throughput: Optional[ThroughputFn] = None,
         fleet: Optional[FleetTrace] = None,
-        ckpt_interval: int = CKPT_INTERVAL, policy=None) -> SimResult:
+        ckpt_interval: int = CKPT_INTERVAL, policy=None,
+        obs: Optional[_obs.Obs] = None) -> SimResult:
     """Drive ``scheduler`` (``"oasis"`` or a reactive baseline: ``"fifo"``,
     ``"drf"``, ``"rrh"``, ``"dorm"``) through the trace event by event.
     OASiS decides on ``device`` (None: the CUDA card), every decision
@@ -487,6 +489,10 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     ``decision_seconds`` are then OASiS's own, or the policy's for a
     reactive scheduler.  Without one each scheduler decides for itself
     and no decision point is built.
+
+    ``obs`` installs a flight recorder (``repro_torch.obs.Obs``) for the
+    run: its spans and counters land there, and the previous recorder
+    (none by default) is restored on return.
 
     Example — the same trace under OASiS and a reactive baseline::
 
@@ -510,9 +516,12 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     kw = dict(params=params, check=check, quantum=quantum, device=device,
               core=core, cancellations=cancellations, throughput=throughput,
               fleet=fleet, ckpt_interval=ckpt_interval)
-    if policy is not None:
-        return _with_policy(decisions(cluster, jobs, scheduler, **kw), policy)
-    return _exhaust(_drivers(cluster, jobs, scheduler, decide=False, **kw))
+    with _obs.activate(obs):
+        if policy is not None:
+            return _with_policy(decisions(cluster, jobs, scheduler, **kw),
+                                policy)
+        return _exhaust(_drivers(cluster, jobs, scheduler, decide=False,
+                                 **kw))
 
 
 def decisions(cluster: ClusterSpec, jobs: Sequence[Job],
@@ -582,6 +591,9 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
     for t in sorted(slots):
         if churn:
             trans = fs.step(t)
+            cs = (_obs.span("churn_step", t=t, transitions=len(trans))
+                  if _obs.ENABLED else _obs.NULL_SPAN)
+            cs.__enter__()
             # recoveries first: their headroom is visible to this slot's
             # re-admissions and arrivals
             for pool, srv, kind in trans:
@@ -606,6 +618,8 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
                               {s: z for s, z in sched.ps.items() if s >= t})
                 osched.total_utility -= sched.utility
                 n_preempted += 1
+                if _obs.ENABLED:
+                    _obs.inc("engine.preemptions")
                 job_r, done = _victim_copy(jcur, jmap[jid], sched, kind, t,
                                            ck, 0, t)
                 if job_r is None:
@@ -617,6 +631,9 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
             for pool, srv, kind in trans:
                 if kind != UP:
                     blocked_gpu += state.block_server(pool, srv, t)
+            if _obs.ENABLED:
+                cs.set(victims=len(victims), readmits=len(readmit))
+            cs.__exit__(None, None, None)
             for job_r in readmit:
                 ljobs[job_r.jid] = job_r
                 if decide:
@@ -631,6 +648,8 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
                     sched = osched.on_arrival(job_r)
                 if sched is None:
                     n_dropped += 1
+                    if _obs.ENABLED:
+                        _obs.inc("engine.preempt_dropped")
         for jid in cancel_slot.get(t, ()):
             sched = osched.accepted.get(jid)
             if sched is None or sched.finish < t or jid in canceled:
@@ -644,6 +663,8 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
         if churn:
             for job in batch:
                 ljobs[job.jid] = job
+        if _obs.ENABLED and batch:
+            _obs.inc("engine.arrivals", len(batch))
         if decide:
             # one job at a time at current prices, the answer gating the
             # commitment: sequential decisions are the burst path's
@@ -657,7 +678,9 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
                 osched._resolve(job,
                                 cand if _as_counts(action)[0] > 0 else None)
         elif batch:
-            osched.on_arrivals(batch)
+            with (_obs.span("arrival_burst", t=t, n=len(batch))
+                  if _obs.ENABLED else _obs.NULL_SPAN):
+                osched.on_arrivals(batch)
         if check:
             _check(osched, t)
             if churn:
@@ -725,7 +748,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                warmup_sample: int = 256, fleet: Optional[FleetTrace] = None,
                ckpt_interval: int = CKPT_INTERVAL,
                device: Optional[Union[str, torch.device]] = None,
-               core: str = "whole", policy=None) -> SimResult:
+               core: str = "whole", policy=None,
+               obs: Optional[_obs.Obs] = None) -> SimResult:
     """Drive ``scheduler`` over an open-ended arrival stream: OASiS on
     ``device`` (None: the CUDA card), through the decision core ``core``;
     a reactive baseline on the host, after the device is resolved, with
@@ -740,7 +764,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     are then replayed).  ``fleet`` slots are absolute; down servers are
     re-blocked after every advance.  ``utilization`` is over the elapsed
     clock, through the last completion.  ``policy`` answers each decision
-    point of :func:`stream_decisions`, as in :func:`run`.
+    point of :func:`stream_decisions`, and ``obs`` records the run (the
+    warm-up sample included), as in :func:`run`.
 
     Example — a bounded slice of a stream through a 16-slot window::
 
@@ -759,11 +784,12 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     kw = dict(params=params, window=window, check=check, quantum=quantum,
               warmup_sample=warmup_sample, fleet=fleet,
               ckpt_interval=ckpt_interval, device=device, core=core)
-    if policy is not None:
-        return _with_policy(stream_decisions(cluster, jobs, scheduler, **kw),
-                            policy)
-    return _exhaust(_stream_drivers(cluster, jobs, scheduler, decide=False,
-                                    **kw))
+    with _obs.activate(obs):
+        if policy is not None:
+            return _with_policy(
+                stream_decisions(cluster, jobs, scheduler, **kw), policy)
+        return _exhaust(_stream_drivers(cluster, jobs, scheduler,
+                                        decide=False, **kw))
 
 
 def stream_decisions(cluster: ClusterSpec, jobs: Iterable[Job],
@@ -841,7 +867,9 @@ def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         while nxt is not None and int(nxt.arrival) == t:
             batch.append(nxt)
             nxt = next(it, None)
-        state.advance(t)
+        with (_obs.span("stream_advance", t=t) if _obs.ENABLED
+              else _obs.NULL_SPAN):
+            state.advance(t)
         for jid in [j for j, fin in active.items() if fin < t]:
             del active[jid]
             osched.accepted.pop(jid, None)
@@ -855,6 +883,9 @@ def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         if churn and tf == t:
             fi += 1
             trans = fs.step(t)
+            cs = (_obs.span("churn_step", t=t, transitions=len(trans))
+                  if _obs.ENABLED else _obs.NULL_SPAN)
+            cs.__enter__()
             for pool, srv, kind in trans:
                 if kind == UP:
                     blocked_gpu -= state.unblock_server(pool, srv, 0)
@@ -882,6 +913,8 @@ def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                                if s >= shift})
                 osched.total_utility -= sched.utility
                 n_preempted += 1
+                if _obs.ENABLED:
+                    _obs.inc("engine.preemptions")
                 del active[jid]
                 job_r, done = _victim_copy(jcur, jmap[jid], sched, kind, t,
                                            ck, ao, 0)
@@ -894,6 +927,9 @@ def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
             for pool, srv, kind in trans:
                 if kind != UP:
                     blocked_gpu += state.block_server(pool, srv, 0)
+            if _obs.ENABLED:
+                cs.set(victims=len(victims), readmits=len(readmit))
+            cs.__exit__(None, None, None)
             for jid, loc in readmit:
                 ljobs[jid] = loc
                 if decide:
@@ -913,6 +949,8 @@ def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                     # the shrunken fleet cannot fit it: it departs with no
                     # utility (subtracted above)
                     n_dropped += 1
+                    if _obs.ENABLED:
+                        _obs.inc("engine.preempt_dropped")
                     n_accepted -= 1
                     n_rejected += 1
                     completion.pop(jid, None)
@@ -926,7 +964,13 @@ def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
             jmap[j.jid] = j
             arrivals[j.jid] = int(j.arrival)
         n_jobs += len(batch)
-        scheds = osched.on_arrivals(local) if batch and not decide else ()
+        if _obs.ENABLED and batch:
+            _obs.inc("engine.arrivals", len(batch))
+        scheds = ()
+        if batch and not decide:
+            with (_obs.span("arrival_burst", t=t, n=len(batch))
+                  if _obs.ENABLED else _obs.NULL_SPAN):
+                scheds = osched.on_arrivals(local)
         for i, (job, loc) in enumerate(zip(batch, local)):
             if decide:
                 cand = osched.propose(loc)
@@ -999,6 +1043,8 @@ def _preempt_on(trans, cur_alloc: Dict[int, tuple], remaining, ckpt_rem,
             rsched.preempt(jid, t)
             cur_alloc.pop(jid, None)
             n += 1
+            if _obs.ENABLED:
+                _obs.inc("engine.preemptions")
     return n
 
 
@@ -1040,7 +1086,7 @@ def _consume(ids, consumed, remaining, completion, total_utility: float,
              cur_alloc: Dict[int, tuple], ckpt_rem, t_end: int):
     """Take the work ``consumed`` off each live job's remainder; the jobs it
     finishes complete at ``t_end``, earn their utility there and leave
-    the scheduler.  Returns (the utility total, whether any finished)."""
+    the scheduler.  Returns (the utility total, the jobs it finished)."""
     done_now = []
     for j, used in zip(ids, consumed):
         remaining[j] -= used
@@ -1053,7 +1099,7 @@ def _consume(ids, consumed, remaining, completion, total_utility: float,
         del remaining[jid]
         cur_alloc.pop(jid, None)
         ckpt_rem.pop(jid, None)
-    return total_utility, bool(done_now)
+    return total_utility, len(done_now)
 
 
 def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
@@ -1110,11 +1156,15 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
         if churn:
             trans = fs.step(t)
             if trans:
-                n_preempted += _preempt_on(trans, cur_alloc, remaining,
-                                           ckpt_rem, jmap, rsched, t)
-                rsched.set_capacity(fs.worker_caps, fs.ps_caps)
+                with (_obs.span("churn_step", t=t, transitions=len(trans))
+                      if _obs.ENABLED else _obs.NULL_SPAN):
+                    n_preempted += _preempt_on(trans, cur_alloc, remaining,
+                                               ckpt_rem, jmap, rsched, t)
+                    rsched.set_capacity(fs.worker_caps, fs.ps_caps)
                 stale = True
         arrivals_now = by_slot.pop(t, ())
+        if _obs.ENABLED and arrivals_now:
+            _obs.inc("engine.arrivals", len(arrivals_now))
         if decide and arrivals_now:
             usage = _pool_usage(cur_alloc, jmap, cluster)
         for job in arrivals_now:
@@ -1131,7 +1181,8 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
                 remaining[job.jid] = job.total_work_slots
             else:
                 n_rejected += 1
-        for jid in cancel_slot.get(t, ()):
+        cancels_now = cancel_slot.get(t, ())
+        for jid in cancels_now:
             if jid in remaining:                # admitted, still running
                 rsched.on_completion(jid, t)    # out of the pool, no utility
                 del remaining[jid]
@@ -1141,7 +1192,10 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
                 stale = True
         if rsched.dirty:
             t0 = time.perf_counter()
-            cur_alloc = dict(rsched.step(t))
+            with (_obs.span("repack", t=t, scheduler=scheduler,
+                            n_live=len(remaining))
+                  if _obs.ENABLED else _obs.NULL_SPAN):
+                cur_alloc = dict(rsched.step(t))
             if not decide:
                 decision_seconds.append(time.perf_counter() - t0)
             rsched.dirty = False
@@ -1150,9 +1204,16 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
                 _check_alloc(jmap, cur_alloc,
                              fs.worker_caps if churn else cluster.worker_caps,
                              fs.ps_caps if churn else cluster.ps_caps)
+        elif _obs.ENABLED and (arrivals_now or cancels_now
+                               or (churn and trans)):
+            # an event landed and the scheduler kept its last plan
+            _obs.inc("repack.dirty_skips")
         if stale:
             ids, counts, plan_gpu = _plan_arrays(cur_alloc, jmap)
             stale = False
+        ff = (_obs.span("ffwd", t=t, n_live=len(ids)) if _obs.ENABLED
+              else _obs.NULL_SPAN)
+        ff.__enter__()
         next_ev = events[ei] if ei < len(events) else T
         horizon = min(next_ev, T) - t
         if throughput is None:
@@ -1193,8 +1254,14 @@ def _drive_reactive(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str,
         total_utility, done = _consume(ids, consumed, remaining, completion,
                                        total_utility, jmap, rsched, cur_alloc,
                                        ckpt_rem, t_end)
-        stale = stale or done
+        stale = stale or done > 0
         t += span
+        if _obs.ENABLED:
+            ff.set(slots=span, completed=done)
+            ff.__exit__(None, None, None)
+            _obs.inc("engine.ffwd_slots", span)
+            if done:
+                _obs.inc("engine.completions", done)
     return SimResult(name=scheduler, total_utility=total_utility,
                      accepted=len(admitted), completed=len(completion),
                      n_jobs=len(jobs), completion=completion,
@@ -1246,9 +1313,11 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         if churn:
             changed = False
             while fi < len(fe) and fe[fi] <= t:
-                n_preempted += _preempt_on(fs.step(fe[fi]), cur_alloc,
-                                           remaining, ckpt_rem, jmap,
-                                           rsched, t)
+                with (_obs.span("churn_step", t=fe[fi]) if _obs.ENABLED
+                      else _obs.NULL_SPAN):
+                    n_preempted += _preempt_on(fs.step(fe[fi]), cur_alloc,
+                                               remaining, ckpt_rem, jmap,
+                                               rsched, t)
                 changed = True
                 fi += 1
             if changed:
@@ -1258,6 +1327,8 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         while nxt is not None and int(nxt.arrival) <= t:
             burst.append(_with_quantum(nxt, quantum))
             nxt = next(it, None)
+        if _obs.ENABLED and burst:
+            _obs.inc("engine.arrivals", len(burst))
         if decide and burst:
             usage = _pool_usage(cur_alloc, jmap, cluster)
         for job in burst:
@@ -1279,7 +1350,10 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                 n_rejected += 1
         if rsched.dirty:
             t0 = time.perf_counter()
-            cur_alloc = dict(rsched.step(t))
+            with (_obs.span("repack", t=t, scheduler=scheduler,
+                            n_live=len(remaining))
+                  if _obs.ENABLED else _obs.NULL_SPAN):
+                cur_alloc = dict(rsched.step(t))
             if not decide:
                 decision_seconds.append(time.perf_counter() - t0)
             rsched.dirty = False
@@ -1288,6 +1362,8 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                 _check_alloc(jmap, cur_alloc,
                              fs.worker_caps if churn else cluster.worker_caps,
                              fs.ps_caps if churn else cluster.ps_caps)
+        elif _obs.ENABLED and (burst or (churn and changed)):
+            _obs.inc("repack.dirty_skips")
         if stale:
             ids, counts, plan_gpu = _plan_arrays(cur_alloc, jmap)
             stale = False
@@ -1310,8 +1386,12 @@ def _drive_reactive_stream(cluster: ClusterSpec, jobs: Iterable[Job],
         total_utility, done = _consume(ids, consumed, remaining, completion,
                                        total_utility, jmap, rsched, cur_alloc,
                                        ckpt_rem, t_end)
-        stale = stale or done
+        stale = stale or done > 0
         t += span
+        if _obs.ENABLED:
+            _obs.inc("engine.ffwd_slots", span)
+            if done:
+                _obs.inc("engine.completions", done)
     return SimResult(name=scheduler, total_utility=total_utility,
                      accepted=len(admitted), completed=len(completion),
                      n_jobs=n_jobs, completion=completion,
