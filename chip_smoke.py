@@ -19,7 +19,16 @@ the row cache); it runs at one lane a launch and again at eight
 (``REPRO_BURST_LANES=8``, one cluster per lane), both held to the
 sequential route's completions and utility.  The one-slot kernel is the
 one-slot entry's (``ops.minplus``), driven on its own with its count set
-to 0.  Unquantized full-size jobs (d1 up to 20480) then go through both
+to 0.  The convex divide-and-conquer branch (``REPRO_MONOTONE_DNC=1``)
+follows: its tile kernel against its plain version and the chain on
+certified-convex tiles, then the paper-scale tiled run with the switch
+on, its counts set to 0 just before it and read just after (one launch
+per D&C tile), held to the switch-off run and to the port on the CPU with
+the same tiles per branch, and its own D&C tiles timed.  The float32
+route (``precision="x32"``, the reference's TPU precision) runs the
+paper-scale and the 10x instance on both routes, each held to the port's
+float32 run on the CPU (``tools/precision_cpu.py``).  Unquantized
+full-size jobs (d1 up to 20480) then go through both
 routes, held to the port on the CPU, as the whole route's 10x run is.
 Continuous serving and fleet churn follow, each run with the counts set
 to 0 just before it and read just after and held to the port's
@@ -105,6 +114,7 @@ from repro_torch.kernels.ssd import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd.ops import ssd_op  # noqa: E402
 from repro_torch.kernels.minplus import ops as minplus_ops  # noqa: E402
 from repro_torch.kernels.minplus.monotone import (  # noqa: E402
+    convex_certificate, convex_certificate_np, monotone_dnc_step,
     plateau_step, run_count)
 from repro_torch.kernels.minplus.ref import (  # noqa: E402
     minplus_ref, minplus_sweep_ref)
@@ -815,6 +825,142 @@ def plateau_tile_phase():
     return max_err
 
 
+# the D&C tile phase's shapes: the reference's randomized set and the
+# route's (m_pad 64, d1 1280)
+DNC_SHAPES = [(dc1, d1) for dc1 in (5, 17, 64) for d1 in (33, 129, 1280)]
+
+
+def _dnc_rows(n, dc1, d1, dtype):
+    """Seeded certified-convex rows on the card: 0 first, then random
+    increasing increments rounded to quarters (linear stretches, so
+    ties), a +inf suffix in every third row, an identity row last."""
+    rng = np.random.default_rng(dc1 * 31 + d1)
+    rows = np.empty((n, dc1))
+    for i in range(n):
+        inc = np.round(np.sort(rng.random(dc1 - 1)) * 4) / 4.0
+        rows[i] = np.concatenate([[0.0], np.cumsum(inc)])
+        if i % 3 == 2:
+            rows[i, max(dc1 // 2, 1):] = np.inf
+    rows[-1, 1:] = np.inf
+    return torch.tensor(rows, dtype=dtype, device="cuda")
+
+
+def _plain_dnc_tile(rows, prev, scanned=None):
+    """The plain tile: ``monotone.monotone_dnc_step`` chained over the
+    rows (on the host, in numpy; a spilled slot takes the chain, as the
+    reference's dispatch does), on the card.  ``scanned`` collects the
+    candidates each level scans."""
+    cols = []
+    for row in rows:
+        new, overflow = monotone_dnc_step(row, prev, scanned)
+        if overflow:
+            new = minplus_tile(row[None, None, :], prev[None])[1][0, 0]
+        cols.append(new)
+        prev = new
+    return torch.stack(cols)
+
+
+def _dnc_tile_bounds(rows, prev, scanned):
+    """(ms over the ops peak, ms over HBM) for one D&C tile: an add and a
+    compare per candidate the recursion scans on this tile's data
+    (``scanned``, the plain tile's count of each level's ranges, each
+    whole, as the kernel scans them); rows and carry read, the tile's
+    columns written, once."""
+    n, dc1 = rows.shape
+    d1 = prev.numel()
+    dtype = rows.dtype
+    ops = 2.0 * sum(scanned)
+    nbytes = (n * dc1 + d1 + n * d1) * dtype.itemsize
+    return ops / PEAK_OPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def dnc_tile_phase():
+    """The D&C tile (``minplus_dnc_cuda``, one launch per tile) == the
+    plain tile (``monotone_dnc_step`` chained) and == the chain
+    (``minplus_sweep_cuda`` given the same carry) bitwise, on
+    certified-convex rows (ties, +inf suffixes, identity rows) at dc1 5,
+    17, 64 by d1 33, 129, 1280, f32 and f64, tiles of 1, 17 and 64 slots
+    from the identity and from a real DP column, under the planned
+    placement and the global one, written at a row offset of a larger
+    table.  The certificate on the card against the host's on rows one
+    ulp from convex.  64-slot tiles timed (device time per launch)
+    against the chain kernel on the same rows and the bound."""
+    max_err, cases = 0.0, 0
+    # the exact certificate on the card: no contraction, no reassociation
+    js = np.arange(32, dtype=np.float64)
+    crafted = [js * 3.0, js * js]
+    for k in (3, 7, 20):
+        for step in (np.inf, -np.inf):
+            r = js * 3.0
+            r[k] = np.nextafter(r[k], step)
+            crafted.append(r)
+    for dtype in (torch.float32, torch.float64):
+        rows = np.stack([r.astype(str(dtype).split(".")[-1])
+                         for r in crafted])
+        got = convex_certificate(torch.tensor(rows, device="cuda")).cpu()
+        if not np.array_equal(got.numpy(), convex_certificate_np(rows)):
+            raise AssertionError(f"convex_certificate on the card differs "
+                                 f"from the host's in {dtype}")
+    for dc1, d1 in DNC_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            rows = _dnc_rows(TILE, dc1, d1, dtype)
+            if not bool(convex_certificate(rows).all()):
+                raise AssertionError("D&C rows not certified convex")
+            carry = minplus_sweep_ref(_rows(3, dc1, d1, dtype) + 1.0,
+                                      d1 - 1)[0][-1].contiguous()
+            plans = {minplus_kernel.dnc_plan(dc1, d1, dtype),
+                     minplus_kernel.DncPlan(
+                         minplus_kernel.DNC_THREADS, False,
+                         minplus_kernel._dnc_smem(
+                             dc1, d1, dtype.itemsize,
+                             minplus_kernel.DNC_THREADS, False))}
+            for prev in (_identity(d1, dtype), carry):
+                scanned = []
+                want = _plain_dnc_tile(rows, prev, scanned)
+                chain, _ = minplus_kernel.minplus_sweep_cuda(
+                    rows, d1 - 1, prev=prev)
+                fin = torch.isfinite(want)
+                for n in (1, 17, TILE):
+                    for plan in plans:
+                        out = torch.full((n + 4, d1), float("nan"),
+                                         dtype=dtype, device="cuda")
+                        minplus_kernel.minplus_dnc_cuda(
+                            rows[:n], prev, out=out[2:n + 2], plan=plan)
+                        torch.cuda.synchronize()
+                        got = out[2:n + 2]
+                        if fin[:n].any():
+                            max_err = max(max_err, float(
+                                (got[fin[:n]] - want[:n][fin[:n]])
+                                .abs().max()))
+                        if not (_same_bits(got, want[:n])
+                                and _same_bits(got, chain[:n])
+                                and bool(torch.isnan(out[:2]).all())
+                                and bool(torch.isnan(out[n + 2:]).all())):
+                            raise AssertionError(
+                                f"minplus_dnc {n} slots m_pad={dc1} d1={d1} "
+                                f"{dtype} plan {plan}: kernel differs from "
+                                "the plain tile or the chain, or wrote "
+                                "outside its rows")
+                        cases += 1
+            out = torch.empty((TILE, d1), dtype=dtype, device="cuda")
+            k_ms = _device_ms(lambda: minplus_kernel.minplus_dnc_cuda(
+                rows, carry, out=out), 10)
+            c_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+                rows, d1 - 1, prev=carry, out=out), 10)
+            op_ms, byte_ms = _dnc_tile_bounds(rows, carry, scanned)
+            print(f"dnc tile {TILE} slots m_pad={dc1} d1={d1} "
+                  f"{str(dtype).split('.')[-1]} plan "
+                  f"{minplus_kernel.dnc_plan(dc1, d1, dtype)}: "
+                  f"kernel_device_ms={k_ms!r} per_slot_ms={k_ms / TILE!r} "
+                  f"chain_kernel_ms={c_ms!r} bound_ms={max(op_ms, byte_ms)!r}"
+                  f" ({'operations' if op_ms >= byte_ms else 'bytes'}) "
+                  "bitwise=True")
+    print(f"dnc tile phase ok: {cases} shape/dtype/carry/length/plan cases "
+          f"bitwise equal to the plain tile and the chain, "
+          f"max_abs_err={max_err!r}")
+    return max_err
+
+
 def _counted():
     """(sweep kernel, one-slot, plateau) launches so far: on the tiled
     route every sweep-kernel launch is a chain tile's and every plateau
@@ -828,6 +974,7 @@ def _reset_counts():
     minplus_kernel.minplus_sweep_cuda.launches = 0
     minplus_kernel.minplus_cuda.launches = 0
     minplus_kernel.minplus_plateau_cuda.launches = 0
+    minplus_kernel.minplus_dnc_cuda.launches = 0
     schedule_torch.monotone_counters_reset()
 
 
@@ -896,6 +1043,215 @@ def paper_phase():
                                  "differs from the CPU's or the whole "
                                  "route's, or took no plateau tile")
     return {"whole": gpu, "tiled": tgpu}
+
+
+# the CPU pins of the D&C engine run and of the float32 runs, written by
+# tools/precision_cpu.py
+PRECISION_CPU = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "tools", "precision_cpu.json")
+# the float32 runs: (instance, route); "paper" is the paper-scale
+# instance (T=100, H=K=50, 200 small jobs of seed 0), "scale" the 10x one
+# (SCALE_DIMS), quantum=0 both
+PRECISION_RUNS = (("paper", "whole"), ("paper", "tiled"), ("scale", "whole"),
+                  ("scale", "tiled"))
+
+
+def _instance(name):
+    if name == "paper":
+        return (make_cluster(T=100, H=50, K=50),
+                make_jobs(200, T=100, seed=0, small=True))
+    return (make_cluster(T=SCALE["T"], H=SCALE["H"], K=SCALE["K"]),
+            make_jobs(SCALE["n"], T=SCALE["T"], seed=0))
+
+
+def precision_run(instance, core, device=None):
+    """One float32 run (``precision="x32"``) of ``instance`` on ``core``."""
+    cluster, jobs = _instance(instance)
+    return engine.run(cluster, jobs, quantum=0, core=core, precision="x32",
+                      device=device)
+
+
+def dnc_run(device=None):
+    """The paper-scale instance on the tiled route with the D&C branch on
+    (``REPRO_MONOTONE_DNC=1``, restored after); (result, the route's
+    counters)."""
+    cluster, jobs = _instance("paper")
+    old = os.environ.get("REPRO_MONOTONE_DNC")
+    os.environ["REPRO_MONOTONE_DNC"] = "1"
+    try:
+        schedule_torch.monotone_counters_reset()
+        res = engine.run(cluster, jobs, quantum=0, core="tiled",
+                         device=device)
+        snap = schedule_torch.monotone_counters_snapshot()
+    finally:
+        if old is None:
+            del os.environ["REPRO_MONOTONE_DNC"]
+        else:
+            os.environ["REPRO_MONOTONE_DNC"] = old
+    return res, snap
+
+
+def run_pin(res):
+    """A run's pin: accepted count, the sha256 of the accepted set and of
+    the completions, the total utility (bit for bit through JSON)."""
+    import hashlib
+    return {"accepted": res.accepted,
+            "accepted_sha256": hashlib.sha256(json.dumps(sorted(
+                int(j) for j in res.schedules)).encode()).hexdigest(),
+            "completion_sha256": _completion_digest(res.completion),
+            "total_utility": res.total_utility}
+
+
+def dnc_pin(res, snap):
+    """The D&C run's pin: :func:`run_pin` and its tiles per branch and
+    live slots of D&C and plateau tiles."""
+    return {**run_pin(res),
+            "tiles": [snap["dnc"], snap["plateau"], snap["chain"]],
+            "dnc_slots": snap["dnc_slots"],
+            "plateau_slots": snap["plateau_slots"]}
+
+
+def _precision_pins():
+    with open(PRECISION_CPU) as f:
+        return json.load(f)
+
+
+def dnc_engine_phase(paper):
+    """The D&C branch on the tiled route's main path: the paper-scale
+    instance with ``REPRO_MONOTONE_DNC=1``, the kernel counts set to 0
+    just before the run and read just after: one D&C-kernel launch per
+    D&C tile, one sweep-kernel launch per chain tile, one plateau launch
+    per plateau tile; its trajectory equal to the switch-off run's
+    (``paper["tiled"]``) and to the port's on the CPU, its tile counts
+    per branch the CPU's (``tools/precision_cpu.json``).  Each D&C tile's
+    rows and carry are kept (copies on the card) and the tiles timed on
+    their own (:func:`dnc_mix_phase`).  Returns (D&C launches, tiles)."""
+    want = _precision_pins()["dnc paper tiled"]
+    tiles = []
+    dnc_tile = schedule_torch.minplus_dnc_tile
+
+    def recorded(rows, prev, out):
+        tiles.append((rows.clone(), prev.clone()))
+        return dnc_tile(rows, prev, out)
+
+    schedule_torch.minplus_dnc_tile = recorded
+    try:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, snap = dnc_run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counted()
+        d_n = minplus_kernel.minplus_dnc_cuda.launches
+    finally:
+        schedule_torch.minplus_dnc_tile = dnc_tile
+    got = dnc_pin(res, snap)
+    off = paper["tiled"]
+    print(f"paper scale seed 0, tiled, REPRO_MONOTONE_DNC=1: wall_s={wall!r} "
+          f"accepted={res.accepted} utility={res.total_utility!r} "
+          f"tiles [dnc, plateau, chain]={got['tiles']} dnc_slots="
+          f"{got['dnc_slots']} plateau_slots={got['plateau_slots']} "
+          f"dnc_launches={d_n} tile_launches={counts[0]} plateau_launches="
+          f"{counts[2]} slot_launches={counts[1]} same_as_switch_off="
+          f"{res.completion == off.completion} same_as_cpu={got == want}")
+    if not (got == want and res.completion == off.completion
+            and res.total_utility == off.total_utility
+            and d_n == snap["dnc"] > 0 and counts[0] == snap["chain"]
+            and counts[2] == snap["plateau"] and counts[1] == 0
+            and len(tiles) == d_n):
+        raise AssertionError(f"the D&C run on the card: {got} with launches "
+                             f"(sweep, slot, plateau, dnc) {counts + (d_n,)}, "
+                             f"the CPU's {want}, or another trajectory than "
+                             "the switch-off run's")
+    return d_n, tiles
+
+
+def dnc_mix_phase(tiles):
+    """The D&C tile on the D&C run's own tiles: each, on its own rows and
+    carry, held bitwise to the plain tile and the chain, then timed
+    (device time per launch) against the chain kernel on the same inputs
+    and the plain tile (its host wall); the bound is each tile's
+    (:func:`_dnc_tile_bounds`).  Returns (ms, plain ms, bound ms, ops ms,
+    bytes ms), means over the tiles, each tile one launch."""
+    total = [0.0] * 6
+    slots = 0
+    for rows, prev in tiles:
+        n, dc1 = rows.shape
+        d1 = prev.numel()
+        out = torch.empty((n, d1), dtype=rows.dtype, device="cuda")
+        minplus_kernel.minplus_dnc_cuda(rows, prev, out=out)
+        scanned = []
+        t0 = time.perf_counter()
+        want = _plain_dnc_tile(rows, prev, scanned)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        chain, _ = minplus_kernel.minplus_sweep_cuda(rows, d1 - 1, prev=prev)
+        if not (_same_bits(out, want) and _same_bits(out, chain)):
+            raise AssertionError(f"a D&C tile of the route ({n} slots, "
+                                 f"m_pad={dc1}, d1={d1}): kernel differs "
+                                 "from the plain tile or the chain")
+        k_ms = _device_ms(lambda: minplus_kernel.minplus_dnc_cuda(
+            rows, prev, out=out), 10)
+        c_ms = _device_ms(lambda: minplus_kernel.minplus_sweep_cuda(
+            rows, d1 - 1, prev=prev, out=out), 10)
+        op_ms, byte_ms = _dnc_tile_bounds(rows, prev, scanned)
+        for i, x in enumerate((k_ms, p_ms, max(op_ms, byte_ms), op_ms,
+                               byte_ms, c_ms)):
+            total[i] += x
+        slots += n
+    mean = [x / len(tiles) for x in total]
+    per = slots / len(tiles)
+    shapes = sorted({(r.shape[1], p.numel(), str(r.dtype).split(".")[-1])
+                     for r, p in tiles})
+    print(f"dnc tile over the D&C run's own tiles ({len(tiles)} tiles, "
+          f"{per!r} live slots a tile, shapes {shapes}; each bitwise the "
+          f"plain tile and the chain): kernel_device_ms={mean[0]!r} "
+          f"per_slot_ms={mean[0] / per!r} chain_kernel_ms={mean[5]!r} "
+          f"chain_per_slot_ms={mean[5] / per!r} plain_ms={mean[1]!r} "
+          f"bound_ms={mean[2]!r} (ops {mean[3]!r}, bytes {mean[4]!r})")
+    return mean[:5]
+
+
+def precision_phase():
+    """The float32 route (``precision="x32"``) on both routes at paper
+    scale and at 10x, each run with the kernel counts set to 0 just
+    before it and read just after (the whole route one float32 sweep per
+    DP decision; the tiled route one launch per chain and per plateau
+    tile), each held to its CPU pin (``tools/precision_cpu.json``):
+    accepted set, completions and total utility, exactly."""
+    pins = _precision_pins()
+    for instance, core in PRECISION_RUNS:
+        cluster, jobs = _instance(instance)
+        live = [engine._with_quantum(j, 0) for j in jobs
+                if j.arrival < cluster.T]
+        dp_decisions = sum(_shape_bucket(j) is not None for j in live)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = precision_run(instance, core)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counted()
+        snap = schedule_torch.monotone_counters_snapshot()
+        got, want = run_pin(res), pins[f"x32 {instance} {core}"]
+        ds = np.asarray(res.decision_seconds) * 1e3
+        print(f"float32 {instance} {core}: wall_s={wall!r} decisions="
+              f"{len(ds)} decision_p50_ms={float(np.percentile(ds, 50))!r} "
+              f"decision_p95_ms={float(np.percentile(ds, 95))!r} "
+              f"accepted={res.accepted} utility={res.total_utility!r} "
+              f"launches (sweep, slot, plateau)={counts} tiles [dnc, "
+              f"plateau, chain]=[{snap['dnc']}, {snap['plateau']}, "
+              f"{snap['chain']}] same_as_cpu={got == want}")
+        if core == "whole":
+            launched = counts == (dp_decisions, 0, 0)
+        else:
+            launched = (_tiled_launches_ok(snap, counts)
+                        and snap["dnc"] == 0 and counts[0] + counts[2] > 0)
+        if not (got == want and launched):
+            raise AssertionError(f"float32 {instance} {core}: {got} on the "
+                                 f"card, {want} on the CPU, launches "
+                                 f"{counts}")
 
 
 def scale_phase():
@@ -2607,7 +2963,12 @@ def main() -> int:
     slot_err, slot_timings, a_launches = _phase(slot_phase)
     tile_err = _phase(tile_phase)
     plateau_err = _phase(plateau_tile_phase)
+    dnc_err = _phase(dnc_tile_phase)
     paper = _phase(paper_phase)
+    d_launches, dnc_tiles = _phase(dnc_engine_phase, paper)
+    dnc_t = _phase(dnc_mix_phase, dnc_tiles)
+    del dnc_tiles
+    _phase(precision_phase)
     launches, hist, whole_utility = _phase(scale_phase)
     c_launches, b_launches, tile_shapes, plateau_tiles, one_lane = \
         _phase(tiled_scale_phase, whole_utility)
@@ -2672,6 +3033,12 @@ def main() -> int:
              plateau_err, plat)]
     rows = [(name, src + file, ref + line, n_launch, err, t, None)
             for name, file, line, n_launch, err, t in rows]
+    # the D&C kernel: the counterpart of a jnp function (monotone.py's
+    # monotone_dnc_step), not of a Pallas kernel; launches over the D&C
+    # run (paper scale, REPRO_MONOTONE_DNC=1), times over its own tiles
+    rows.append(("minplus_dnc", src + "minplus_dnc.cu",
+                 "src/repro/kernels/minplus/monotone.py:268", d_launches,
+                 dnc_err, dnc_t, None))
     # the model kernels: device time per launch at Zamba2-7B's prefill
     # shapes; SSD (float32) and the tensor-core flash kernel (bf16):
     # launches over the serve phase's two prefills; the float32 flash

@@ -19,7 +19,7 @@ import torch
 from .. import obs as _obs
 from .pricing import PriceParams, PriceState
 from .schedule_torch import (CORES, _materialize, best_schedule_fused,
-                             decide_burst)
+                             decide_burst, route_dtype)
 from .types import ClusterSpec, Job, Schedule
 
 # the smallest burst that on_arrivals decides together (the reference's
@@ -49,11 +49,16 @@ class OASiS:
     def __init__(self, cluster: ClusterSpec, params: PriceParams,
                  track_duality: bool = False,
                  device: Optional[Union[str, torch.device]] = None,
-                 core: str = "whole", window: Optional[int] = None):
+                 core: str = "whole", window: Optional[int] = None,
+                 precision: str = "auto"):
         if core not in CORES:
             raise ValueError(f"core must be one of {CORES}, not {core!r}")
+        route_dtype(precision)
         self.cluster = cluster
         self.core = core
+        # the decision route's dtype (schedule_torch.route_dtype): "auto"
+        # and "x64" float64, "x32" float32
+        self.precision = precision
         # ``window``: the price state's resident slots for the continuous
         # serving mode (``sim/engine.py::run_stream``); decisions then
         # index window-local slots and the caller advances the origin
@@ -77,7 +82,8 @@ class OASiS:
         t0 = time.perf_counter()
         with (_obs.span("decide", jid=job.jid, core=self.core)
               if _obs.ENABLED else _obs.NULL_SPAN):
-            sched = best_schedule_fused(job, self.state, core=self.core)
+            sched = best_schedule_fused(job, self.state, core=self.core,
+                                        precision=self.precision)
         dt = time.perf_counter() - t0
         self.decision_seconds.append(dt)
         if _obs.ENABLED:
@@ -124,7 +130,7 @@ class OASiS:
         with (_obs.span("decide_burst", n=len(jobs), core=self.core)
               if _obs.ENABLED else _obs.NULL_SPAN):
             pends = decide_burst([jobs[i] for i in order], self.state,
-                                 timings=times)
+                                 precision=self.precision, timings=times)
         prices_moved = False
         for pos, i in enumerate(order):
             pend, pends[pos] = pends[pos], None    # free the launch tables
@@ -142,6 +148,7 @@ class OASiS:
                       if rec else _obs.NULL_SPAN):
                     sched = best_schedule_fused(jobs[i], self.state,
                                                 core="tiled",
+                                                precision=self.precision,
                                                 row_cache=pend.cache)
             self.decision_seconds.append(times[pos]
                                          + time.perf_counter() - t0)

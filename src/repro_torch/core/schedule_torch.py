@@ -32,15 +32,18 @@ jobs of one shape bucket, ``_decide_jobs``):
 2. from the earliest arrival tile on, per ``TILE``-slot tile: the tile's
    COST rows for every lane (``_tile_rows``, from batched prefix tables;
    a tile valid in every lane's ``RowCache`` is served from the cache),
-   the monotone dispatch (one lane only: plateau when every row of the
-   tile has at most ``r_max`` runs and ``m_pad <= MONO_BAND``, else
-   chain), and the tile's live slots stepped, cost only, straight into
-   the cost table, from the carry the previous tile left, in ONE launch
-   per tile for all lanes: a chain tile of the sweep kernel, one cluster
-   per lane (``ops.minplus_chain``), a plateau tile of the plateau kernel
-   (``ops.minplus_plateau_tile``); slots before every lane's arrival and
-   past the horizon launch nothing, and a lane's own dead slots carry
-   identity rows, which leave its carry unchanged;
+   the monotone dispatch (one lane only and ``m_pad <= MONO_BAND``; its
+   gates read on the host in one copy): with ``REPRO_MONOTONE_DNC`` set,
+   D&C when every row of the tile is certified convex
+   (``monotone.convex_certificate``), else plateau when every row has at
+   most ``r_max`` runs, else chain; and the tile's live slots stepped,
+   cost only, straight into the cost table, from the carry the previous
+   tile left, in ONE launch per tile for all lanes: a chain tile of the
+   sweep kernel, one cluster per lane (``ops.minplus_chain``), a plateau
+   tile of the plateau kernel (``ops.minplus_plateau_tile``), a D&C tile
+   of the D&C kernel (``ops.minplus_dnc_tile``); slots before every
+   lane's arrival and past the horizon launch nothing, and a lane's own
+   dead slots carry identity rows, which leave its carry unchanged;
 3. per tile, one copy of each lane's ``cost[t, d_tot]`` values to the
    host, where the payoff scan (``> best + _PAY_EPS`` in slot order) and
    the exact early exit run: the loop stops once no lane's utility suffix
@@ -58,6 +61,15 @@ one launch per shape bucket and at most ``REPRO_BURST_LANES`` lanes;
 The sequential scans (payoff, backtrack) run on the host over the few
 values they read; the same IEEE operations give the same bits as the
 reference's.
+
+**Precision.**  ``precision=`` on ``best_schedule_fused``,
+``decide_burst`` and ``best_schedule_fused_batch`` (and on ``OASiS`` and
+the engine's run functions) picks the route's dtype: ``"auto"`` and ``"x64"``
+float64 (the card has float64: the reference's CPU precision), ``"x32"``
+float32, the precision of the reference's TPU route.  The state's
+residency, the rows, the DP and the host scans (payoff, early exit,
+live floor, backtrack band) then all run in that dtype, as the
+reference's do in its lane dtype.
 """
 from __future__ import annotations
 
@@ -72,9 +84,10 @@ import torch
 
 from .. import DEFAULT_DTYPE
 from .. import obs as _obs
-from ..kernels.minplus.monotone import PATH_CHAIN, PATH_PLATEAU, run_count
-from ..kernels.minplus.ops import (minplus_chain, minplus_plateau_tile,
-                                   minplus_sweep)
+from ..kernels.minplus.monotone import (PATH_CHAIN, PATH_DNC, PATH_PLATEAU,
+                                       convex_certificate, run_count)
+from ..kernels.minplus.ops import (minplus_chain, minplus_dnc_tile,
+                                   minplus_plateau_tile, minplus_sweep)
 from ..kernels.minplus.tiled import TILE
 from .pricing import PriceState
 from .subroutine import workload_tables
@@ -96,6 +109,32 @@ _SPLIT_TOL = 1e-12
 MONO_BAND = 64
 # the routes of ``best_schedule_fused``
 CORES = ("whole", "tiled")
+# the route precisions of ``best_schedule_fused`` and ``decide_burst``
+PRECISIONS = ("auto", "x32", "x64")
+
+
+def route_dtype(precision: str) -> torch.dtype:
+    """The decision route's dtype for ``precision``: float64 for
+    ``"auto"`` and ``"x64"`` (the reference picks float64 wherever its
+    backend has it, and the card has it), float32 for ``"x32"`` (the
+    reference's TPU route).  Raises ValueError on any other string."""
+    if precision in ("auto", "x64"):
+        return torch.float64
+    if precision == "x32":
+        return torch.float32
+    raise ValueError(f"precision must be one of {PRECISIONS}, not "
+                     f"{precision!r}")
+
+
+def _np_dtype(dtype: torch.dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def _mono_dnc() -> bool:
+    """``REPRO_MONOTONE_DNC``: whether the monotone dispatch may take the
+    convex D&C branch (off unless set, as in the reference).  Re-read per
+    launch, so a caller may set it between runs."""
+    return os.environ.get("REPRO_MONOTONE_DNC", "") not in ("", "0")
 
 
 # ---------------------------------------------------------------------------
@@ -156,9 +195,15 @@ def _prefix_sums(scap: torch.Tensor, scost: torch.Tensor):
     along any axis; CUDA's is a tree scan along the innermost axis
     (another rounding) and a sequential loop per column along an outer
     one, so the pair is stacked innermost and the scan runs along the
-    servers, an outer axis.  ``ccap`` is contiguous (``searchsorted``
-    reads it), ``ccost`` a view."""
-    both = torch.cumsum(torch.stack([scap, scap * scost], dim=-1), dim=-2)
+    servers, an outer axis.  In float32 the CPU's ``cumsum`` accumulates
+    in float64 and rounds each sum, CUDA's in float32, so a float32 pair
+    is summed in float64 on both devices, as the CPU does.  ``ccap`` is
+    contiguous (``searchsorted`` reads it), ``ccost`` a view."""
+    both = torch.stack([scap, scap * scost], dim=-1)
+    if both.dtype != torch.float64:
+        both = torch.cumsum(both.to(torch.float64), dim=-2).to(both.dtype)
+    else:
+        both = torch.cumsum(both, dim=-2)
     return both[..., 0].contiguous(), both[..., 1]
 
 
@@ -268,10 +313,11 @@ def _decide_core(sd, pr, jd, d1: int):
     # payoff argmax with the reference tie rule (> best + eps switches)
     costD = cost_tab[:, d_tot].cpu().numpy()
     u = u.astype(costD.dtype)
+    eps = costD.dtype.type(_PAY_EPS)
     best_payoff, best_t = costD.dtype.type(0.0), -1
     for t in np.flatnonzero(np.isfinite(costD[a:])) + a:
         pt = u[t] - costD[t]
-        if pt > best_payoff + _PAY_EPS:
+        if pt > best_payoff + eps:
             best_payoff, best_t = pt, int(t)
     if best_t < 0:
         return -1, float(costD[0]), 0, None, None, None
@@ -425,8 +471,11 @@ class _Lanes(NamedTuple):
 
 def _stack_lanes(lanes, T: int, dtype: torch.dtype, device: torch.device
                  ) -> _Lanes:
-    """``_job_arrays_tiled`` lanes stacked into one launch's arrays."""
+    """``_job_arrays_tiled`` lanes stacked into one launch's arrays; the
+    utility curves and floor bases in the launch's dtype, as the
+    reference casts them."""
     resbw, WZ, u, usmax, meta, lb = (np.stack(c) for c in zip(*lanes))
+    ndt = _np_dtype(dtype)
     W, Z = WZ[:, 0].astype(np.int64), WZ[:, 1].astype(np.int64)
     ts = np.arange(u.shape[1])
     dead = (ts[None, :] < meta[:, :1]) | (ts >= T)[None, :]
@@ -435,8 +484,8 @@ def _stack_lanes(lanes, T: int, dtype: torch.dtype, device: torch.device
         return torch.tensor(x, dtype=dt, device=device)
     return _Lanes(dev(resbw), dev(W), dev(np.minimum(Z, W)),
                   dev((W <= meta[:, 1:2])[:, None, :], torch.bool),
-                  dev(dead, torch.bool), resbw, u, usmax, meta,
-                  np.asarray(lb, np.float64))
+                  dev(dead, torch.bool), resbw, u.astype(ndt),
+                  usmax.astype(ndt), meta, lb.astype(ndt))
 
 
 def _prefix_tables_b(prices: torch.Tensor, headroom: torch.Tensor,
@@ -570,26 +619,26 @@ class RowCache:
         return self
 
 
-def _live_floor(pmin_h: np.ndarray, jd: _Lanes, b: int, T: int) -> float:
+def _live_floor(pmin_h: np.ndarray, jd: _Lanes, b: int, T: int):
     """Lane ``b``'s early-exit cost floor: the base ``lb`` times the
     cheapest spread of the workload over feasible slots (at most ``dcap``
     chunk-passes per slot, each slot at its live per-worker price floor).
     A valid lower bound on every schedule's cost (the reference's
-    ``:480-519``)."""
-    resbw_h, lb = jd.resbw_h[b], float(jd.lb[b])
+    ``:480-519``), in the padded state's dtype, as the reference computes
+    it in the lane dtype."""
+    dt = pmin_h.dtype.type
+    resbw_h, lb = jd.resbw_h[b].astype(dt), dt(jd.lb[b])
     a, _, d_tot, dcap = (int(x) for x in jd.meta[b])
     T_pad = pmin_h.shape[0]
     wslot = pmin_h[:, 0] * resbw_h[0]                 # summed left to right
     for r in range(1, R):
         wslot = wslot + pmin_h[:, r] * resbw_h[r]
     ts = np.arange(T_pad)
-    wsort = np.sort(np.where((ts >= a) & (ts < T), wslot, np.inf))
-    dcap_f = float(max(dcap, 1))
-    take = np.clip(float(d_tot) - ts.astype(np.float64) * dcap_f, 0.0,
-                   dcap_f)
-    floor_sum = float(np.sum(take * np.where(np.isfinite(wsort), wsort,
-                                             0.0)))
-    return lb * floor_sum if lb > 0 else 0.0
+    wsort = np.sort(np.where((ts >= a) & (ts < T), wslot, dt(np.inf)))
+    dcap_f = dt(max(dcap, 1))
+    take = np.clip(dt(d_tot) - ts.astype(dt) * dcap_f, dt(0.0), dcap_f)
+    floor_sum = np.sum(take * np.where(np.isfinite(wsort), wsort, dt(0.0)))
+    return lb * floor_sum if lb > 0 else dt(0.0)
 
 
 class _CoreOut(NamedTuple):
@@ -615,9 +664,13 @@ def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
         scaps, U1, U2, L1, L2, pmin (T_pad, R), p, q) and pmin on the host
     jd: ``_stack_lanes``
     T: the real horizon; d1: DP columns (padded D_total + 1)
-    mono: 0 = chain only, 1 = plateau or chain (one lane only), chosen
-        once per tile: the plateau when every row of the tile is free of
-        NaN/-inf and has at most ``r_max = max(16, M // 4)`` runs.
+    mono: 0 = chain only, 1 = plateau or chain, 2 = also the convex D&C
+        (``REPRO_MONOTONE_DNC``); levels > 0 one lane only.  Chosen once
+        per tile, from gates read on the host in one copy: at level 2 the
+        D&C when every row of the tile is free of NaN/-inf and certified
+        convex, else (levels 1 and 2) the plateau when every row is free
+        of NaN/-inf and has at most ``r_max = max(16, M // 4)`` runs, else
+        the chain.  Every branch gives the chain's columns bit for bit.
     rows_init/valid_tiles: the lanes' row caches, (B, T_pad, M) rows and
         a (B, n_tiles) validity mask; a tile is served from them when it
         is valid for EVERY lane, else recomputed for all.  The DP steps
@@ -633,7 +686,9 @@ def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
     if mono and B != 1:
         raise ValueError("the monotone dispatch is single-lane only")
     r_max = max(16, M // 4)
-    lb = np.array([_live_floor(pmin_h, jd, b, T) for b in range(B)])
+    ndt = _np_dtype(dt)
+    eps = ndt(_PAY_EPS)
+    lb = np.array([_live_floor(pmin_h, jd, b, T) for b in range(B)], ndt)
     d_idx = torch.as_tensor(jd.meta[:, 2], device=dev)
 
     if rows_init is not None:
@@ -645,14 +700,14 @@ def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
     cost_buf = torch.empty((B, T_pad, d1), dtype=dt, device=dev)
     prev = torch.full((B, d1), float("inf"), dtype=dt, device=dev)
     prev[:, 0] = 0.0
-    best = np.zeros(B)
+    best = np.zeros(B, ndt)
     best_t = np.full(B, -1)
     paths = [0, 0, 0]
     live = [0, 0, 0]
     cached = 0
     k0 = k = a_min // TILE
     while k < n_tiles and np.any(
-            jd.usmax[:, min(k * TILE, T_pad - 1)] > best + _PAY_EPS + lb):
+            jd.usmax[:, min(k * TILE, T_pad - 1)] > best + eps + lb):
         t0 = k * TILE
         if valid_tiles is not None and valid_tiles[:, k].all():
             rows = rows_buf[:, t0:t0 + TILE]
@@ -663,7 +718,13 @@ def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
         branch = PATH_CHAIN
         if mono:
             clean = ((rows == rows) & (rows > float("-inf"))).all()
-            if bool(clean & (run_count(rows[0]) <= r_max).all()):
+            if mono >= 2:
+                convex, plat = torch.stack([
+                    clean & convex_certificate(rows[0]).all(),
+                    clean & (run_count(rows[0]) <= r_max).all()]).tolist()
+                branch = (PATH_DNC if convex else
+                          PATH_PLATEAU if plat else PATH_CHAIN)
+            elif bool(clean & (run_count(rows[0]) <= r_max).all()):
                 branch = PATH_PLATEAU
         paths[branch] += 1
         lo, hi = max(a_min, t0), min(T, t0 + TILE)
@@ -671,6 +732,9 @@ def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
             if branch == PATH_PLATEAU:
                 minplus_plateau_tile(rows[0, lo - t0:hi - t0], prev[0],
                                      cost_buf[0, lo:hi], r_max)
+            elif branch == PATH_DNC:
+                minplus_dnc_tile(rows[0, lo - t0:hi - t0], prev[0],
+                                 cost_buf[0, lo:hi])
             else:
                 minplus_chain(rows[:, lo - t0:hi - t0], prev,
                               cost_buf[:, lo:hi])
@@ -683,7 +747,7 @@ def _decide_tiled_core(psd, jd: _Lanes, *, T: int, d1: int, mono: int,
                 for t in range(max(lo, int(a[b])), hi):
                     c = cost_d[b, t - lo, 0]
                     pay = jd.u[b, t] - c if np.isfinite(c) else -np.inf
-                    if pay > best[b] + _PAY_EPS:
+                    if pay > best[b] + eps:
                         best[b], best_t[b] = pay, t
         k += 1
     return _CoreOut(best_t, best, rows_buf, cost_buf, k0, k, paths, live,
@@ -702,10 +766,13 @@ def _backtrack(rows_h: np.ndarray, cost_h: np.ndarray, a: int, best_t: int,
     (relative) of the minimum — the reference's band, which makes the
     split a function of the optimal set rather than of last-ulp noise —
     and stops once the workload is placed (every earlier slot would split
-    0).  Returns (d_left, d_slots (best_t + 1,))."""
+    0).  The band is computed in the tables' dtype, as the reference's:
+    in float32 ``1 + _SPLIT_TOL`` rounds to 1 and the band is the exact
+    minimum.  Returns (d_left, d_slots (best_t + 1,))."""
     M = rows_h.shape[1]
-    init = np.full(d_tot + 1, np.inf)
+    init = np.full(d_tot + 1, np.inf, cost_h.dtype)
     init[0] = 0.0
+    tol = cost_h.dtype.type(1.0 + _SPLIT_TOL)
     js = np.arange(M)
     d_slots = np.zeros(best_t + 1, np.int64)
     d_rem = d_tot
@@ -716,7 +783,7 @@ def _backtrack(rows_h: np.ndarray, cost_h: np.ndarray, a: int, best_t: int,
         idx = d_rem - js
         vals = np.where(idx >= 0,
                         rows_h[t - a] + prev[np.clip(idx, 0, d_tot)], np.inf)
-        band = vals <= vals.min() * (1.0 + _SPLIT_TOL)
+        band = vals <= vals.min() * tol
         d_here = int(np.argmax(band))
         d_slots[t] = d_here
         d_rem -= d_here
@@ -761,8 +828,9 @@ class _Pending:
 
 def _materialize(pend: _Pending, state: PriceState) -> Optional[Schedule]:
     """The accepted schedule of a tiled decision (None = reject): the
-    banded backtrack and the placement of the deploying slots.  Must run
-    at the price state the decision was made at."""
+    banded backtrack and the placement of the deploying slots, in the
+    decision's dtype.  Must run at the price state the decision was made
+    at."""
     job, best_t = pend.job, pend.best_t
     if best_t < 0:
         return None
@@ -792,8 +860,8 @@ def _materialize(pend: _Pending, state: PriceState) -> Optional[Schedule]:
         with (_obs.span("decide.placement", jid=job.jid,
                         slots=len(ts_active)) if _obs.ENABLED
               else _obs.NULL_SPAN):
-            sd = state.device_state(DEFAULT_DTYPE)
-            pr = state.device_prices(DEFAULT_DTYPE)
+            sd = state.device_state(pend.rows_full.dtype)
+            pr = state.device_prices(pend.rows_full.dtype)
             dt, dev = sd[0].dtype, sd[0].device
             d_act = d_slots[ts_active]
             resbw = np.concatenate([job.worker_res, job.ps_res,
@@ -820,8 +888,9 @@ def _materialize(pend: _Pending, state: PriceState) -> Optional[Schedule]:
 # and tiles served from the row caches, since the last reset (the
 # reference's monotone fallback counters plus the route's own)
 _monotone_counters = {"dnc": 0, "plateau": 0, "chain": 0, "slots": 0,
-                      "plateau_slots": 0, "decisions": 0, "speculative": 0,
-                      "resolves": 0, "launches": 0, "cache_tiles": 0}
+                      "plateau_slots": 0, "dnc_slots": 0, "decisions": 0,
+                      "speculative": 0, "resolves": 0, "launches": 0,
+                      "cache_tiles": 0}
 
 
 def monotone_counters_reset() -> None:
@@ -831,34 +900,36 @@ def monotone_counters_reset() -> None:
 
 def monotone_counters_snapshot() -> dict:
     """The tiled route's counts since the last reset: tiles per min-plus
-    branch, ``dnc`` (not ported, always 0), ``plateau``, ``chain``;
-    ``slots``, the live slots stepped, and ``plateau_slots``, those of
-    plateau tiles; ``decisions``, the lanes the core decided, of which
-    ``speculative`` in ``decide_burst`` and ``resolves`` through a row
-    cache; ``launches``, the core's runs (one per group of at most
+    branch, ``dnc`` (0 unless ``REPRO_MONOTONE_DNC`` is set),
+    ``plateau``, ``chain``; ``slots``, the live slots stepped, and
+    ``plateau_slots`` and ``dnc_slots``, those of plateau and D&C tiles;
+    ``decisions``, the lanes the core decided, of which ``speculative``
+    in ``decide_burst`` and ``resolves`` through a row cache;
+    ``launches``, the core's runs (one per group of at most
     ``REPRO_BURST_LANES`` lanes), and ``cache_tiles``, the visited tiles
-    served from the row caches.  On the card each plateau tile is one
-    plateau-kernel launch and each chain tile one sweep-kernel launch,
-    whatever the lanes."""
+    served from the row caches.  On the card each D&C tile with live
+    slots is one D&C-kernel launch, each plateau tile one plateau-kernel
+    launch and each chain tile one sweep-kernel launch, whatever the
+    lanes."""
     return dict(_monotone_counters)
 
 
 def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
                  m_pad: int, d1: int,
-                 caches: Optional[Dict[int, RowCache]] = None
-                 ) -> List[_Pending]:
-    """The tiled core over one shape bucket's jobs, at most
+                 caches: Optional[Dict[int, RowCache]] = None,
+                 dtype: torch.dtype = DEFAULT_DTYPE) -> List[_Pending]:
+    """The tiled core over one shape bucket's jobs in ``dtype``, at most
     ``_max_lanes()`` lanes a launch.  ``caches``: {index: RowCache}
-    serving the lanes.  Returns a ``_Pending`` per job, with its refreshed
-    cache.  Nothing here is compiled per shape, so the reference's
-    padding lanes (``_reject_lane``), its device-cached empty row cache
+    serving the lanes (a cache of another dtype serves nothing).  Returns
+    a ``_Pending`` per job, with its refreshed cache.  Nothing here is
+    compiled per shape, so the reference's padding lanes
+    (``_reject_lane``), its device-cached empty row cache
     (``_empty_cache``) and its record of compiled launch shapes
     (``_launch_keys_seen``), all there for XLA's compilation, have no
     counterpart."""
     T = state.horizon
     T_pad = _pad_tiles(T)
     n_tiles = T_pad // TILE
-    dtype = DEFAULT_DTYPE
     psd = _padded_state(state, dtype, T_pad)
     out: List[_Pending] = []
     lanes_max = _max_lanes()
@@ -868,6 +939,8 @@ def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
         arrays = [_job_arrays_tiled(j, T, T_pad, m_pad) for _, j in chunk]
         jd = _stack_lanes([la for la, _ in arrays], T, dtype, state.device)
         cached = [caches.get(i) if caches else None for i, _ in chunk]
+        cached = [c if c is None or c.rows is None or c.rows.dtype == dtype
+                  else None for c in cached]
         rows_init = valid = None
         if any(c is not None for c in cached):
             valid = np.zeros((B, n_tiles), bool)
@@ -888,7 +961,9 @@ def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
                     else ident for c in cached])
             else:
                 valid = None
-        mono = 1 if B == 1 and m_pad <= MONO_BAND else 0
+        mono = 0
+        if B == 1 and m_pad <= MONO_BAND:
+            mono = 2 if _mono_dnc() else 1
         profiling = _profiling()
         if profiling:
             _sync(state.device)
@@ -931,6 +1006,7 @@ def _decide_jobs(jobs: Sequence[Tuple[int, Job]], state: PriceState,
             _monotone_counters[key] += n
         _monotone_counters["slots"] += sum(res.live)
         _monotone_counters["plateau_slots"] += res.live[PATH_PLATEAU]
+        _monotone_counters["dnc_slots"] += res.live[PATH_DNC]
         _monotone_counters["decisions"] += B
         _monotone_counters["launches"] += 1
         _monotone_counters["cache_tiles"] += res.cached
@@ -1018,7 +1094,7 @@ def _schedule_from_outputs(job: Job, state: PriceState, best_t: int,
 
 
 def best_schedule_fused(job: Job, state: PriceState, *,
-                        core: str = "whole",
+                        core: str = "whole", precision: str = "auto",
                         row_cache: Optional[RowCache] = None
                         ) -> Optional[Schedule]:
     """Alg. 2 for one job at the state's current prices, on the state's
@@ -1027,12 +1103,15 @@ def best_schedule_fused(job: Job, state: PriceState, *,
     ``core="whole"``: the whole-horizon route, one DP-sweep launch on the
     card.  ``core="tiled"``: the tiled early-exit route, one kernel launch
     per tile it visits with live slots: the sweep kernel for a chain tile,
-    the plateau kernel for a plateau tile (module docstring).
-    ``row_cache`` (tiled only): the job's cache from an earlier decision,
-    ``sync``-ed against the state; the core recomputes only its stale
-    tiles and writes the cache back (a re-solve)."""
+    the plateau kernel for a plateau tile, the D&C kernel for a D&C tile
+    (module docstring).  ``precision``: the route's dtype
+    (:func:`route_dtype`; ``"x32"`` is float32, the reference's TPU
+    precision).  ``row_cache`` (tiled only): the job's cache from an
+    earlier decision, ``sync``-ed against the state; the core recomputes
+    only its stale tiles and writes the cache back (a re-solve)."""
     if core not in CORES:
         raise ValueError(f"core must be one of {CORES}, not {core!r}")
+    dtype = route_dtype(precision)
     if row_cache is not None and core != "tiled":
         raise ValueError("a row cache serves the tiled route only")
     key = _shape_bucket(job)
@@ -1041,31 +1120,34 @@ def best_schedule_fused(job: Job, state: PriceState, *,
     m_pad, d1 = key
     if core == "tiled":
         caches = {0: row_cache} if row_cache is not None else None
-        pend = _decide_jobs([(0, job)], state, m_pad, d1, caches=caches)[0]
+        pend = _decide_jobs([(0, job)], state, m_pad, d1, caches=caches,
+                            dtype=dtype)[0]
         if row_cache is not None:
             _monotone_counters["resolves"] += 1
             for f in ("rows", "valid", "version"):
                 setattr(row_cache, f, getattr(pend.cache, f))
         return _materialize(pend, state)
-    sd = state.device_state(DEFAULT_DTYPE)
-    pr = state.device_prices(DEFAULT_DTYPE)
-    jd = _job_arrays(job, state.horizon, m_pad, DEFAULT_DTYPE, state.device)
+    sd = state.device_state(dtype)
+    pr = state.device_prices(dtype)
+    jd = _job_arrays(job, state.horizon, m_pad, dtype, state.device)
     best_t, cost, d_left, d_slots, y, z = _decide_core(sd, pr, jd, d1)
     return _schedule_from_outputs(job, state, best_t, cost, d_left,
                                   d_slots, y, z)
 
 
 def decide_burst(jobs: Sequence[Job], state: PriceState, *,
+                 precision: str = "auto",
                  timings: Optional[List[float]] = None
                  ) -> List[Optional[_Pending]]:
     """Speculative batched Alg. 2 on the tiled route: the whole burst
-    decided at the CURRENT prices, one launch group per shape bucket (a
-    small job is never padded up to the burst's largest table).  Returns
-    a ``_Pending`` per job in input order (None for dcap-0 jobs):
-    decision and row cache, with the backtrack and the placement deferred
-    to ``_materialize``.  Committing and re-solving are the caller's
-    (``OASiS.on_arrivals``).  ``timings``, when given, is filled with each
-    job's share of its group's wall time."""
+    decided at the CURRENT prices in ``precision``'s dtype, one launch
+    group per shape bucket (a small job is never padded up to the burst's
+    largest table).  Returns a ``_Pending`` per job in input order (None
+    for dcap-0 jobs): decision and row cache, with the backtrack and the
+    placement deferred to ``_materialize``.  Committing and re-solving
+    are the caller's (``OASiS.on_arrivals``).  ``timings``, when given,
+    is filled with each job's share of its group's wall time."""
+    dtype = route_dtype(precision)
     out: List[Optional[_Pending]] = [None] * len(jobs)
     if timings is not None:
         timings[:] = [0.0] * len(jobs)
@@ -1076,7 +1158,7 @@ def decide_burst(jobs: Sequence[Job], state: PriceState, *,
             groups.setdefault(key, []).append((i, j))
     for (m_pad, d1), live in groups.items():
         t0 = time.perf_counter()
-        pends = _decide_jobs(live, state, m_pad, d1)
+        pends = _decide_jobs(live, state, m_pad, d1, dtype=dtype)
         _monotone_counters["speculative"] += len(live)
         for (i, _), pend in zip(live, pends):
             out[i] = pend
@@ -1086,3 +1168,15 @@ def decide_burst(jobs: Sequence[Job], state: PriceState, *,
                 timings[i] = share
     return out
 
+
+def best_schedule_fused_batch(jobs: Sequence[Job], state: PriceState, *,
+                              precision: str = "auto",
+                              timings: Optional[List[float]] = None
+                              ) -> List[Optional[Schedule]]:
+    """Speculative batched Alg. 2 with every accepted candidate's
+    placement materialized, all at the CURRENT prices: ``decide_burst``,
+    then ``_materialize`` per job (the caller must not commit between the
+    call and using the results)."""
+    return [None if pend is None else _materialize(pend, state)
+            for pend in decide_burst(jobs, state, precision=precision,
+                                     timings=timings)]

@@ -1,7 +1,7 @@
 """CUDA min-plus kernels: build, ctypes bindings, launch plans and the
 checked wrappers.
 
-Three kernels, each in its own ``csrc/*.cu`` with its design notes:
+Four kernels, each in its own ``csrc/*.cu`` with its design notes:
 
 * :func:`minplus_sweep_cuda` (``minplus_sweep.cu``) replaces
   ``repro/kernels/minplus/kernel.py::minplus_sweep_pallas``: the
@@ -31,6 +31,15 @@ Three kernels, each in its own ``csrc/*.cu`` with its design notes:
   :func:`sweep_plan`'s rule and keeps the table in shared memory where
   it fits, else in a global scratch tensor.  One row is the one-slot
   entry (``ops.minplus_monotone``).
+* :func:`minplus_dnc_cuda` (``minplus_dnc.cu``) is the counterpart of
+  the reference's ``monotone.py::monotone_dnc_step`` (a jnp function, no
+  Pallas kernel) as the tiled route runs it with ``REPRO_MONOTONE_DNC``
+  on: the live slots of one D&C tile, rows certified convex, in one
+  launch of one thread block from a carry-in, cost only, level by level
+  of the static recursion of :func:`dnc_levels`.  :func:`dnc_plan` keeps
+  the carry, the new column and the bounds in shared memory where they
+  fit, else in global memory.  One row is the one-slot entry
+  (``ops.minplus_monotone``).
 
 The libraries are compiled from the sources at first use
 (:mod:`repro_torch.kernels.build`, all ``nvcc`` processes started
@@ -45,15 +54,18 @@ import ctypes
 from pathlib import Path
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..build import bind, build_libraries, launch
+from .monotone import _dnc_levels
 from .tiled import TILE
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"sweep": _CSRC / "minplus_sweep.cu",
            "slot": _CSRC / "minplus_slot.cu",
-           "plateau": _CSRC / "minplus_plateau.cu"}
+           "plateau": _CSRC / "minplus_plateau.cu",
+           "dnc": _CSRC / "minplus_dnc.cu"}
 
 # shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
@@ -81,11 +93,13 @@ _SIGNATURES = {
              "minplus_slot_error_string"),
     "plateau": ("minplus_plateau", [_P, _P, _P, _P] + [_I] * 11 + [_P],
                 "minplus_plateau_error_string"),
+    "dnc": ("minplus_dnc", [_P] * 6 + [_I] * 7 + [_P],
+            "minplus_dnc_error_string"),
 }
 
 
 def load_libraries() -> Dict[str, ctypes.CDLL]:
-    """Build (once per source hash, the three ``nvcc`` runs started
+    """Build (once per source hash, the ``nvcc`` runs started
     together) and load every min-plus library; returns them by name."""
     if len(_libs) < len(SOURCES):
         names = list(SOURCES)
@@ -453,3 +467,117 @@ def minplus_plateau_cuda(rows: torch.Tensor, prev: torch.Tensor, *,
 
 
 minplus_plateau_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# A D&C tile: certified-convex slots from a carry-in
+# ---------------------------------------------------------------------------
+
+DNC_THREADS = 512              # threads of the launch's one block
+
+
+class DncPlan(NamedTuple):
+    threads: int           # threads of the one block
+    shared: bool           # carry, new column and bounds in shared memory
+    smem_bytes: int        # dynamic shared memory
+
+
+def _dnc_smem(dc1: int, d1: int, size: int, threads: int,
+              shared: bool) -> int:
+    """Shared memory of the block (csrc/minplus_dnc.cu's layout): with
+    ``shared`` the carry, the new column, the row and the two bound
+    arrays; always the per-warp partials, the two per-slot maxima and the
+    levels' offsets (at most 32 levels: d1 < 2^31)."""
+    warps = threads // 32
+    small = 4 * (2 * warps + 2 + 33)
+    if shared:
+        return size * (2 * d1 + dc1 + warps) + 4 * 2 * d1 + small
+    return size * warps + small
+
+
+def dnc_plan(dc1: int, d1: int, dtype: torch.dtype) -> DncPlan:
+    """The D&C kernel's launch plan for rows of DC+1 values over D+1
+    columns, whatever the number of slots: one block of
+    :data:`DNC_THREADS` threads, with the carry, the new column, the row
+    and the bounds in shared memory where they fit the
+    :data:`SMEM_LIMIT` bytes a block may use, else in global memory (the
+    output's rows and a scratch of 2 (D+1) ints).  Pure: the CPU tests
+    call it."""
+    size = dtype.itemsize
+    smem = _dnc_smem(dc1, d1, size, DNC_THREADS, True)
+    if smem <= SMEM_LIMIT:
+        return DncPlan(DNC_THREADS, True, smem)
+    return DncPlan(DNC_THREADS, False,
+                   _dnc_smem(dc1, d1, size, DNC_THREADS, False))
+
+
+_dnc_tables: Dict[Tuple[int, str], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def dnc_levels(d1: int, device: torch.device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The D&C recursion over [0, d1) as the kernel reads it, on
+    ``device`` (built once per (d1, device)): ``segs`` (d1, 2) int32, the
+    (s, e) segment of every midpoint ``(s + e) // 2``, level by level
+    (:func:`.monotone._dnc_levels`), and ``level_off`` (levels + 1,)
+    int32, where each level starts."""
+    key = (int(d1), str(device))
+    hit = _dnc_tables.get(key)
+    if hit is None:
+        levels = _dnc_levels(int(d1))
+        segs = np.concatenate([lv[4] for lv in levels]).astype(np.int32)
+        off = np.cumsum([0] + [len(lv[0]) for lv in levels]).astype(np.int32)
+        hit = (torch.tensor(segs, device=device),
+               torch.tensor(off, device=device))
+        _dnc_tables[key] = hit
+    return hit
+
+
+def minplus_dnc_cuda(rows: torch.Tensor, prev: torch.Tensor, *,
+                     out: Optional[torch.Tensor] = None,
+                     plan: Optional[DncPlan] = None) -> torch.Tensor:
+    """Convex D&C DP slots, cost only, as one CUDA launch of one thread
+    block: ``out[i] = monotone_dnc_step(rows[i], out[i-1])`` with
+    ``out[-1] = prev``, which equals the chain (:func:`minplus_sweep_cuda`
+    given ``prev``) bit for bit for rows that pass
+    :func:`.monotone.convex_certificate` (the caller's gate) where
+    ``prev`` holds no -0.  The tiled core steps the live slots of a D&C
+    tile so; one row is one slot.  The kernel keeps no candidate buffer,
+    so it never spills where the plain step would.
+
+    rows (n, DC+1) float32 or float64, contiguous, on a CUDA device;
+    ``prev`` (D+1,) and ``out`` (n, D+1) likewise, on the same device;
+    ``out`` receives the columns when given (the tiled core passes rows
+    of its cost table).  ``plan`` overrides :func:`dnc_plan`.  Launches
+    on the current stream without synchronising;
+    ``minplus_dnc_cuda.launches`` counts the launches; n = 0 launches
+    nothing."""
+    if rows.ndim != 2 or prev.ndim != 1 or rows.shape[1] < 1 \
+            or prev.numel() < 1:
+        raise ValueError(f"minplus_dnc_cuda: rows (n, DC+1) and prev (D+1,) "
+                         f"must be a matrix and a non-empty vector, not "
+                         f"{tuple(rows.shape)} and {tuple(prev.shape)}")
+    n, dc1 = rows.shape
+    d1 = prev.numel()
+    if out is None:
+        out = torch.empty((n, d1), dtype=prev.dtype, device=prev.device)
+    elif out.shape != (n, d1):
+        raise ValueError(f"minplus_dnc_cuda: out {tuple(out.shape)} must be "
+                         f"{(n, d1)}")
+    dtype = _check("minplus_dnc_cuda", rows=rows, prev=prev, out=out)
+    if n == 0:
+        return out
+    plan = plan or dnc_plan(dc1, d1, dtype)
+    segs, level_off = dnc_levels(d1, prev.device)
+    scratch = (None if plan.shared else
+               torch.empty(2 * d1, dtype=torch.int32, device=prev.device))
+    _launch("dnc", dtype, prev.device, rows.data_ptr(), prev.data_ptr(),
+            out.data_ptr(), scratch.data_ptr() if scratch is not None
+            else None, segs.data_ptr(), level_off.data_ptr(),
+            level_off.numel() - 1, n, dc1, d1, plan.threads,
+            int(plan.shared), plan.smem_bytes)
+    minplus_dnc_cuda.launches += 1
+    return out
+
+
+minplus_dnc_cuda.launches = 0

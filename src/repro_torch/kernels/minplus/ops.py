@@ -7,8 +7,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from .kernel import minplus_cuda, minplus_plateau_cuda, minplus_sweep_cuda
-from .monotone import plateau_step, run_count
+from .kernel import (minplus_cuda, minplus_dnc_cuda, minplus_plateau_cuda,
+                     minplus_sweep_cuda)
+from .monotone import (_clean, convex_certificate, monotone_dnc_step,
+                       plateau_step, run_count)
 from .ref import minplus_ref, minplus_sweep_cost, minplus_sweep_ref
 from .tiled import minplus_tile
 
@@ -24,12 +26,24 @@ def minplus(row: torch.Tensor, prev: torch.Tensor
 
 def minplus_monotone(row: torch.Tensor, prev: torch.Tensor,
                      r_max: int = 16) -> torch.Tensor:
-    """Structure-aware slot, cost only: the plateau step when the row has
-    at most ``r_max`` runs (counted on the host, as the reference's eager
-    entry does), else the plain slot; each on the card's kernel or, for a
-    CPU tensor, its plain version.  Bit-identical to :func:`minplus`'s
-    cost on every path."""
-    if int(run_count(row)) <= r_max:
+    """Structure-aware slot, cost only, in the reference's non-Pallas
+    dispatch order: a row certified convex (:func:`.monotone.
+    convex_certificate`) takes the D&C step, a row of at most ``r_max``
+    runs the plateau step, any other row (or a row or carry with NaN or
+    -inf) the plain slot; the gates are read on the host in one copy.
+    Each branch runs on the card's kernel or, for a CPU tensor, its plain
+    version (a spill of the plain D&C step takes the plain slot).
+    Bit-identical to :func:`minplus`'s cost on every path."""
+    clean = _clean(row) & _clean(prev)
+    convex, plat = torch.stack([clean & convex_certificate(row),
+                                clean & (run_count(row) <= r_max)]).tolist()
+    if convex:
+        if row.is_cuda:
+            return minplus_dnc_cuda(row[None], prev)[0]
+        new, overflow = monotone_dnc_step(row, prev)
+        if not overflow:
+            return new
+    elif plat:
         if row.is_cuda:
             return minplus_plateau_cuda(row[None], prev, r_max=r_max)[0]
         return plateau_step(row, prev)
@@ -77,4 +91,22 @@ def minplus_plateau_tile(rows: torch.Tensor, prev: torch.Tensor,
         return minplus_plateau_cuda(rows, prev, r_max=r_max, out=out)
     for i, row in enumerate(rows):
         prev = out[i].copy_(plateau_step(row, prev))
+    return out
+
+
+def minplus_dnc_tile(rows: torch.Tensor, prev: torch.Tensor,
+                     out: torch.Tensor) -> torch.Tensor:
+    """Cost-only DP columns of the certified-convex slots ``rows`` (n,
+    DC+1) from the carry ``prev`` (D+1,), written into ``out`` (n, D+1):
+    one launch of the D&C kernel on the card, :func:`.monotone.
+    monotone_dnc_step` chained over the rows on the CPU (a slot whose
+    plain step spills takes the chain, as the reference's dispatch
+    does)."""
+    if rows.is_cuda:
+        return minplus_dnc_cuda(rows, prev, out=out)
+    for i, row in enumerate(rows):
+        new, overflow = monotone_dnc_step(row, prev)
+        if overflow:
+            new = minplus_tile(row[None, None, :], prev[None])[0][0]
+        prev = out[i].copy_(new)
     return out

@@ -472,7 +472,8 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
         throughput: Optional[ThroughputFn] = None,
         fleet: Optional[FleetTrace] = None,
         ckpt_interval: int = CKPT_INTERVAL, policy=None,
-        obs: Optional[_obs.Obs] = None) -> SimResult:
+        obs: Optional[_obs.Obs] = None,
+        precision: str = "auto") -> SimResult:
     """Drive ``scheduler`` (``"oasis"`` or a reactive baseline: ``"fifo"``,
     ``"drf"``, ``"rrh"``, ``"dorm"``) through the trace event by event.
     OASiS decides on ``device`` (None: the CUDA card), every decision
@@ -492,7 +493,9 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
 
     ``obs`` installs a flight recorder (``repro_torch.obs.Obs``) for the
     run: its spans and counters land there, and the previous recorder
-    (none by default) is restored on return.
+    (none by default) is restored on return.  ``precision`` is OASiS's
+    decision dtype (``schedule_torch.route_dtype``: ``"auto"`` and
+    ``"x64"`` float64, ``"x32"`` float32), passed on as ``core`` is.
 
     Example — the same trace under OASiS and a reactive baseline::
 
@@ -515,7 +518,7 @@ def run(cluster: ClusterSpec, jobs: Sequence[Job], scheduler: str = "oasis",
     _needs_policy(scheduler, policy)
     kw = dict(params=params, check=check, quantum=quantum, device=device,
               core=core, cancellations=cancellations, throughput=throughput,
-              fleet=fleet, ckpt_interval=ckpt_interval)
+              fleet=fleet, ckpt_interval=ckpt_interval, precision=precision)
     with _obs.activate(obs):
         if policy is not None:
             return _with_policy(decisions(cluster, jobs, scheduler, **kw),
@@ -533,7 +536,7 @@ def decisions(cluster: ClusterSpec, jobs: Sequence[Job],
               cancellations: Optional[Dict[int, int]] = None,
               throughput: Optional[ThroughputFn] = None,
               fleet: Optional[FleetTrace] = None,
-              ckpt_interval: int = CKPT_INTERVAL
+              ckpt_interval: int = CKPT_INTERVAL, precision: str = "auto"
               ) -> Generator[DecisionPoint, object, SimResult]:
     """The engine as a stepwise decision process (the rl env's substrate):
     :func:`run`'s arguments, a :class:`DecisionPoint` yielded per arrival
@@ -544,11 +547,13 @@ def decisions(cluster: ClusterSpec, jobs: Sequence[Job],
     return _drivers(cluster, jobs, scheduler, params=params, check=check,
                     quantum=quantum, device=device, core=core,
                     cancellations=cancellations, throughput=throughput,
-                    fleet=fleet, ckpt_interval=ckpt_interval, decide=True)
+                    fleet=fleet, ckpt_interval=ckpt_interval, decide=True,
+                    precision=precision)
 
 
 def _drivers(cluster, jobs, scheduler, params, check, quantum, device, core,
-             cancellations, throughput, fleet, ckpt_interval, decide):
+             cancellations, throughput, fleet, ckpt_interval, decide,
+             precision="auto"):
     device = resolve_device(device)
     if scheduler != "oasis":
         return _drive_reactive(cluster, jobs, scheduler, check, quantum,
@@ -556,7 +561,7 @@ def _drivers(cluster, jobs, scheduler, params, check, quantum, device, core,
                                ckpt_interval, decide)
     return _drive_oasis(cluster, jobs, params, check, quantum, device, core,
                         cancellations, throughput, fleet, ckpt_interval,
-                        decide)
+                        decide, precision)
 
 
 def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
@@ -565,12 +570,14 @@ def _drive_oasis(cluster: ClusterSpec, jobs: Sequence[Job],
                  cancellations: Optional[Dict[int, int]],
                  throughput: Optional[ThroughputFn],
                  fleet: Optional[FleetTrace], ckpt_interval: int,
-                 decide: bool) -> Generator[DecisionPoint, object, SimResult]:
+                 decide: bool, precision: str = "auto"
+                 ) -> Generator[DecisionPoint, object, SimResult]:
     T = cluster.T
     jmap = {j.jid: j for j in jobs}
     by_slot, cancel_slot = _group_events(jobs, cancellations, T)
     params = params or price_params_from_jobs(jobs, cluster)
-    osched = OASiS(cluster, params, device=device, core=core)
+    osched = OASiS(cluster, params, device=device, core=core,
+                   precision=precision)
     state = osched.state
     total_gpu = max(float(cluster.worker_caps[:, 0].sum()), 1e-9)
     canceled: set = set()
@@ -749,7 +756,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                ckpt_interval: int = CKPT_INTERVAL,
                device: Optional[Union[str, torch.device]] = None,
                core: str = "whole", policy=None,
-               obs: Optional[_obs.Obs] = None) -> SimResult:
+               obs: Optional[_obs.Obs] = None,
+               precision: str = "auto") -> SimResult:
     """Drive ``scheduler`` over an open-ended arrival stream: OASiS on
     ``device`` (None: the CUDA card), through the decision core ``core``;
     a reactive baseline on the host, after the device is resolved, with
@@ -765,7 +773,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     re-blocked after every advance.  ``utilization`` is over the elapsed
     clock, through the last completion.  ``policy`` answers each decision
     point of :func:`stream_decisions`, and ``obs`` records the run (the
-    warm-up sample included), as in :func:`run`.
+    warm-up sample included), and ``precision`` sets OASiS's decision
+    dtype, as in :func:`run`.
 
     Example — a bounded slice of a stream through a 16-slot window::
 
@@ -783,7 +792,8 @@ def run_stream(cluster: ClusterSpec, jobs: Iterable[Job],
     _needs_policy(scheduler, policy)
     kw = dict(params=params, window=window, check=check, quantum=quantum,
               warmup_sample=warmup_sample, fleet=fleet,
-              ckpt_interval=ckpt_interval, device=device, core=core)
+              ckpt_interval=ckpt_interval, device=device, core=core,
+              precision=precision)
     with _obs.activate(obs):
         if policy is not None:
             return _with_policy(
@@ -800,7 +810,7 @@ def stream_decisions(cluster: ClusterSpec, jobs: Iterable[Job],
                      fleet: Optional[FleetTrace] = None,
                      ckpt_interval: int = CKPT_INTERVAL,
                      device: Optional[Union[str, torch.device]] = None,
-                     core: str = "whole"
+                     core: str = "whole", precision: str = "auto"
                      ) -> Generator[DecisionPoint, object, SimResult]:
     """The streaming counterpart of :func:`decisions`: :func:`run_stream`'s
     arguments, a :class:`DecisionPoint` yielded per arrival (and per
@@ -810,12 +820,12 @@ def stream_decisions(cluster: ClusterSpec, jobs: Iterable[Job],
                            window=window, check=check, quantum=quantum,
                            warmup_sample=warmup_sample, fleet=fleet,
                            ckpt_interval=ckpt_interval, device=device,
-                           core=core, decide=True)
+                           core=core, decide=True, precision=precision)
 
 
 def _stream_drivers(cluster, jobs, scheduler, params, window, check, quantum,
                     warmup_sample, fleet, ckpt_interval, device, core,
-                    decide):
+                    decide, precision="auto"):
     device = resolve_device(device)
     if scheduler != "oasis":
         return _drive_reactive_stream(cluster, jobs, scheduler, check,
@@ -826,16 +836,18 @@ def _stream_drivers(cluster, jobs, scheduler, params, window, check, quantum,
         params = stream_price_params(sample, cluster, window)
         jobs = itertools.chain(sample, it)
     return _drive_oasis_stream(cluster, jobs, params, window, check, quantum,
-                               fleet, ckpt_interval, device, core, decide)
+                               fleet, ckpt_interval, device, core, decide,
+                               precision)
 
 
 def _drive_oasis_stream(cluster: ClusterSpec, jobs: Iterable[Job],
                         params: PriceParams, window: int, check: bool,
                         quantum: Optional[int], fleet: Optional[FleetTrace],
                         ckpt_interval: int, device: torch.device, core: str,
-                        decide: bool
+                        decide: bool, precision: str = "auto"
                         ) -> Generator[DecisionPoint, object, SimResult]:
-    osched = OASiS(cluster, params, device=device, core=core, window=window)
+    osched = OASiS(cluster, params, device=device, core=core, window=window,
+                   precision=precision)
     state = osched.state
     jmap: Dict[int, Job] = {}
     arrivals: Dict[int, int] = {}

@@ -24,9 +24,11 @@ from repro_torch.core import schedule_torch
 from repro_torch.core.schedule_torch import _shape_bucket
 from repro_torch.kernels.minplus import kernel, ops
 from repro_torch.kernels.minplus.kernel import (minplus_cuda,
+                                                minplus_dnc_cuda,
                                                 minplus_plateau_cuda,
                                                 minplus_sweep_cuda)
-from repro_torch.kernels.minplus.monotone import plateau_step, run_count
+from repro_torch.kernels.minplus.monotone import (convex_certificate,
+                                                  plateau_step, run_count)
 from repro_torch.kernels.minplus.ref import minplus_ref, minplus_sweep_ref
 from repro_torch.kernels.minplus.tiled import minplus_tile
 from repro_torch.sim import engine, workload
@@ -463,6 +465,30 @@ def test_cuda_tables_equal_cpu_and_tiles_equal_full(card, T, H, K):
 
 
 @pytest.mark.cuda
+def test_cuda_float32_rows_equal_cpu(card):
+    """The float32 route's tables at 10x: the padded state and every
+    tile's COST rows on the card equal the CPU's bit for bit.  The CPU's
+    float32 ``cumsum`` adds in float64 and CUDA's in float32, so
+    ``_prefix_sums`` adds a float32 pair in float64 on both devices."""
+    gpu, cpu, jobs, _ = _tables_state(500, 100, 100, 12, 0)
+    T_pad = schedule_torch._pad_tiles(500)
+    psd = schedule_torch._padded_state(gpu, torch.float32, T_pad)
+    psd_cpu = schedule_torch._padded_state(cpu, torch.float32, T_pad)
+    for a, b in zip(psd[0], psd_cpu[0]):
+        assert a.dtype == torch.float32 and torch.equal(a.cpu(), b)
+    for job in [j for j in jobs if _shape_bucket(j)][:4]:
+        m_pad, _ = _shape_bucket(job)
+        lane, _ = schedule_torch._job_arrays_tiled(job, 500, T_pad, m_pad)
+        jd, jd_cpu = (schedule_torch._stack_lanes([lane], 500, torch.float32,
+                                                  dev)
+                      for dev in (gpu.device, cpu.device))
+        for t0 in range(0, T_pad, 64):
+            rows = schedule_torch._tile_rows(psd[0], jd, t0)
+            assert torch.equal(rows.cpu(), schedule_torch._tile_rows(
+                psd_cpu[0], jd_cpu, t0)), t0
+
+
+@pytest.mark.cuda
 def test_burst_lanes_on_card_equal_cpu(card, monkeypatch):
     """The batched arrival path at paper scale on the card, one lane and
     eight lanes a launch, equals the CPU's (one lane): completions and
@@ -683,3 +709,59 @@ def test_window_slide_and_blocks_on_card_equal_cpu(card):
     for a, b in zip(states[0]._dev, states[1]._dev):
         assert _bits(a.cpu(), b)
     assert [st.device_uploads for st in states] == [1, 1]
+
+
+def _convex_rows(n, dc1, d1, dtype, seed):
+    """Seeded certified-convex rows on the card (increasing increments
+    with ties, +inf suffixes in every third row, a linear row, an
+    identity row) and a carry with +inf cells."""
+    rng = np.random.default_rng(seed)
+    rows = np.empty((n, dc1))
+    for i in range(n):
+        inc = np.round(np.sort(rng.random(dc1 - 1)) * 4) / 4.0
+        rows[i] = np.concatenate([[0.0], np.cumsum(inc)])
+        if i % 3 == 2:
+            rows[i, max(dc1 // 2, 1):] = np.inf
+    rows[min(1, n - 1)] = np.arange(dc1)
+    rows[-1, 1:] = np.inf
+    prev = rng.random(d1)
+    prev[rng.random(d1) < 0.3] = np.inf
+    prev[0] = 0.0
+    return (torch.tensor(rows, dtype=dtype, device="cuda"),
+            torch.tensor(prev, dtype=dtype, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dc1,d1", [(5, 33), (17, 129), (64, 129),
+                                    (64, 1280), (1, 7), (64, 20480)])
+def test_cuda_dnc_kernel_equals_plain_version(card, dc1, d1, dtype):
+    """The D&C tile (``minplus_dnc_cuda``, one launch) under the planned
+    placement and the global one against the plain step chained and the
+    chain tile, bit for bit, written at a row offset of a larger table;
+    ``ops.minplus_dnc_tile`` and one row through ``ops.minplus_monotone``
+    (the one-slot entry)."""
+    rows, prev = _convex_rows(17, dc1, d1, dtype, seed=dc1 * d1)
+    assert bool(convex_certificate(rows).all())
+    want = minplus_tile(rows[:, None, :], prev[None])[1][:, 0]
+    # the plain version: monotone_dnc_step chained on the host (a slot
+    # whose candidate buffer spills, the tied row's, takes the chain)
+    plain = ops.minplus_dnc_tile(rows.cpu(), prev.cpu(),
+                                 torch.empty((17, d1), dtype=dtype))
+    assert _bits(plain.cuda(), want)
+    plans = {kernel.dnc_plan(dc1, d1, dtype),
+             kernel.DncPlan(kernel.DNC_THREADS, False, kernel._dnc_smem(
+                 dc1, d1, dtype.itemsize, kernel.DNC_THREADS, False))}
+    for plan in plans:
+        out = torch.full((19, d1), float("nan"), dtype=dtype, device="cuda")
+        before = minplus_dnc_cuda.launches
+        minplus_dnc_cuda(rows, prev, out=out[1:18], plan=plan)
+        torch.cuda.synchronize()
+        assert minplus_dnc_cuda.launches == before + 1
+        assert _bits(out[1:18], want), plan
+        assert out[0].isnan().all() and out[18].isnan().all()
+    out = torch.empty((17, d1), dtype=dtype, device="cuda")
+    ops.minplus_dnc_tile(rows, prev, out)
+    assert _bits(out, want)
+    got = ops.minplus_monotone(rows[0], prev)
+    assert _bits(got, want[0])
