@@ -72,15 +72,24 @@ cores) and both flash attention kernels (both on the tensor cores:
 wgmma for bfloat16, TF32 mma.sync in three passes for float32) against
 their plain versions (test shapes, a row of several cluster segments
 from an initial state, Zamba2-7B's prefill shapes and the float32
-consistency prefill's attention, every launch plan), the Zamba2 smoke
-model on the card against the CPU, a full-width Zamba2-7B prefill in
-float32 against its own teacher-forced decode (the float32 path: 81 SSD
-and 13 float32 flash launches, each flash launch also held to the plain
-versions on its recorded inputs), and the serving path
-``repro_torch.launch.serve`` at full width in bfloat16 (batch 4, prompt
-2048, 32 new tokens), each with the
-kernel counts set to 0 just before it and read just after: every prefill
-ran 81 SSD and 13 bfloat16 flash launches, no decode step ran any.
+consistency prefill's attention, every launch plan, and the dense
+family's served attention: Gemma2-9B's local (window 4096) and global
+layers soft-capped at 50, StarCoder2-3B's), the Zamba2 and the five
+dense smoke models (granite, StarCoder2, pixtral, also with patch
+embeddings, both gemma2) on the card against the CPU, a full-width
+Zamba2-7B prefill in float32 against its own teacher-forced decode (the
+float32 path: 81 SSD and 13 float32 flash launches, each flash launch
+also held to the plain versions on its recorded inputs), the same for
+Gemma2-9B past its window (a 4200-token prompt into rolled local caches,
+8 decode steps, against one prefill of all 4208 tokens; 42 recorded
+float32 flash launches), and the serving path ``repro_torch.launch.serve``
+at full width in bfloat16: Zamba2-7B (batch 4, prompt 2048), Gemma2-9B
+(batch 2, prompt 6144) and StarCoder2-3B (batch 4, prompt 2048), 32 new
+tokens each, each with the kernel counts set to 0 just before it and
+read just after: every prefill ran 81 SSD and 13 bfloat16 flash launches
+(Zamba2-7B) or one bfloat16 flash launch per layer (42, 30), no decode
+step ran any.  Traced prefills and decode steps of Zamba2-7B and
+Gemma2-9B show where the serving time goes.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -2381,6 +2390,24 @@ SERVE = {"batch": 4, "prompt": 2048, "gen": 32}
 # Zamba2-7B: 81 Mamba2 layers, 13 calls of the shared attention block
 ZAMBA_SSD, ZAMBA_FLASH = 81, 13
 CONSISTENCY_LEN = 320          # 320 * 320 > 256 * 256: the chunked branch
+# the dense family: Gemma2-9B served at batch 2 of 6144-token prompts (its
+# 21 local layers' window of 4096 bites) and StarCoder2-3B at batch 4 of
+# 2048, one flash launch per layer; the attention at those prompts:
+# Gemma2-9B's local (window 4096) and global layers, both soft-capped at
+# 50 (16 heads, 8 KV heads, D 256), StarCoder2-3B's plain causal one (24
+# heads, 2 KV heads, D 128)
+GEMMA_SERVE = {"batch": 2, "prompt": 6144, "gen": 32}
+STARCODER_SERVE = {"batch": 4, "prompt": 2048, "gen": 32}
+GEMMA_LAYERS, STARCODER_LAYERS = 42, 30
+FLASH_GEMMA = (2, 6144, 6144, 16, 8, 256)
+FLASH_GEMMA_MASKS = [(True, 4096, 50.0), (True, 0, 50.0)]
+FLASH_STARCODER = (4, 2048, 2048, 24, 2, 128)
+# the float32 window consistency: one Gemma2-9B request of 4200 prompt
+# tokens (past the 4096 window), 8 teacher-forced decode steps after it
+WINDOW_PROMPT, WINDOW_STEPS = 4200, 8
+# the dense smoke configs held on the card to the port on the CPU
+DENSE_SMOKE = ("granite_34b", "starcoder2_3b", "pixtral_12b", "gemma2_9b",
+               "gemma2_27b")
 
 
 def _ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
@@ -2513,23 +2540,120 @@ def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
             nbytes / PEAK_BYTES * 1e3)
 
 
-def _time_flash(shape, dtype, q, k, v, kernel, reps):
+def _time_flash(shape, dtype, q, k, v, kernel, reps, window=0, cap=0.0):
     """(kernel ms, plain ms, bound ms, tensor-core ops ms, bytes ms,
-    library ms, CUDA-core ops ms) at ``shape``, causal: device time per
-    launch of ``kernel``, the model's chunked plain version, and torch's
-    scaled_dot_product_attention as a yardstick the port never calls."""
+    library ms, CUDA-core ops ms) at ``shape``, causal, with ``window``
+    and soft-cap ``cap``: device time per launch of ``kernel``, the
+    model's chunked plain version, and torch's
+    scaled_dot_product_attention as a yardstick the port never calls (K
+    and V repeated to every head outside the timing where KV < H; a
+    window as a boolean mask; it has no soft-cap, so with ``cap`` it is a
+    guide, not the same function)."""
     B, Sq, Sk, H, KV, D = shape
-    k_ms = _device_ms(lambda: kernel(q, k, v, causal=True), reps)
+    k_ms = _device_ms(lambda: kernel(q, k, v, causal=True, window=window,
+                                     softcap=cap), reps)
     qg = q.reshape(B, Sq, KV, H // KV, D)
     pos = torch.arange(Sq, device="cuda")
-    p_ms = _time_ms(lambda: _sdpa_chunked(qg, k, v, pos, pos, True, 0, 0.0,
-                                          None, 1024), reps=2)
+    p_ms = _time_ms(lambda: _sdpa_chunked(qg, k, v, pos, pos, True, window,
+                                          cap, None, 1024), reps=2)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if KV < H:
+        kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+    if window:
+        qp = torch.arange(Sq, device="cuda")[:, None]
+        kp = torch.arange(Sk, device="cuda")[None, :]
+        mask = (qp >= kp) & (qp - kp < window)
+        lib = {"attn_mask": mask}
+    else:
+        lib = {"is_causal": True}
     lib_ms = _device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), 5)
-    cc_ms, tc_ms, byte_ms = _flash_bounds(*shape, True, 0, dtype)
+            qt, kt, vt, **lib), 5)
+    del qt, kt, vt
+    cc_ms, tc_ms, byte_ms = _flash_bounds(*shape, True, window, dtype)
     return k_ms, p_ms, max(tc_ms, byte_ms), tc_ms, byte_ms, lib_ms, cc_ms
+
+
+def _check_flash(q, k, v, causal, window, cap, kernel, case):
+    """One launch of ``kernel`` on (q, k, v) held to the model's chunked
+    plain version and the naive oracle (which agree first): float32 within
+    2e-5 of both; bf16 within 2e-2 of the chunked one and within
+    WGMMA_REL_NORM on the relative norm of the whole error against the
+    naive one.  Returns (max abs error, that relative norm or None)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    f32 = q.dtype == torch.float32
+    tol = 2e-5 if f32 else 2e-2
+    want = _sdpa_chunked(q.reshape(B, Sq, KV, H // KV, D), k, v,
+                         torch.arange(Sq, device="cuda"),
+                         torch.arange(Sk, device="cuda"), causal, window, cap,
+                         None, 1024).reshape(B, Sq, H, D)
+    naive = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                          window=window, softcap=cap)
+    torch.testing.assert_close(want, naive, atol=tol, rtol=tol)
+    got = kernel(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    e = float((got.float() - want).abs().max())
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol,
+                               msg=lambda m: f"flash {case}: {m}")
+    if f32:
+        e = max(e, float((got - naive).abs().max()))
+        torch.testing.assert_close(
+            got, naive, atol=tol, rtol=tol,
+            msg=lambda m: f"flash {case} against the naive oracle: {m}")
+        return e, None
+    rel = float((got.float() - naive).norm() / naive.norm())
+    assert rel <= WGMMA_REL_NORM, (
+        f"flash {case}: rel_norm_err {rel!r} > {WGMMA_REL_NORM}")
+    return e, rel
+
+
+def _flash_dense(err):
+    """The flash kernels at the dense family's served shapes: Gemma2-9B's
+    local and global layers at its serve phase's prompt (FLASH_GEMMA,
+    FLASH_GEMMA_MASKS) and StarCoder2-3B's causal attention at its own
+    (FLASH_STARCODER), bf16 on the wgmma kernel and float32 on the
+    mma.sync kernel (:func:`_check_flash`), each timed against the chunked
+    plain version, SDPA and its bound.  Raises the worst errors in
+    ``err``; returns {(model, window, dtype): _time_flash's tuple}."""
+    timing = {}
+    for shape, masks, model in (
+            (FLASH_GEMMA, FLASH_GEMMA_MASKS, "Gemma2-9B"),
+            (FLASH_STARCODER, [(True, 0, 0.0)], "StarCoder2-3B")):
+        B, Sq, Sk, H, KV, D = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            f32 = dtype == torch.float32
+            kernel, name, kind = (
+                (flash_kernel.flash_attention_cuda, "flash_attention_mma",
+                 "f32") if f32 else
+                (flash_kernel.flash_attention_wgmma, "flash_attention_wgmma",
+                 "wgmma"))
+            q, k, v = _flash_inputs(*shape, dtype)
+            for causal, window, cap in masks:
+                case = (f"{model} (B={B}, S={Sq}, H={H}, KV={KV}, D={D}, "
+                        f"causal, window={window}, cap={cap}) "
+                        f"{str(dtype).split('.')[-1]}")
+                e, rel = _check_flash(q, k, v, causal, window, cap, kernel,
+                                      f"{case} {name}")
+                err[kind] = max(err[kind], e)
+                held = ("bound 2e-5; chunked and naive plain" if f32 else
+                        f"bound 2e-2; chunked plain; rel_norm_err={rel!r} "
+                        f"against the naive oracle, bound {WGMMA_REL_NORM}")
+                t = _time_flash(shape, dtype, q, k, v, kernel,
+                                5 if f32 else 10, window, cap)
+                timing[(model, window, dtype)] = t
+                lib = ("uncapped SDPA, a guide, not the same function"
+                       + (", the window as a boolean mask" if window else "")
+                       if cap else "torch scaled_dot_product_attention")
+                print(f"{name} {case}: max_abs_err={e!r} ({held}) "
+                      f"kernel_device_ms={t[0]!r} plain_ms={t[1]!r} "
+                      f"bound_ms={t[2]!r} (tensor-core operations {t[3]!r} "
+                      "ms, " + ("TF32 x 3 at " + f"{PEAK_TF32:.3g}" if f32
+                                else f"at {PEAK_OPS[dtype]:.3g}")
+                      + f" op/s; bytes {t[4]!r} ms at {PEAK_BYTES:.3g} B/s) "
+                      f"library_ms ({lib})={t[5]!r}")
+            del q, k, v
+    return timing
 
 
 def flash_phase():
@@ -2544,9 +2668,10 @@ def flash_phase():
     error against the float32 oracle.  At the prefill shape, bf16 on the
     wgmma kernel and f32 on the mma.sync kernel are timed against the
     chunked plain version, torch's scaled_dot_product_attention and the
-    bound, and f32 also at the consistency prefill's shape.  Returns (max
+    bound, and f32 also at the consistency prefill's shape; then the
+    dense family's served shapes (:func:`_flash_dense`).  Returns (max
     err, timing at the prefill shape) of the f32 kernel over its f32
-    cases and of the bf16 kernel."""
+    cases and of the bf16 kernel, and the dense shapes' timings."""
     err = {"f32": 0.0, "wgmma": 0.0}
     cases, timing, worst_rel = 0, {}, 0.0
     plans = set()
@@ -2560,71 +2685,39 @@ def flash_phase():
                   else (torch.float32,))
         for dtype in dtypes:
             q, k, v = _flash_inputs(*shape, dtype)
-            tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
             for causal, window, cap in masks:
-                want = _sdpa_chunked(q.reshape(B, Sq, KV, H // KV, D), k, v,
-                                     torch.arange(Sq, device="cuda"),
-                                     torch.arange(Sk, device="cuda"), causal,
-                                     window, cap, None, 1024
-                                     ).reshape(B, Sq, H, D)
-                naive = attention_ref(q.float(), k.float(), v.float(),
-                                      causal=causal, window=window,
-                                      softcap=cap)
-                torch.testing.assert_close(want, naive, atol=tol, rtol=tol)
                 if dtype == torch.float32:
                     plan = flash_kernel.mma_plan(
                         D, B * H, Sq, flash_kernel._sms(q.device))
                     plans.add((D, plan))
-                    runs = [(f"mma {plan}", "f32",
-                             lambda: flash_kernel.flash_attention_cuda(
-                                 q, k, v, causal=causal, window=window,
-                                 softcap=cap))]
+                    kind, label = "f32", f"mma {plan}"
+                    kernel = flash_kernel.flash_attention_cuda
                 else:
-                    runs = [(f"wgmma {flash_kernel.wgmma_plan(D)}", "wgmma",
-                             lambda: flash_kernel.flash_attention_wgmma(
-                                 q, k, v, causal=causal, window=window,
-                                 softcap=cap))]
-                for label, kind, run in runs:
-                    got = run()
-                    torch.cuda.synchronize()
-                    e = float((got.float() - want).abs().max())
-                    err[kind] = max(err[kind], e)
-                    torch.testing.assert_close(
-                        got.float(), want, atol=tol, rtol=tol,
-                        msg=lambda m: f"flash {shape} {dtype} causal="
-                        f"{causal} window={window} cap={cap} {label}: {m}")
-                    if kind == "f32":
-                        e = max(e, float((got - naive).abs().max()))
-                        err[kind] = max(err[kind], e)
-                        torch.testing.assert_close(
-                            got, naive, atol=tol, rtol=tol,
-                            msg=lambda m: f"flash {shape} causal={causal} "
-                            f"window={window} cap={cap} {label} against "
-                            f"the naive oracle: {m}")
-                    cases += 1
-                    if kind == "wgmma":
-                        rel = float((got.float() - naive).norm()
-                                    / naive.norm())
-                        worst_rel = max(worst_rel, rel)
-                        if shape == FLASH_ZAMBA:
-                            print(f"flash_attention_wgmma at Zamba2-7B's "
-                                  f"prefill shape (B={B}, S={Sq}, H=KV={H}, "
-                                  f"D={D}, causal): max_abs_err={e!r} "
-                                  f"(bound 2e-2), rel_norm_err={rel!r} "
-                                  f"(bound {WGMMA_REL_NORM})")
-                        assert rel <= WGMMA_REL_NORM, (
-                            f"flash {shape} causal={causal} window={window} "
-                            f"cap={cap} {label}: rel_norm_err {rel!r} > "
-                            f"{WGMMA_REL_NORM}")
-                    if kind == "f32" and shape in (FLASH_ZAMBA,
-                                                   FLASH_CONSISTENCY):
-                        where = ("Zamba2-7B's prefill shape"
-                                 if shape == FLASH_ZAMBA else
-                                 "the float32 consistency prefill's shape")
-                        print(f"flash_attention_mma float32 at {where} "
-                              f"(B={B}, S={Sq}, H=KV={H}, D={D}, causal), "
-                              f"{label}: max_abs_err={e!r} (bound 2e-5; "
-                              "chunked and naive plain)")
+                    kind = "wgmma"
+                    label = f"wgmma {flash_kernel.wgmma_plan(D)}"
+                    kernel = flash_kernel.flash_attention_wgmma
+                e, rel = _check_flash(
+                    q, k, v, causal, window, cap, kernel,
+                    f"{shape} {dtype} causal={causal} window={window} "
+                    f"cap={cap} {label}")
+                err[kind] = max(err[kind], e)
+                cases += 1
+                if kind == "wgmma":
+                    worst_rel = max(worst_rel, rel)
+                    if shape == FLASH_ZAMBA:
+                        print(f"flash_attention_wgmma at Zamba2-7B's "
+                              f"prefill shape (B={B}, S={Sq}, H=KV={H}, "
+                              f"D={D}, causal): max_abs_err={e!r} "
+                              f"(bound 2e-2), rel_norm_err={rel!r} "
+                              f"(bound {WGMMA_REL_NORM})")
+                elif shape in (FLASH_ZAMBA, FLASH_CONSISTENCY):
+                    where = ("Zamba2-7B's prefill shape"
+                             if shape == FLASH_ZAMBA else
+                             "the float32 consistency prefill's shape")
+                    print(f"flash_attention_mma float32 at {where} "
+                          f"(B={B}, S={Sq}, H=KV={H}, D={D}, causal), "
+                          f"{label}: max_abs_err={e!r} (bound 2e-5; "
+                          "chunked and naive plain)")
             if shape in (FLASH_ZAMBA, FLASH_CONSISTENCY):
                 kernel, name = ((flash_kernel.flash_attention_wgmma,
                                  "flash_attention_wgmma") if dtype ==
@@ -2651,6 +2744,7 @@ def flash_phase():
                       f"float32 CUDA-core operations {t[6]!r} ms at "
                       f"{PEAK_OPS[torch.float32]:.3g} op/s)")
             del q, k, v
+    dense = _flash_dense(err)
     every_plan = {(D, flash_kernel.mma_plan(D, bh, 320))
                   for D in flash_kernel.WGMMA_HEAD_DIMS for bh in (1, 1024)}
     assert plans == every_plan, (
@@ -2660,7 +2754,7 @@ def flash_phase():
           f"TF32 x 3 f32={err['f32']!r}, wgmma bf16={err['wgmma']!r} "
           f"(rel_norm_err max {worst_rel!r}, bound {WGMMA_REL_NORM})")
     return ((err["f32"], timing[torch.float32]),
-            (err["wgmma"], timing[torch.bfloat16]))
+            (err["wgmma"], timing[torch.bfloat16]), dense)
 
 
 def _model_counts():
@@ -2692,12 +2786,15 @@ def _leaves(tree):
         yield tree
 
 
-def model_parity_phase():
-    """The Zamba2 smoke model in float32: the port on the card (SSD and
-    flash kernels) against the port on the CPU (their plain versions):
-    prefill logits and every cache leaf, then 8 decode steps, rel 1e-4."""
-    cfg = get_smoke("zamba2_7b").scaled(dtype="float32",
-                                        param_dtype="float32")
+def _parity_run(arch, patches=False):
+    """One smoke model in float32: the port on the card (its kernels)
+    against the port on the CPU (their plain versions): prefill logits and
+    every cache leaf, then 8 decode steps from ``prefill_into_cache`` (a
+    gemma2 local cache of 32 slots rolled), logits each step and every
+    cache leaf after the last, rel 1e-4; the prefill's (SSD, float32
+    flash, bf16 flash) launches expected for the family, none in decode.
+    ``patches``: pixtral's prompt starts with seeded patch embeddings."""
+    cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32")
     cpu_params = init_model(cfg, seed=3, device="cpu")
     gpu_params = tree_map(lambda t: t.cuda(), cpu_params,
                           lambda t: isinstance(t, torch.Tensor))
@@ -2705,19 +2802,25 @@ def model_parity_phase():
     g = torch.Generator()
     g.manual_seed(4)
     toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g)
+    pe = (torch.randn((B, cfg.n_patches, cfg.d_model), generator=g) * 0.1
+          if patches else None)
+    cpu_batch = {"tokens": toks[:, :S]}
+    gpu_batch = {"tokens": toks[:, :S].cuda()}
+    if patches:
+        cpu_batch["patch_embeds"], gpu_batch["patch_embeds"] = pe, pe.cuda()
     _reset_model_counts()
     with torch.inference_mode():
-        lg_cpu, c_cpu = prefill(cpu_params, cfg, {"tokens": toks[:, :S]}, S)
-        lg_gpu, c_gpu = prefill(gpu_params, cfg,
-                                {"tokens": toks[:, :S].cuda()}, S)
+        lg_cpu, c_cpu = prefill(cpu_params, cfg, cpu_batch, S)
+        lg_gpu, c_gpu = prefill(gpu_params, cfg, gpu_batch, S)
     torch.cuda.synchronize()
-    n_ssd, n_flash, n_wgmma = _model_counts()
+    pre = _model_counts()
     rels = [_rel(lg_gpu, lg_cpu)] + [
         _rel(a, b) for a, b in zip(_leaves(c_gpu), _leaves(c_cpu))]
     _, d_cpu = serve_steps.prefill_into_cache(cpu_params, cfg, toks[:, :S],
-                                              S + steps)
-    _, d_gpu = serve_steps.prefill_into_cache(gpu_params, cfg,
-                                              toks[:, :S].cuda(), S + steps)
+                                              S + steps, patch_embeds=pe)
+    _, d_gpu = serve_steps.prefill_into_cache(
+        gpu_params, cfg, toks[:, :S].cuda(), S + steps,
+        patch_embeds=None if pe is None else pe.cuda())
     before = _model_counts()
     dec = []
     with torch.inference_mode():
@@ -2730,18 +2833,30 @@ def model_parity_phase():
     dec_launches = tuple(x - y for x, y in zip(_model_counts(), before))
     cache_rel = max(_rel(a, b) for a, b in zip(_leaves(d_gpu),
                                                _leaves(d_cpu)))
-    print(f"model parity (Zamba2 smoke, float32, B={B}, S={S}): prefill "
-          f"logits rel={rels[0]!r}, max cache-leaf rel={max(rels[1:])!r} "
-          f"over {len(rels) - 1} leaves, {steps} decode steps max rel="
+    if cfg.family == "hybrid":
+        want = (cfg.n_layers, cfg.n_layers // cfg.hybrid_period, 0)
+    else:
+        want = (0, cfg.n_layers, 0)
+    label = cfg.name + (" with patch embeddings" if patches else "")
+    print(f"model parity ({label}, float32, B={B}, S={S}): prefill logits "
+          f"rel={rels[0]!r}, max cache-leaf rel={max(rels[1:])!r} over "
+          f"{len(rels) - 1} leaves, {steps} decode steps max rel="
           f"{max(dec)!r}, decode cache rel={cache_rel!r}; prefill launches "
-          f"ssd={n_ssd} flash={n_flash} flash_wgmma={n_wgmma}, decode "
+          f"(ssd, flash, flash_wgmma)={pre} (expected {want}), decode "
           f"launches {dec_launches}")
-    if not (max(rels + dec + [cache_rel]) <= 1e-4
-            and n_ssd == cfg.n_layers and n_flash == cfg.n_layers
-            // cfg.hybrid_period and n_wgmma == 0
+    if not (max(rels + dec + [cache_rel]) <= 1e-4 and pre == want
             and dec_launches == (0, 0, 0)):
-        raise AssertionError("the Zamba2 smoke model on the card differs "
-                             "from the CPU, or the kernels were not taken")
+        raise AssertionError(f"the {label} model on the card differs from "
+                             "the CPU, or the kernels were not taken")
+
+
+def model_parity_phase():
+    """The Zamba2 smoke model and the five dense smoke configs (pixtral
+    also with patch embeddings) on the card against the CPU
+    (:func:`_parity_run`)."""
+    for arch in ("zamba2_7b",) + DENSE_SMOKE:
+        _parity_run(arch)
+    _parity_run("pixtral_12b", patches=True)
 
 
 def _recorded_flash_err(seen):
@@ -2836,23 +2951,113 @@ def consistency_phase():
     return pre[1]
 
 
-def serve_phase():
-    """The main path: ``repro_torch.launch.serve`` at full width, bf16
-    compute (batch 4, prompt 2048, 32 new tokens, one untimed warm-up run
-    of the same batch first), counts set to 0 just before and read just
-    after: the bf16 attention runs on the tensor-core kernel.  Returns
-    (ssd launches, tensor-core flash launches) of the run."""
+def window_consistency_phase():
+    """Gemma2-9B at full width in float32 compute, one request: the
+    prefill of WINDOW_PROMPT prompt tokens (past the 4096 window) through
+    ``prefill_into_cache`` into a decode cache of WINDOW_PROMPT +
+    WINDOW_STEPS (its 21 local caches, 4096 slots each, rolled), then
+    WINDOW_STEPS teacher-forced decode steps (the local caches wrap on),
+    the last step's logits against the last logits of one prefill over
+    all WINDOW_PROMPT + WINDOW_STEPS tokens, within relative 2e-2 (the
+    JAX package's bound for decode against a full forward).  Every float32
+    flash launch of the first prefill is recorded and held within 2e-5 of
+    the chunked plain version and the naive oracle on its own inputs (42:
+    21 local layers at window 4096, 21 global ones, all soft-capped).
+    Counts set to 0 just before the first prefill and read after each
+    step; returns the float32 flash kernel's launches over both
+    prefills."""
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    cfg = get_config("gemma2_9b").scaled(dtype="float32")
+    params = init_model(cfg, seed=0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    P, n = WINDOW_PROMPT, WINDOW_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, P + n), generator=g,
+                         device="cuda")
+    seen, kernel = [], flash_ops.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+
+    flash_ops.flash_attention_cuda = recorded
     _reset_model_counts()
-    res = serve_launch.main(["--arch", "zamba2_7b", "--batch",
-                             str(SERVE["batch"]), "--prompt-len",
-                             str(SERVE["prompt"]), "--gen",
-                             str(SERVE["gen"])])
+    try:
+        t0 = time.perf_counter()
+        _, cache = serve_steps.prefill_into_cache(params, cfg, toks[:, :P],
+                                                  P + n)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = _model_counts()
+    finally:
+        flash_ops.flash_attention_cuda = kernel
+    windows = collections.Counter((kw["window"], kw["softcap"])
+                                  for _, _, _, kw, _ in seen)
+    with torch.inference_mode():
+        n_seen, flash_err = len(seen), _recorded_flash_err(seen)
+    del seen
+    local_len = cache["pairs"]["local"]["k"].shape[2]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        for i in range(P, P + n):
+            lg_dec, cache = decode_step(params, cfg, toks[:, i:i + 1], cache,
+                                        i)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = tuple(x - y for x, y in zip(_model_counts(), pre))
+        del cache
+        lg_full, _ = prefill(params, cfg, {"tokens": toks}, P + n)
+        torch.cuda.synchronize()
+    full = tuple(x - y - z for x, y, z in zip(_model_counts(), pre, dec))
+    rel = _rel(lg_dec[:, -1], lg_full[:, -1])
+    same = bool(torch.equal(lg_dec[:, -1, :cfg.vocab_size].argmax(-1),
+                            lg_full[:, -1, :cfg.vocab_size].argmax(-1)))
+    want = (0, GEMMA_LAYERS, 0)
+    print(f"window consistency (Gemma2-9B, float32 compute, 1 x {P} prompt "
+          f"tokens into {P + n} slots, local caches {local_len} slots, "
+          f"{n} teacher-forced steps): resident_before_bytes={resident} "
+          f"prefill_s={prefill_s!r} decode_s={decode_s!r} launches "
+          f"(ssd, flash, flash_wgmma) prefill={pre} decode={dec} full "
+          f"prefill={full}; last-step logits against the {P + n}-token "
+          f"prefill rel={rel!r} (bound 2e-2) same_argmax={same}; float32 "
+          f"flash kernel on its {n_seen} recorded prefill launches "
+          f"(window, cap): {dict(windows)}, max_abs_err={flash_err!r} "
+          "(bound 2e-5; chunked and naive plain)")
+    half = GEMMA_LAYERS // 2
+    if not (rel <= 2e-2 and pre == want and full == want
+            and dec == (0, 0, 0) and n_seen == GEMMA_LAYERS
+            and windows == {(cfg.sliding_window, 50.0): half, (0, 50.0): half}
+            and local_len == cfg.sliding_window < P
+            and bool(torch.isfinite(lg_full).all())):
+        raise AssertionError("Gemma2-9B's rolled decode and its full prefill "
+                             "disagree, or the kernels were not taken")
+    del params
+    return pre[1] + full[1]
+
+
+def _serve_run(arch, dims, n_ssd, n_flash):
+    """``repro_torch.launch.serve`` at full width, bf16 compute (``dims``:
+    batch, prompt, new tokens; one untimed warm-up run of the same batch
+    first), counts set to 0 just before and read just after: every
+    prefill ran ``n_ssd`` SSD and ``n_flash`` tensor-core flash launches,
+    no decode step any; tokens in the vocabulary, peak memory under 80
+    GB.  The parameters live inside the launcher's call: one copy at a
+    time.  Returns the (SSD, float32 flash, bf16 flash) launches of the
+    two runs."""
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    cfg = get_config(arch)
+    _reset_model_counts()
+    res = serve_launch.main(["--arch", arch, "--batch", str(dims["batch"]),
+                             "--prompt-len", str(dims["prompt"]), "--gen",
+                             str(dims["gen"])])
     torch.cuda.synchronize()
-    n_ssd, n_flash, n_wgmma = _model_counts()
+    counts = _model_counts()
     runs = 2                                    # warm-up + timed
-    print(f"serve (Zamba2-7B, bf16, batch {SERVE['batch']}, prompt "
-          f"{SERVE['prompt']}, {SERVE['gen']} new tokens): prefill_s="
+    print(f"serve ({cfg.name}, bf16, batch {dims['batch']}, prompt "
+          f"{dims['prompt']}, {dims['gen']} new tokens): prefill_s="
           f"{res['prefill_s']!r} prompt_tokens_per_s="
           f"{res['prompt_tokens_per_s']!r} decode_ms_p50="
           f"{res['decode_ms_p50']!r} decode_ms_p95={res['decode_ms_p95']!r} "
@@ -2860,35 +3065,58 @@ def serve_phase():
           f"launches_per_prefill={res['prefill_launches']} "
           f"launches_in_decode={res['decode_launches']} "
           f"peak_memory_bytes={res['peak_memory_bytes']} "
-          f"run_launches ssd={n_ssd} flash={n_flash} flash_wgmma={n_wgmma}")
+          f"resident_before_bytes={resident} run_launches (ssd, flash, "
+          f"flash_wgmma)={counts}")
     print(f"  decode ms per token: {res['decode_ms']}")
-    toks = res["tokens"]
-    if not (res["prefill_launches"] == {"ssd": ZAMBA_SSD,
-                                        "flash": ZAMBA_FLASH}
+    if not (res["prefill_launches"] == {"ssd": n_ssd, "flash": n_flash}
             and res["decode_launches"] == {"ssd": 0, "flash": 0}
-            and (n_ssd, n_flash, n_wgmma)
-            == (runs * ZAMBA_SSD, 0, runs * ZAMBA_FLASH)):
-        raise AssertionError("the serving path did not run 81 SSD and 13 "
-                             "tensor-core flash launches per prefill and "
-                             "none in decode")
-    if not (toks.shape == (SERVE["batch"], SERVE["gen"])
+            and counts == (runs * n_ssd, 0, runs * n_flash)):
+        raise AssertionError(f"the {cfg.name} serving path did not run "
+                             f"{n_ssd} SSD and {n_flash} tensor-core flash "
+                             "launches per prefill and none in decode")
+    toks = res["tokens"]
+    if not (toks.shape == (dims["batch"], dims["gen"])
             and bool(torch.isfinite(res["logits"]).all())
-            and int(toks.min()) >= 0 and int(toks.max()) < 32000):
-        raise AssertionError("implausible serving output")
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+            and res["peak_memory_bytes"] < 80e9):
+        raise AssertionError(f"implausible {cfg.name} serving output")
+    return counts
+
+
+def serve_phase():
+    """The main path: Zamba2-7B served at full width (batch 4, prompt
+    2048, 32 new tokens; :func:`_serve_run`): 81 SSD and 13 tensor-core
+    flash launches per prefill.  Returns (ssd launches, tensor-core flash
+    launches) of the run."""
+    n_ssd, _, n_wgmma = _serve_run("zamba2_7b", SERVE, ZAMBA_SSD,
+                                   ZAMBA_FLASH)
     return n_ssd, n_wgmma
 
 
-def serve_profile_phase():
-    """Where the serving time goes at full width (bf16, batch 4, prompt
-    2048): one traced prefill (device busy, idle share, the kernels'
+def dense_serve_phase(arch):
+    """The dense family's main path (:func:`_serve_run`): Gemma2-9B at
+    batch 2 of 6144-token prompts (its local layers' window bites; the
+    soft-cap on every layer), StarCoder2-3B at batch 4 of 2048 (LayerNorm,
+    the non-gated GELU MLP, KV = 2), 32 new tokens each, one tensor-core
+    flash launch per layer a prefill.  Returns those launches."""
+    dims, layers = {"gemma2_9b": (GEMMA_SERVE, GEMMA_LAYERS),
+                    "starcoder2_3b": (STARCODER_SERVE,
+                                      STARCODER_LAYERS)}[arch]
+    return _serve_run(arch, dims, 0, layers)[2]
+
+
+def serve_profile_phase(arch="zamba2_7b", dims=SERVE):
+    """Where the serving time goes at full width (bf16; ``dims``: batch,
+    prompt): one traced prefill (device busy, idle share, the kernels'
     device time, the top device ops), then 4 traced decode steps."""
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config("zamba2_7b")
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
     params = init_model(cfg, seed=0)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
-    S = SERVE["prompt"]
-    toks = torch.randint(0, cfg.vocab_size, (SERVE["batch"], S),
+    S = dims["prompt"]
+    toks = torch.randint(0, cfg.vocab_size, (dims["batch"], S),
                          generator=g, device="cuda")
     serve_steps.prefill_into_cache(params, cfg, toks, S + 1)
     torch.cuda.synchronize()
@@ -2896,7 +3124,7 @@ def serve_profile_phase():
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         logits, cache = serve_steps.prefill_into_cache(params, cfg, toks,
-                                                       S + SERVE["gen"])
+                                                       S + dims["gen"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = _device_table(prof)
@@ -2905,7 +3133,7 @@ def serve_profile_phase():
                                         if name in k] or [(0.0, 0)]))))
             for name in ("ssd_mma_kernel", "flash_wgmma_kernel",
                          "flash_mma_kernel")}
-    print(f"profile (one Zamba2-7B prefill, bf16, batch {SERVE['batch']}, "
+    print(f"profile (one {cfg.name} prefill, bf16, batch {dims['batch']}, "
           f"prompt {S}, traced): wall_ms={wall_ms!r} device_busy_ms={busy!r}"
           f" device_idle_share={1.0 - busy / wall_ms!r} " + " ".join(
               f"{k}_ms={v[0]!r} {k}_launches={v[1]}"
@@ -2926,8 +3154,8 @@ def serve_profile_phase():
     dev = _device_table(prof)
     busy = sum(v[0] for v in dev.values())
     launches = sum(v[1] for v in dev.values())
-    print(f"profile ({steps} Zamba2-7B decode steps, bf16, batch "
-          f"{SERVE['batch']}, traced): wall_ms_per_step={wall_ms / steps!r} "
+    print(f"profile ({steps} {cfg.name} decode steps, bf16, batch "
+          f"{dims['batch']}, traced): wall_ms_per_step={wall_ms / steps!r} "
           f"device_busy_ms_per_step={busy / steps!r} device_idle_share="
           f"{1.0 - busy / wall_ms!r} device_launches_per_step="
           f"{launches / steps!r}")
@@ -2990,11 +3218,15 @@ def main() -> int:
     _phase(profile_phase, "tiled")
     _phase(profile_phase, "tiled", lanes=8)
     ssd_err, ssd_t = _phase(ssd_phase)
-    (flash_err, flash_t), (wgmma_err, wgmma_t) = _phase(flash_phase)
+    (flash_err, flash_t), (wgmma_err, wgmma_t), _ = _phase(flash_phase)
     _phase(model_parity_phase)
     flash_launches = _phase(consistency_phase)
+    flash_launches += _phase(window_consistency_phase)
     ssd_launches, wgmma_launches = _phase(serve_phase)
+    wgmma_launches += _phase(dense_serve_phase, "gemma2_9b")
+    wgmma_launches += _phase(dense_serve_phase, "starcoder2_3b")
     _phase(serve_profile_phase)
+    _phase(serve_profile_phase, "gemma2_9b", GEMMA_SERVE)
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); chain tile: launch-weighted over the tiled route's
     # own tiles (tile_mix_phase), at one lane a launch and, as a row of its
@@ -3040,10 +3272,13 @@ def main() -> int:
                  "src/repro/kernels/minplus/monotone.py:268", d_launches,
                  dnc_err, dnc_t, None))
     # the model kernels: device time per launch at Zamba2-7B's prefill
-    # shapes; SSD (float32) and the tensor-core flash kernel (bf16):
-    # launches over the serve phase's two prefills; the float32 flash
-    # kernel (TF32 mma.sync): launches over the float32 path's prefill
-    # (the consistency phase)
+    # shapes (the dense family's shapes on the flash phase's own lines);
+    # SSD (float32): launches over the Zamba2 serve phase's two prefills;
+    # the tensor-core flash kernel (bf16): over the two prefills of each of
+    # the three serve phases (Zamba2-7B, Gemma2-9B, StarCoder2-3B); the
+    # float32 flash kernel (TF32 mma.sync): over the float32 path's
+    # prefills (Zamba2-7B's consistency phase, Gemma2-9B's two in the
+    # window consistency phase)
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
     fa_ref = "src/repro/kernels/flash_attention/kernel.py:71"
     rows += [("ssd_mma", "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",

@@ -7,7 +7,8 @@ import importlib
 
 from ..models.config import ModelConfig, smoke_variant
 
-ARCHS = ["mamba2_370m", "zamba2_7b"]
+ARCHS = ["granite_34b", "gemma2_27b", "starcoder2_3b", "gemma2_9b",
+         "mamba2_370m", "pixtral_12b", "zamba2_7b"]
 
 
 def norm_name(name: str) -> str:

@@ -3,9 +3,13 @@ on the card (``--device cpu`` for the CPU).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b \\
         --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b \\
+        --batch 2 --prompt-len 6144 --gen 32
 
-Weights are random, from seed 0; the prompts are random tokens from
-seed 1 (the seeds the reference's launcher uses).  The reference's
+Any config ``models/model.py::check_served`` accepts is served (pixtral
+from tokens alone, as the reference's launcher serves it).  Weights are
+random, from seed 0; the prompts are random tokens from seed 1 (the
+seeds the reference's launcher uses).  The reference's
 launcher (``repro/launch/serve.py``) feeds the prompt one token at a time
 through ``decode_step``; this one prefills it with ``prefill`` (one pass
 over the prompt, which on the card runs the SSD and flash-attention

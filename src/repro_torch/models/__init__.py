@@ -1,5 +1,6 @@
-"""The model stack of the port: the Mamba2 and Zamba2 families' layers,
-parameters, prefill and decode (``repro/models`` is the reference)."""
+"""The model stack of the port: the dense (granite, starcoder2, pixtral,
+gemma2), Mamba2 and Zamba2 families' layers, parameters, prefill and
+decode (``repro/models`` is the reference)."""
 from .config import ModelConfig, smoke_variant
 from .layers import param_count
 from .model import (decode_step, init_cache, init_model, model_specs,

@@ -1,6 +1,6 @@
 """Attention: GQA + RoPE + sliding window + logit soft-cap, as
-``repro/models/attention.py`` (self-attention; the MLA and cross paths
-come with the families that use them).
+``repro/models/attention.py`` (self-attention; qk-norm and the MLA and
+cross paths come with the families that use them).
 
 The branch is the reference's: ``naive`` (:func:`_sdpa`, full scores)
 when ``S * Sk <= 256 * 256`` or ``attn_impl == "naive"``, else the
@@ -105,7 +105,7 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           positions: torch.Tensor, cap: float) -> torch.Tensor:
+           positions: torch.Tensor, window: int, cap: float) -> torch.Tensor:
     """The chunked branch on the card: one flash-attention launch.  Its
     masks are by index, so the positions must be ``arange(S)`` (they are
     on every prefill).  q: (B,S,H,D) -> (B,S,H,D) in q's dtype."""
@@ -115,21 +115,25 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "the flash-attention kernel masks by index: positions must be "
             "arange(S)")
-    return attention_op(q, k, v, causal=True, softcap=cap)
+    return attention_op(q, k, v, causal=True, window=window, softcap=cap)
 
 
 def attention(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-              *, cache: Optional[Dict] = None,
+              *, window: int = 0, cache: Optional[Dict] = None,
               cache_len: Optional[int] = None,
               return_cache: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention with RoPE, no window (the served families'
-    only kind).
+    """Causal self-attention with RoPE; ``window`` > 0 lets a query see
+    only the last ``window`` positions (gemma2's local layers).
 
     * prefill: cache=None (return_cache to build one)
     * decode:  x is (B,1,D), cache holds K/V, cache_len (an int, one for
                the whole batch) is the number of valid positions; the new
                K/V are written into ``cache`` in place, and it is returned.
+               Decode masks no window, as the reference: a local layer's
+               cache is ``window`` slots long and rolls, so it holds
+               exactly the positions the window sees, and once it has
+               rolled its slots are not positions.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -161,14 +165,14 @@ def attention(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             new_cache = {"k": k, "v": v}
         if cfg.attn_impl == "naive" or S * S <= 256 * 256:
             o = _sdpa(q.reshape(B, S, KV, G, hd), k, v,
-                      _mask(positions, positions, True, 0, None),
+                      _mask(positions, positions, True, window, None),
                       cfg.attn_logit_softcap)
         elif x.is_cuda:
-            o = _flash(q, k, v, positions, cfg.attn_logit_softcap)
+            o = _flash(q, k, v, positions, window, cfg.attn_logit_softcap)
         else:
             o = _sdpa_chunked(q.reshape(B, S, KV, G, hd), k, v, positions,
-                              positions, True, 0, cfg.attn_logit_softcap,
-                              None, cfg.attn_chunk)
+                              positions, True, window,
+                              cfg.attn_logit_softcap, None, cfg.attn_chunk)
     # every path yields (B, S, KV, G, D) or (B, S, H, D)
     o = o.reshape(B, S, H * hd).to(dt)
     return o @ params["wo"].to(dt), new_cache

@@ -1,6 +1,8 @@
 """Layer blocks of the families the port serves, as
-``repro/models/blocks.py``: the MLP, the dense decoder layer (the body of
-Zamba2's shared block), the Mamba2 layer and the Zamba2 period.
+``repro/models/blocks.py``: the MLP (gated or not), the dense decoder
+layer (granite, starcoder2, pixtral, each half of a gemma2 pair, and the
+body of Zamba2's shared block), gemma2's local/global pair, the Mamba2
+layer and the Zamba2 period.
 
 ``body(p, cfg, h, ctx, cache)`` returns ``(h, new_cache)``; ``ctx``
 carries the positions, ``cache_len`` (decode), ``return_cache``
@@ -19,39 +21,71 @@ from .mamba2 import mamba_block, mamba_specs
 
 def mlp_specs(cfg, d_ff: Optional[int] = None) -> Dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    return {
+    s = {
         "wi": P((d, f), ("embed", "mlp")),
         "wo": P((f, d), ("mlp", "embed")),
-        "wg": P((d, f), ("embed", "mlp")),      # gated (SwiGLU)
     }
+    if cfg.gated_mlp:
+        s["wg"] = P((d, f), ("embed", "mlp"))
+    return s
 
 
 def mlp(params: Dict, cfg, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     act = activation(cfg.act)
-    h = act(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    if "wg" in params:
+        h = act(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+    else:
+        h = act(x @ params["wi"].to(dt))
     return h @ params["wo"].to(dt)
 
 
 def dense_layer_specs(cfg) -> Dict:
-    return {
+    s = {
         "ln_attn": norm_spec(cfg),
         "attn": attn_specs(cfg),
         "ln_mlp": norm_spec(cfg),
         "mlp": mlp_specs(cfg),
     }
+    if cfg.post_norms:
+        s["ln_attn_post"] = norm_spec(cfg)
+        s["ln_mlp_post"] = norm_spec(cfg)
+    return s
 
 
 def dense_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
-                cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+                cache: Optional[Dict], window: int = 0
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
     a_in = apply_norm(p["ln_attn"], h, cfg)
     a_out, new_cache = attention(
-        p["attn"], cfg, a_in, ctx["positions"], cache=cache,
+        p["attn"], cfg, a_in, ctx["positions"], window=window, cache=cache,
         cache_len=ctx.get("cache_len"),
         return_cache=ctx.get("return_cache", False))
+    if cfg.post_norms:
+        a_out = apply_norm(p["ln_attn_post"], a_out, cfg)
     h = h + a_out
     m_in = apply_norm(p["ln_mlp"], h, cfg)
-    return h + mlp(p["mlp"], cfg, m_in), new_cache
+    m_out = mlp(p["mlp"], cfg, m_in)
+    if cfg.post_norms:
+        m_out = apply_norm(p["ln_mlp_post"], m_out, cfg)
+    return h + m_out, new_cache
+
+
+def gemma_pair_specs(cfg) -> Dict:
+    return {"local": dense_layer_specs(cfg), "global": dense_layer_specs(cfg)}
+
+
+def gemma_pair(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+               cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """A local layer (window ``cfg.sliding_window``), then a global one."""
+    c_l = cache.get("local") if cache else None
+    c_g = cache.get("global") if cache else None
+    h, nc_l = dense_layer(p["local"], cfg, h, ctx, c_l,
+                          window=cfg.sliding_window)
+    h, nc_g = dense_layer(p["global"], cfg, h, ctx, c_g, window=0)
+    if nc_l is None and nc_g is None:
+        return h, None
+    return h, {"local": nc_l, "global": nc_g}
 
 
 def ssm_layer_specs(cfg) -> Dict:

@@ -1,6 +1,9 @@
 """Carry the reference's parameters across: the JAX package's parameter
 tree, as numpy arrays with the same nesting (dicts, and the list of a
-Zamba2 period's SSM layers), becomes the port's tree of tensors."""
+Zamba2 period's SSM layers), becomes the port's tree of tensors.  The
+dense trees come across as they are: a LayerNorm's bias, a gemma2 pair's
+``local`` and ``global`` layers with their post-norms, and an untied
+``lm_head`` (pixtral) are leaves like any other."""
 from __future__ import annotations
 
 from typing import Any, Optional, Union

@@ -104,17 +104,40 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return (x * (1.0 + weight.float())).to(dt)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm (biased variance), in float32."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 def norm_spec(cfg, dim: Optional[int] = None) -> Dict:
     d = dim or cfg.d_model
+    if cfg.norm == "layernorm":
+        return {"w": P((d,), (None,), "ones"), "b": P((d,), (None,), "zeros")}
     return {"w": P((d,), (None,), "zeros")}   # rmsnorm stored as (1 + w)
 
 
 def apply_norm(params: Dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    if "b" in params:
+        return layernorm(x, params["w"], params["b"], cfg.norm_eps)
     return rmsnorm(x, params["w"], cfg.norm_eps)
 
 
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    return F.silu       # the served families' only activation
+    """``jax.nn.gelu`` defaults to the tanh approximation, so "gelu" is
+    that one (the exact erf form differs by ~1e-3)."""
+    if name == "gelu":
+        return _gelu_tanh
+    return F.silu
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

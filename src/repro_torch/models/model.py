@@ -1,5 +1,6 @@
 """Model assembly: parameters, prefill and decode for the families the
-port serves so far (``ssm``: Mamba2; ``hybrid``: Zamba2), as
+port serves so far (``dense``: granite, starcoder2, pixtral's backbone
+and gemma2's local/global pairs; ``ssm``: Mamba2; ``hybrid``: Zamba2), as
 ``repro/models/model.py``.
 
 Layers are organized into *groups* of identical structure, each group's
@@ -22,7 +23,7 @@ from .config import ModelConfig
 from .layers import (P, apply_norm, init_params, norm_spec, padded_vocab,
                      softcap, tree_map)
 
-SERVED_FAMILIES = ("ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,23 +35,28 @@ class GroupDef:
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """The served families' configs use RMSNorm, a SiLU-gated MLP, tied
-    embeddings and no post- or qk-norms; refuse a config that asks for
-    what the port does not compute yet."""
-    if (cfg.family not in SERVED_FAMILIES or cfg.norm != "rmsnorm"
-            or cfg.act != "silu" or not cfg.gated_mlp or cfg.post_norms
-            or cfg.qk_norm or not cfg.tie_embeddings):
+    """Refuse a config that asks for what the port does not compute yet:
+    a family outside :data:`SERVED_FAMILIES`, qk-norm, experts, MLA or
+    multi-token prediction."""
+    if (cfg.family not in SERVED_FAMILIES or cfg.qk_norm or cfg.n_experts
+            or cfg.use_mla or cfg.mtp_depth):
         raise NotImplementedError(
             f"config {cfg.name!r} (family {cfg.family!r}): the port serves "
-            f"the {SERVED_FAMILIES} families with RMSNorm, a SiLU-gated MLP "
-            "and tied embeddings so far; the dense, MoE, MLA, enc-dec and "
-            "VLM families come in a later slice of the model stack "
+            f"the {SERVED_FAMILIES} families without qk-norm, experts, MLA "
+            "or multi-token prediction so far; the MoE, MLA and enc-dec "
+            "families come in a later slice of the model stack "
             "(ROADMAP Queue 1)")
 
 
 def group_defs(cfg: ModelConfig) -> List[GroupDef]:
     check_served(cfg)
     f = cfg.family
+    if f == "dense":
+        if cfg.local_global:
+            return [GroupDef("pairs", cfg.n_layers // 2,
+                             blocks.gemma_pair_specs(cfg), blocks.gemma_pair)]
+        return [GroupDef("layers", cfg.n_layers,
+                         blocks.dense_layer_specs(cfg), blocks.dense_layer)]
     if f == "ssm":
         return [GroupDef("layers", cfg.n_layers, blocks.ssm_layer_specs(cfg),
                          blocks.ssm_layer)]
@@ -82,6 +88,8 @@ def model_specs(cfg: ModelConfig) -> Dict:
         "final_norm": norm_spec(cfg),
         "groups": {g.name: _stack_specs(g.specs, g.n) for g in group_defs(cfg)},
     }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P((cfg.d_model, vp), ("embed", "vocab"))
     if cfg.family == "hybrid":
         specs["shared_block"] = blocks.shared_attn_specs(cfg)
     return specs
@@ -153,14 +161,27 @@ def _scan_group(gdef: GroupDef, params: Dict, cfg: ModelConfig,
     return h, _stack(caches)
 
 
-def _embed(params: Dict, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens].to(getattr(torch, cfg.dtype))
+def _embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+           patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings in the compute dtype; gemma's scaled by
+    sqrt(d_model), the scale rounded to the compute dtype first (keyed on
+    the name, as the reference); pixtral's first ``n_patches`` positions
+    replaced by the (stubbed) image patch embeddings."""
+    dt = getattr(torch, cfg.dtype)
+    h = params["embed"][tokens].to(dt)
+    if cfg.name.startswith("gemma"):
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=h.device)
+    if cfg.n_patches and patch_embeds is not None:
+        h = torch.cat([patch_embeds.to(dt), h[:, cfg.n_patches:]], dim=1)
+    return h
 
 
 def _logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = apply_norm(params["final_norm"], h, cfg)
-    logits = h @ params["embed"].to(h.dtype).T      # tied embeddings
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].to(h.dtype).T
+    else:
+        logits = h @ params["lm_head"].to(h.dtype)
     return softcap(logits.float(), cfg.final_logit_softcap)
 
 
@@ -171,7 +192,9 @@ def _logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[Union[str, torch.device]] = None) -> Dict:
-    """Stacked per-group decode caches, zeroed (None device: the card)."""
+    """Stacked per-group decode caches, zeroed (None device: the card);
+    a gemma2 pair's local cache is ``min(max_len, sliding_window)`` long
+    and rolls in decode."""
     dev = resolve_device(device)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
 
@@ -193,10 +216,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     caches: Dict[str, Any] = {}
     for g in group_defs(cfg):
-        if g.name == "periods":
+        if g.name == "pairs":
+            caches[g.name] = {
+                "local": kv(g.n, min(max_len, cfg.sliding_window)),
+                "global": kv(g.n, max_len)}
+        elif g.name == "periods":
             caches[g.name] = {
                 "ssm": [ssm(g.n) for _ in range(cfg.hybrid_period)],
                 "attn": kv(g.n, max_len)}
+        elif cfg.family == "dense":
+            caches[g.name] = kv(g.n, max_len)
         else:
             caches[g.name] = ssm(g.n)
     return caches
@@ -204,16 +233,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, Dict]:
-    """Forward over the prompt ``batch["tokens"]`` (B, S); returns
+    """Forward over the prompt ``batch["tokens"]`` (B, S), and for pixtral
+    ``batch["patch_embeds"]`` (B, n_patches, d_model) if given; returns
     (last-position logits (B, 1, Vpad) float32, cache) with the attention
-    caches of length S, as the reference's (``max_len`` is unused there
-    too; :mod:`repro_torch.serve.steps` moves the cache into a decode
-    cache of ``max_len``)."""
+    caches of length S, local ones too, as the reference's (``max_len``
+    is unused there too; :mod:`repro_torch.serve.steps` moves the cache
+    into a decode cache of ``max_len``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     ctx: Dict[str, Any] = {"positions": positions, "return_cache": True}
-    h = _embed(params, cfg, tokens)
+    h = _embed(params, cfg, tokens, batch.get("patch_embeds"))
     ctx["h0"] = h
     shared = params.get("shared_block")
     cache_out: Dict[str, Any] = {}

@@ -9,8 +9,11 @@ The reference's ``serve/steps.py`` builds the same two steps for pjit
 of the prompt's length S, so its cache is written into
 ``init_cache(cfg, B, max_len)`` — attention K/V at positions [0, S), the
 SSM state and both conv tails as they are — and decoding continues at
-``cache_len = S``.  That copy is exact for the two families served here
-(neither has a rolling-window cache).
+``cache_len = S``.  A decode leaf shorter than the prompt (a gemma2 local
+cache of ``sliding_window`` slots under a longer prompt) keeps the last
+L positions, position p at slot p % L: the state the reference's decode
+reaches after feeding the prompt one token at a time.  So the copy is
+exact for every family served here.
 """
 from __future__ import annotations
 
@@ -29,25 +32,35 @@ def _copy_prefix(dst: Any, src: Any, key: Optional[str] = None) -> None:
     elif isinstance(dst, list):
         for d, s in zip(dst, src):
             _copy_prefix(d, s, key)
-    elif key in ("k", "v"):            # (n, B, S, KV, hd) -> [:, :, :S]
-        dst[:, :, :src.shape[2]].copy_(src)
+    elif key in ("k", "v"):            # (n, B, S, KV, hd) into (n, B, L, ...)
+        S, L = src.shape[2], dst.shape[2]
+        if S <= L:
+            dst[:, :, :S].copy_(src)
+        else:                          # rolled: position p at slot p % L
+            dst.copy_(torch.roll(src[:, :, S - L:], S % L, dims=2))
     else:
         dst.copy_(src)
 
 
 def prefill_into_cache(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                       max_len: int) -> Tuple[torch.Tensor, Dict]:
-    """Prefill ``tokens`` (B, S) and return (last logits (B, 1, V), a
-    decode cache of ``max_len`` holding the prompt).  The cache holds K/V
-    and the conv tails in the compute dtype (for Zamba2 the reference
-    launcher's bfloat16; the reference's decode step returns its conv
-    tails in the compute dtype too)."""
+                       max_len: int,
+                       patch_embeds: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """Prefill ``tokens`` (B, S) (and pixtral's ``patch_embeds``, if
+    given) and return (last logits (B, 1, V), a decode cache of
+    ``max_len`` holding the prompt).  The cache holds K/V and the conv
+    tails in the compute dtype (for Zamba2 the reference launcher's
+    bfloat16; the reference's decode step returns its conv tails in the
+    compute dtype too)."""
     check_served(cfg)      # the copy below is exact for these only
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt of {S} tokens exceeds max_len={max_len}")
     with torch.inference_mode():
-        logits, pcache = prefill(params, cfg, {"tokens": tokens}, max_len)
+        batch = {"tokens": tokens}
+        if patch_embeds is not None:
+            batch["patch_embeds"] = patch_embeds
+        logits, pcache = prefill(params, cfg, batch, max_len)
         cache = init_cache(cfg, B, max_len, dtype=getattr(torch, cfg.dtype),
                            device=tokens.device)
         _copy_prefix(cache, pcache)

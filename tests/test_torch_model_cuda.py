@@ -1,6 +1,6 @@
 """The port's SSD and flash-attention CUDA kernels on the card, against
-their plain versions in every launch plan, and the Zamba2 smoke serve on
-the card against the CPU.
+their plain versions in every launch plan, and the Zamba2, Mamba2,
+gemma2 and StarCoder2 smoke serves on the card against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
 on a machine that has the card but no JAX:
@@ -407,6 +407,40 @@ def test_smoke_serve_on_card_matches_cpu(card, arch):
     assert n_ssd == cfg.n_layers
     assert n_fa == (cfg.n_layers // cfg.hybrid_period
                     if cfg.family == "hybrid" else 0)
+
+
+@pytest.mark.parametrize("arch", ["gemma2_9b", "starcoder2_3b"])
+def test_dense_smoke_serve_on_card_matches_cpu(card, arch):
+    """The dense smoke models (float32) served on the card against the
+    CPU: the same greedy tokens, logits within relative 1e-4, one flash
+    launch per layer in prefill and none in decode.  gemma2's 300-token
+    prompt gives its local layers' flash launches a window (32) and every
+    launch the soft-cap 50, and its local decode cache (32 slots) rolls
+    in the prefill copy and in decode."""
+    cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32")
+    cpu = init_model(cfg, seed=5, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu, lambda t: isinstance(t,
+                                                               torch.Tensor))
+    g = torch.Generator()
+    g.manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), generator=g)
+    before = (fa.flash_attention_cuda.launches,
+              fa.flash_attention_wgmma.launches)
+    out_g, lg_g = steps.generate(gpu, cfg, toks.cuda(), 6)
+    torch.cuda.synchronize()
+    n_fa = fa.flash_attention_cuda.launches - before[0]
+    n_wg = fa.flash_attention_wgmma.launches - before[1]
+    out_c, lg_c = steps.generate(cpu, cfg, toks, 6)
+    assert torch.equal(out_g.cpu(), out_c)
+    assert _rel(lg_g, lg_c) < 1e-4
+    assert (n_fa, n_wg) == (cfg.n_layers, 0)
+    # bfloat16 compute, through the launcher: the tensor-core kernel
+    res = serve_launch.main(["--arch", arch, "--smoke", "--batch", "2",
+                             "--prompt-len", "300", "--gen", "3",
+                             "--warmup", "0"])
+    assert res["prefill_launches"] == {"ssd": 0, "flash": cfg.n_layers}
+    assert res["decode_launches"] == {"ssd": 0, "flash": 0}
+    assert fa.flash_attention_wgmma.launches - before[1] == cfg.n_layers
 
 
 def test_launcher_on_card_counts_prefill_launches(card):

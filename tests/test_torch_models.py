@@ -17,13 +17,21 @@ tokens go through both:
   JAX package's bound for decode against a full forward,
   ``tests/test_models.py::test_decode_matches_train_forward``) and with
   the same greedy tokens.
+
+The dense family's parity runs in ``test_torch_dense.py`` and
+``test_torch_gemma2.py``; here its parameter trees are carried across
+too, every served config's full-width shapes equal the JAX package's
+leaf by leaf, and the families still to come are refused.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_parity import one_torch_thread  # noqa: F401
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke as jax_get_smoke
 from repro.models import decode_step as jax_decode_step
@@ -35,7 +43,7 @@ from repro.models.model import model_specs as jax_model_specs
 from repro.models.model import prefill as jax_prefill
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.launch import serve as serve_launch
-from repro_torch.models import convert
+from repro_torch.models import ModelConfig, convert
 from repro_torch.models.layers import param_count, shapes_tree
 from repro_torch.models.model import (decode_step, init_model, model_specs,
                                       prefill)
@@ -102,6 +110,8 @@ def _jax_decode_cache(jcfg, pcache, max_len):
     return put(cache, pcache)
 
 
+@pytest.mark.parametrize("smoke", ARCHS + ["starcoder2_3b", "gemma2_9b"],
+                         indirect=True)
 def test_params_carried_across_keep_the_tree(smoke):
     _, jcfg, cfg, jparams, params = smoke
     for path, p, r in _pairs(params, jparams):
@@ -174,7 +184,12 @@ def test_serve_prefill_route_matches_jax_teacher_forced(smoke):
 
 
 @pytest.mark.parametrize("arch,count", [("zamba2_7b", 6_662_132_944),
-                                        ("mamba2_370m", None)])
+                                        ("mamba2_370m", None),
+                                        ("granite_34b", 33_660_377_088),
+                                        ("starcoder2_3b", 3_029_710_848),
+                                        ("pixtral_12b", 12_247_782_400),
+                                        ("gemma2_9b", 9_241_705_984),
+                                        ("gemma2_27b", 27_227_128_320)])
 def test_full_config_shapes_equal_jax(arch, count):
     """Full-width parameter shapes, leaf by leaf, without allocating."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
@@ -208,11 +223,18 @@ def test_entry_points_need_the_card_by_default(monkeypatch):
 
 
 def test_unserved_families_raise():
-    dense = get_smoke("mamba2_370m").scaled(family="dense")
+    """MoE (olmoe), enc-dec (whisper) and qk-norm are still refused."""
+    moe = ModelConfig(**dataclasses.asdict(jax_get_smoke("olmoe_1b_7b")))
+    assert moe.family == "moe"
     with pytest.raises(NotImplementedError, match="later slice"):
-        model_specs(dense)
+        model_specs(moe)
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        steps.prefill_into_cache({}, dense, torch.zeros((1, 4), dtype=int),
-                                 8)
-    with pytest.raises(NotImplementedError):
-        get_config("granite_34b")
+        steps.prefill_into_cache({}, moe, torch.zeros((1, 4), dtype=int), 8)
+    for arch in ("olmoe_1b_7b", "whisper_large_v3", "deepseek_v3_671b"):
+        with pytest.raises(NotImplementedError):
+            get_config(arch)
+    encdec = get_smoke("starcoder2_3b").scaled(family="encdec")
+    qk = get_smoke("starcoder2_3b").scaled(qk_norm=True)
+    for cfg in (encdec, qk):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            model_specs(cfg)
