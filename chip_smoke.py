@@ -88,8 +88,22 @@ at full width in bfloat16: Zamba2-7B (batch 4, prompt 2048), Gemma2-9B
 tokens each, each with the kernel counts set to 0 just before it and
 read just after: every prefill ran 81 SSD and 13 bfloat16 flash launches
 (Zamba2-7B) or one bfloat16 flash launch per layer (42, 30), no decode
-step ran any.  Traced prefills and decode steps of Zamba2-7B and
-Gemma2-9B show where the serving time goes.
+step ran any.  The MoE family follows: the flash kernels at OLMoE-1B-7B's
+prefill attention (FLASH_OLMOE, beside SDPA), the OLMoE and DeepSeek-V3
+smoke models on the card against the CPU (DeepSeek-V3's MLA also through
+its chunked branch), OLMoE at full width in float32 at a capacity that
+drops nothing (600 prompt tokens and 8 teacher-forced decode steps
+against one prefill of all 608; its 32 float32 flash launches recorded
+and held), OLMoE served at full width and depth (batch 4, prompt 2048:
+16 bfloat16 flash launches a prefill, capacities 1280 in prefill and 1
+in decode), one MLA layer at DeepSeek-V3's widths (S 4608: the chunked
+branch against the dense one, the absorbed decode against the expanded
+prefill), and DeepSeek-V3 at full width cut to depth 4 (3 dense MLA
+layers, 1 MLA-MoE layer of 256 routed experts and the shared one, the
+multi-token-prediction parameters; bfloat16 parameters) served at batch
+1 of a 4608-token prompt, no kernel launched.  Traced prefills and
+decode steps of Zamba2-7B, Gemma2-9B and OLMoE show where the serving
+time goes, OLMoE's with its expert dispatch against its expert products.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -100,6 +114,7 @@ name and power limit, and as the last line
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import re
@@ -135,7 +150,9 @@ from repro_torch.core.schedule_torch import _shape_bucket  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.models.attention import _sdpa_chunked  # noqa: E402
-from repro_torch.models.layers import tree_map  # noqa: E402
+from repro_torch.models import mla, moe  # noqa: E402
+from repro_torch.models.layers import (  # noqa: E402
+    init_params, param_count, tree_map)
 from repro_torch.models.mamba2 import ssd_chunked_plain  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
     decode_step, init_cache, init_model, prefill)
@@ -377,13 +394,15 @@ def _device_table(prof):
     """{kernel or device op: (device ms, launches)} from a profile, device
     self time summed by name; ``aten::`` entries are left out, since each
     carries the time of the kernels it launched, which have their own, and
-    so are the CUDA runtime's calls (``cudaLaunchKernel``, ...), which the
+    so are the named ranges of :class:`_MoeStages` and the CUDA runtime's
+    calls (``cudaLaunchKernel``, ...), which the
     tracer may credit with a sliver of the device time of the kernels they
     launched and would count every launch twice."""
     table = {}
     for e in prof.key_averages():
         ms = _self_device_ms(e)
-        if ms > 0 and not e.key.startswith(("aten::", "cuda")):
+        if ms > 0 and not e.key.startswith(("aten::", "cuda",
+                                             "moe_stage")):
             t = table.get(e.key, (0.0, 0))
             table[e.key] = (t[0] + ms, t[1] + e.count)
     return table
@@ -2408,6 +2427,22 @@ WINDOW_PROMPT, WINDOW_STEPS = 4200, 8
 # the dense smoke configs held on the card to the port on the CPU
 DENSE_SMOKE = ("granite_34b", "starcoder2_3b", "pixtral_12b", "gemma2_9b",
                "gemma2_27b")
+# the MoE family: OLMoE-1B-7B served at full width and depth at batch 4
+# of 2048-token prompts (16 layers of qk-norm attention, H = KV = 16, D
+# 128: one flash launch a layer; 64 experts top-8 at capacity factor
+# 1.25: 1280 slots an expert in prefill, 1 in decode); its float32
+# consistency at a capacity that drops nothing; one MLA layer at
+# DeepSeek-V3's widths past FLASH_THRESHOLD; DeepSeek-V3 at depth 4
+OLMOE_SERVE = {"batch": 4, "prompt": 2048, "gen": 32}
+OLMOE_LAYERS = 16
+OLMOE_CAPS = {"prefill": 1280, "decode": 1}
+FLASH_OLMOE = (4, 2048, 2048, 16, 16, 128)
+OLMOE_PROMPT, OLMOE_STEPS = 600, 8
+MLA_LEN, MLA_DECODE = 4608, 8
+DEEPSEEK_SERVE = {"batch": 1, "prompt": 4608, "gen": 16}
+DEEPSEEK_DEPTH = 4
+DEEPSEEK_DEPTH4_PARAMS = 15_797_359_616
+MOE_SMOKE = ("olmoe_1b_7b", "deepseek_v3_671b")
 
 
 def _ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
@@ -2609,17 +2644,19 @@ def _check_flash(q, k, v, causal, window, cap, kernel, case):
 
 
 def _flash_dense(err):
-    """The flash kernels at the dense family's served shapes: Gemma2-9B's
-    local and global layers at its serve phase's prompt (FLASH_GEMMA,
-    FLASH_GEMMA_MASKS) and StarCoder2-3B's causal attention at its own
-    (FLASH_STARCODER), bf16 on the wgmma kernel and float32 on the
+    """The flash kernels at the dense and MoE families' served shapes:
+    Gemma2-9B's local and global layers at its serve phase's prompt
+    (FLASH_GEMMA, FLASH_GEMMA_MASKS), StarCoder2-3B's causal attention at
+    its own (FLASH_STARCODER) and OLMoE-1B-7B's (FLASH_OLMOE, where SDPA
+    computes the same function), bf16 on the wgmma kernel and float32 on the
     mma.sync kernel (:func:`_check_flash`), each timed against the chunked
     plain version, SDPA and its bound.  Raises the worst errors in
     ``err``; returns {(model, window, dtype): _time_flash's tuple}."""
     timing = {}
     for shape, masks, model in (
             (FLASH_GEMMA, FLASH_GEMMA_MASKS, "Gemma2-9B"),
-            (FLASH_STARCODER, [(True, 0, 0.0)], "StarCoder2-3B")):
+            (FLASH_STARCODER, [(True, 0, 0.0)], "StarCoder2-3B"),
+            (FLASH_OLMOE, [(True, 0, 0.0)], "OLMoE-1B-7B")):
         B, Sq, Sk, H, KV, D = shape
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
@@ -2786,6 +2823,46 @@ def _leaves(tree):
         yield tree
 
 
+class _RouterMargins:
+    """While active, wraps ``moe._router_probs`` to record the smallest
+    margin between the k-th and the (k+1)-th router score of any token:
+    where the card and the CPU choose different experts, it says whether
+    a near-tie made them."""
+
+    def __enter__(self):
+        self.min, self._orig = float("inf"), moe._router_probs
+
+        def probs(cfg, logits):
+            scores = (torch.sigmoid(logits) if cfg.router_type == "sigmoid"
+                      else torch.softmax(logits, dim=-1))
+            top = torch.topk(scores, cfg.top_k + 1, dim=-1).values
+            self.min = min(self.min, float(
+                (top[:, -2] - top[:, -1]).min()))
+            return self._orig(cfg, logits)
+        moe._router_probs = probs
+        return self
+
+    def __exit__(self, *exc):
+        moe._router_probs = self._orig
+
+
+class _Capacities:
+    """While active, records every capacity ``moe_block`` computes."""
+
+    def __enter__(self):
+        self.seen, self._orig = collections.Counter(), moe.capacity
+
+        def capacity(cfg, T):
+            c = self._orig(cfg, T)
+            self.seen[c] += 1
+            return c
+        moe.capacity = capacity
+        return self
+
+    def __exit__(self, *exc):
+        moe.capacity = self._orig
+
+
 def _parity_run(arch, patches=False):
     """One smoke model in float32: the port on the card (its kernels)
     against the port on the CPU (their plain versions): prefill logits and
@@ -2793,7 +2870,9 @@ def _parity_run(arch, patches=False):
     gemma2 local cache of 32 slots rolled), logits each step and every
     cache leaf after the last, rel 1e-4; the prefill's (SSD, float32
     flash, bf16 flash) launches expected for the family, none in decode.
-    ``patches``: pixtral's prompt starts with seeded patch embeddings."""
+    ``patches``: pixtral's prompt starts with seeded patch embeddings.
+    An MoE model runs at its default capacity; the smallest router top-k
+    margin of the CPU's run is printed beside the result."""
     cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32")
     cpu_params = init_model(cfg, seed=3, device="cpu")
     gpu_params = tree_map(lambda t: t.cuda(), cpu_params,
@@ -2809,15 +2888,18 @@ def _parity_run(arch, patches=False):
     if patches:
         cpu_batch["patch_embeds"], gpu_batch["patch_embeds"] = pe, pe.cuda()
     _reset_model_counts()
+    margins = _RouterMargins()
     with torch.inference_mode():
-        lg_cpu, c_cpu = prefill(cpu_params, cfg, cpu_batch, S)
+        with margins:
+            lg_cpu, c_cpu = prefill(cpu_params, cfg, cpu_batch, S)
         lg_gpu, c_gpu = prefill(gpu_params, cfg, gpu_batch, S)
     torch.cuda.synchronize()
     pre = _model_counts()
     rels = [_rel(lg_gpu, lg_cpu)] + [
         _rel(a, b) for a, b in zip(_leaves(c_gpu), _leaves(c_cpu))]
-    _, d_cpu = serve_steps.prefill_into_cache(cpu_params, cfg, toks[:, :S],
-                                              S + steps, patch_embeds=pe)
+    with margins:
+        _, d_cpu = serve_steps.prefill_into_cache(
+            cpu_params, cfg, toks[:, :S], S + steps, patch_embeds=pe)
     _, d_gpu = serve_steps.prefill_into_cache(
         gpu_params, cfg, toks[:, :S].cuda(), S + steps,
         patch_embeds=None if pe is None else pe.cuda())
@@ -2826,7 +2908,8 @@ def _parity_run(arch, patches=False):
     with torch.inference_mode():
         for i in range(steps):
             t = toks[:, S + i:S + i + 1]
-            a, d_cpu = decode_step(cpu_params, cfg, t, d_cpu, S + i)
+            with margins:
+                a, d_cpu = decode_step(cpu_params, cfg, t, d_cpu, S + i)
             b, d_gpu = decode_step(gpu_params, cfg, t.cuda(), d_gpu, S + i)
             dec.append(_rel(b, a))
     torch.cuda.synchronize()
@@ -2835,9 +2918,18 @@ def _parity_run(arch, patches=False):
                                                _leaves(d_cpu)))
     if cfg.family == "hybrid":
         want = (cfg.n_layers, cfg.n_layers // cfg.hybrid_period, 0)
+    elif cfg.use_mla:                  # MLA: plain PyTorch, no kernel
+        want = (0, 0, 0)
     else:
         want = (0, cfg.n_layers, 0)
     label = cfg.name + (" with patch embeddings" if patches else "")
+    if cfg.use_mla:
+        label += (f", MLA threshold {mla.FLASH_THRESHOLD}: the "
+                  + ("chunked" if S > mla.FLASH_THRESHOLD else "dense")
+                  + " branch")
+    if cfg.n_experts:
+        label += (f", default capacity, smallest router top-k margin "
+                  f"{margins.min!r}")
     print(f"model parity ({label}, float32, B={B}, S={S}): prefill logits "
           f"rel={rels[0]!r}, max cache-leaf rel={max(rels[1:])!r} over "
           f"{len(rels) - 1} leaves, {steps} decode steps max rel="
@@ -2851,12 +2943,18 @@ def _parity_run(arch, patches=False):
 
 
 def model_parity_phase():
-    """The Zamba2 smoke model and the five dense smoke configs (pixtral
-    also with patch embeddings) on the card against the CPU
+    """The Zamba2 smoke model, the five dense and the two MoE smoke
+    configs (pixtral also with patch embeddings, DeepSeek-V3 also with
+    ``mla.FLASH_THRESHOLD`` at 64) on the card against the CPU
     (:func:`_parity_run`)."""
-    for arch in ("zamba2_7b",) + DENSE_SMOKE:
+    for arch in ("zamba2_7b",) + DENSE_SMOKE + MOE_SMOKE:
         _parity_run(arch)
     _parity_run("pixtral_12b", patches=True)
+    saved, mla.FLASH_THRESHOLD = mla.FLASH_THRESHOLD, 64
+    try:
+        _parity_run("deepseek_v3_671b")
+    finally:
+        mla.FLASH_THRESHOLD = saved
 
 
 def _recorded_flash_err(seen):
@@ -3037,22 +3135,25 @@ def window_consistency_phase():
     return pre[1] + full[1]
 
 
-def _serve_run(arch, dims, n_ssd, n_flash):
+def _serve_run(arch, dims, n_ssd, n_flash, caps=None):
     """``repro_torch.launch.serve`` at full width, bf16 compute (``dims``:
     batch, prompt, new tokens; one untimed warm-up run of the same batch
     first), counts set to 0 just before and read just after: every
     prefill ran ``n_ssd`` SSD and ``n_flash`` tensor-core flash launches,
     no decode step any; tokens in the vocabulary, peak memory under 80
-    GB.  The parameters live inside the launcher's call: one copy at a
-    time.  Returns the (SSD, float32 flash, bf16 flash) launches of the
-    two runs."""
+    GB; for an MoE model the capacities of its expert buffers are
+    ``caps`` ({"prefill": ..., "decode": ...}).  The parameters live
+    inside the launcher's call: one copy at a time.  Returns the (SSD,
+    float32 flash, bf16 flash) launches of the two runs."""
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
     cfg = get_config(arch)
     _reset_model_counts()
-    res = serve_launch.main(["--arch", arch, "--batch", str(dims["batch"]),
-                             "--prompt-len", str(dims["prompt"]), "--gen",
-                             str(dims["gen"])])
+    with _Capacities() as seen_caps:
+        res = serve_launch.main(["--arch", arch, "--batch",
+                                 str(dims["batch"]), "--prompt-len",
+                                 str(dims["prompt"]), "--gen",
+                                 str(dims["gen"])])
     torch.cuda.synchronize()
     counts = _model_counts()
     runs = 2                                    # warm-up + timed
@@ -3066,8 +3167,14 @@ def _serve_run(arch, dims, n_ssd, n_flash):
           f"launches_in_decode={res['decode_launches']} "
           f"peak_memory_bytes={res['peak_memory_bytes']} "
           f"resident_before_bytes={resident} run_launches (ssd, flash, "
-          f"flash_wgmma)={counts}")
+          f"flash_wgmma)={counts}"
+          + (f" expert capacities (slots per expert: calls)="
+             f"{dict(seen_caps.seen)}" if cfg.n_experts else ""))
     print(f"  decode ms per token: {res['decode_ms']}")
+    if cfg.n_experts and set(seen_caps.seen) != {caps["prefill"],
+                                                 caps["decode"]}:
+        raise AssertionError(f"{cfg.name}: expert capacities "
+                             f"{dict(seen_caps.seen)}, expected {caps}")
     if not (res["prefill_launches"] == {"ssd": n_ssd, "flash": n_flash}
             and res["decode_launches"] == {"ssd": 0, "flash": 0}
             and counts == (runs * n_ssd, 0, runs * n_flash)):
@@ -3105,13 +3212,284 @@ def dense_serve_phase(arch):
     return _serve_run(arch, dims, 0, layers)[2]
 
 
-def serve_profile_phase(arch="zamba2_7b", dims=SERVE):
+def olmoe_serve_phase():
+    """The MoE family's main path (:func:`_serve_run`): OLMoE-1B-7B at
+    full width and depth (27.3 GB of float32 parameters), batch 4 of
+    2048-token prompts, 32 new tokens: 16 tensor-core flash launches a
+    prefill (its qk-norm attention), none in decode, capacities 1280 in
+    prefill and 1 in decode.  Returns those launches."""
+    return _serve_run("olmoe_1b_7b", OLMOE_SERVE, 0, OLMOE_LAYERS,
+                      OLMOE_CAPS)[2]
+
+
+def moe_consistency_phase():
+    """OLMoE-1B-7B at full width in float32 compute, one request, at
+    ``capacity_factor = n_experts`` (no assignment dropped, as the JAX
+    package's decode test: at the default capacity a prefill and one-token
+    steps drop different assignments): OLMOE_PROMPT prompt tokens through
+    ``prefill_into_cache``, OLMOE_STEPS teacher-forced decode steps, the
+    last step's logits against the last logits of one prefill over all
+    OLMOE_PROMPT + OLMOE_STEPS tokens, within relative 2e-2 (the JAX
+    package's bound for decode against a full forward).  Every float32
+    flash launch of both prefills (16 each) is recorded and held within
+    2e-5 of the chunked plain version and the naive oracle on its own
+    inputs.  Counts set to 0 just before the first prefill and read after
+    each step; returns the float32 flash launches of both prefills."""
+    torch.cuda.empty_cache()
+    cfg = get_config("olmoe_1b_7b").scaled(
+        dtype="float32", capacity_factor=float(get_config(
+            "olmoe_1b_7b").n_experts))
+    params = init_model(cfg, seed=0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    P, n = OLMOE_PROMPT, OLMOE_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, P + n), generator=g,
+                         device="cuda")
+    seen, kernel = [], flash_ops.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+
+    flash_ops.flash_attention_cuda = recorded
+    _reset_model_counts()
+    try:
+        t0 = time.perf_counter()
+        _, cache = serve_steps.prefill_into_cache(params, cfg, toks[:, :P],
+                                                  P + n)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = _model_counts()
+        with torch.inference_mode():
+            for i in range(P, P + n):
+                lg_dec, cache = decode_step(params, cfg, toks[:, i:i + 1],
+                                            cache, i)
+            torch.cuda.synchronize()
+            dec = tuple(x - y for x, y in zip(_model_counts(), pre))
+            del cache
+            lg_full, _ = prefill(params, cfg, {"tokens": toks}, P + n)
+            torch.cuda.synchronize()
+    finally:
+        flash_ops.flash_attention_cuda = kernel
+    full = tuple(x - y - z for x, y, z in zip(_model_counts(), pre, dec))
+    with torch.inference_mode():
+        n_seen, flash_err = len(seen), _recorded_flash_err(seen)
+    del seen
+    rel = _rel(lg_dec[:, -1], lg_full[:, -1])
+    same = bool(torch.equal(lg_dec[:, -1, :cfg.vocab_size].argmax(-1),
+                            lg_full[:, -1, :cfg.vocab_size].argmax(-1)))
+    want = (0, OLMOE_LAYERS, 0)
+    print(f"MoE consistency (OLMoE-1B-7B, float32 compute, capacity factor "
+          f"{cfg.capacity_factor}: no drops, 1 x {P} prompt tokens, {n} "
+          f"teacher-forced steps): prefill_s={prefill_s!r} launches (ssd, "
+          f"flash, flash_wgmma) prefill={pre} decode={dec} full prefill="
+          f"{full}; last-step logits against the {P + n}-token prefill "
+          f"rel={rel!r} (bound 2e-2) same_argmax={same}; float32 flash "
+          f"kernel on its {n_seen} recorded prefill launches: max_abs_err="
+          f"{flash_err!r} (bound 2e-5; chunked and naive plain)")
+    if not (rel <= 2e-2 and pre == want and full == want
+            and dec == (0, 0, 0) and n_seen == 2 * OLMOE_LAYERS
+            and bool(torch.isfinite(lg_full).all())):
+        raise AssertionError("OLMoE's teacher-forced decode and its full "
+                             "prefill disagree, or the kernels were not "
+                             "taken")
+    del params
+    return pre[1] + full[1]
+
+
+def mla_full_phase():
+    """One MLA layer at DeepSeek-V3's widths (d 7168, 128 heads, q rank
+    1536, kv rank 512, nope 128, rope 64, v 128), float32, seeded
+    parameters and input, B 1, S MLA_LEN (past FLASH_THRESHOLD): the
+    chunked branch (``_mla_flash``) against the dense one (the threshold
+    raised for that call), and the absorbed decode of the last MLA_DECODE
+    positions, one at a time from a latent cache of the first MLA_LEN -
+    MLA_DECODE, against the dense branch's output there; each within
+    relative 1e-4.  Plain PyTorch: no kernel of the port runs."""
+    torch.cuda.empty_cache()
+    cfg = get_config("deepseek_v3_671b").scaled(dtype="float32",
+                                                param_dtype="float32")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    params = init_params(g, mla.mla_specs(cfg))
+    S, n = MLA_LEN, MLA_DECODE
+    x = torch.randn((1, S, cfg.d_model), generator=g, device="cuda")
+    pos = torch.arange(S, device="cuda")
+    saved = mla.FLASH_THRESHOLD
+    torch.cuda.reset_peak_memory_stats()
+    _reset_model_counts()
+    with torch.inference_mode():
+        try:
+            mla.FLASH_THRESHOLD = S
+            dense_ms = _time_ms(lambda: mla.mla_attention(params, cfg, x,
+                                                          pos), reps=2)
+            want, _ = mla.mla_attention(params, cfg, x, pos)
+        finally:
+            mla.FLASH_THRESHOLD = saved
+        assert S > mla.FLASH_THRESHOLD
+        flash_ms = _time_ms(lambda: mla.mla_attention(params, cfg, x, pos),
+                            reps=2)
+        got, _ = mla.mla_attention(params, cfg, x, pos)
+        chunked_rel = _rel(got, want)
+        del got
+        P = S - n
+        _, pc = mla.mla_attention(params, cfg, x[:, :P], pos[:P],
+                                  return_cache=True)
+        cache = {k: torch.zeros((1, S) + v.shape[2:], device="cuda")
+                 for k, v in pc.items()}
+        for k in cache:
+            cache[k][:, :P] = pc[k]
+        del pc
+        outs = []
+        t0 = time.perf_counter()
+        for i in range(P, S):
+            o, cache = mla.mla_attention(params, cfg, x[:, i:i + 1],
+                                         pos[i:i + 1], cache=cache,
+                                         cache_len=i)
+            outs.append(o)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / n
+        decode_rel = _rel(torch.cat(outs, 1), want[:, P:])
+    peak = torch.cuda.max_memory_allocated()
+    print(f"MLA at DeepSeek-V3's widths (one layer, float32, B 1, S {S}, "
+          f"FLASH_THRESHOLD {saved}): dense_branch_ms={dense_ms!r} "
+          f"chunked_branch_ms={flash_ms!r} chunked-vs-dense rel="
+          f"{chunked_rel!r} (bound 1e-4); absorbed decode of the last {n} "
+          f"positions from a latent cache of {P}: ms_per_step={step_ms!r} "
+          f"rel={decode_rel!r} against the dense branch (bound 1e-4); "
+          f"peak_memory_bytes={peak} launches {_model_counts()}")
+    if not (chunked_rel <= 1e-4 and decode_rel <= 1e-4
+            and _model_counts() == (0, 0, 0)
+            and bool(torch.isfinite(want).all())):
+        raise AssertionError("MLA's branches disagree at full width")
+    del params, x, want, cache, outs
+    return dense_ms, flash_ms
+
+
+def deepseek_serve_phase():
+    """DeepSeek-V3 at full width, its depth cut to DEEPSEEK_DEPTH (3 dense
+    MLA layers, 1 MLA-MoE layer with all 256 routed experts and the shared
+    one, and the multi-token-prediction module's parameters: 15.8 billion
+    bfloat16 parameters, as its config stores them; 671.7 billion, 1.34
+    TB, do not fit one card), served through ``launch/serve.py::serve``
+    (the launcher has no depth flag): batch 1 of a DEEPSEEK_SERVE prompt
+    (past FLASH_THRESHOLD: the chunked MLA branch), one untimed warm-up
+    run first; counts set to 0 just before and read just after: no kernel
+    launched (MLA and the experts are plain PyTorch); tokens in the
+    vocabulary, peak memory under 80 GB, capacities 144 in prefill and 1
+    in decode."""
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    full = get_config("deepseek_v3_671b")
+    cfg = full.scaled(n_layers=DEEPSEEK_DEPTH)
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(params)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    B, S, gen = (DEEPSEEK_SERVE[k] for k in ("batch", "prompt", "gen"))
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         device="cuda")
+    _reset_model_counts()
+    with _Capacities() as caps:
+        serve_launch.serve(cfg, params, toks, gen)
+        torch.cuda.reset_peak_memory_stats()
+        res = serve_launch.serve(cfg, params, toks, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = _model_counts()
+    want_caps = {moe.capacity(cfg, B * S), moe.capacity(cfg, B)}
+    print(f"serve ({cfg.name} at depth {DEEPSEEK_DEPTH}, bf16 parameters "
+          f"and compute, batch {B}, prompt {S}, {gen} new tokens): "
+          f"params={n_params} init_s={init_s!r} prefill_s="
+          f"{res['prefill_s']!r} prompt_tokens_per_s="
+          f"{res['prompt_tokens_per_s']!r} decode_ms_p50="
+          f"{res['decode_ms_p50']!r} decode_ms_p95={res['decode_ms_p95']!r} "
+          f"generated_tokens_per_s={res['generated_tokens_per_s']!r} "
+          f"launches_per_prefill={res['prefill_launches']} "
+          f"launches_in_decode={res['decode_launches']} run_launches (ssd, "
+          f"flash, flash_wgmma)={counts} peak_memory_bytes={peak} "
+          f"resident_before_bytes={resident} expert capacities (slots per "
+          f"expert: calls)={dict(caps.seen)}")
+    print(f"  reduced: n_layers {full.n_layers} -> {DEEPSEEK_DEPTH} (1.34 TB "
+          "of parameters do not fit one card)")
+    print(f"  decode ms per token: {res['decode_ms']}")
+    toks_out = res["tokens"]
+    if not (n_params == DEEPSEEK_DEPTH4_PARAMS and counts == (0, 0, 0)
+            and set(caps.seen) == want_caps == {144, 1}
+            and toks_out.shape == (B, gen)
+            and bool(torch.isfinite(res["logits"]).all())
+            and int(toks_out.min()) >= 0
+            and int(toks_out.max()) < cfg.vocab_size and peak < 80e9):
+        raise AssertionError("implausible DeepSeek-V3 serving output")
+    del params, res
+
+
+def _stage_device_ms(prof, names):
+    """{range name: device ms of the kernels launched inside it}, over the
+    profile's CPU op tree (each kernel belongs to the op that launched it)."""
+    def dev(e):
+        return (sum(k.duration for k in e.kernels)
+                + sum(dev(c) for c in e.cpu_children))
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name] += dev(e) / 1e3
+    return out
+
+
+class _MoeStages:
+    """While active, runs ``moe._dispatch`` (rank sort, scatter),
+    ``moe._combine`` (gather, weighting, the k-sum) and ``moe._experts``
+    (the three batched expert products) inside named profiler ranges."""
+    NAMES = {"_dispatch": "moe_stage:dispatch",
+             "_combine": "moe_stage:combine",
+             "_experts": "moe_stage:experts"}
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        self._orig = {k: getattr(moe, k) for k in self.NAMES}
+        for k, label in self.NAMES.items():
+            def wrapped(*a, _f=self._orig[k], _label=label, **kw):
+                with record_function(_label):
+                    return _f(*a, **kw)
+            setattr(moe, k, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for k, f in self._orig.items():
+            setattr(moe, k, f)
+
+
+def _moe_share(prof, busy, what):
+    """Print the MoE stages' device ms in a profile taken under
+    :class:`_MoeStages`: the dispatch (rank sort and scatter, then gather
+    and combine) against the expert products, each as a share of the
+    device busy time ``busy``."""
+    st = _stage_device_ms(prof, _MoeStages.NAMES.values())
+    disp = st["moe_stage:dispatch"] + st["moe_stage:combine"]
+    prod = st["moe_stage:experts"]
+    print(f"  MoE stages ({what}): dispatch_ms={disp!r} (sort and scatter "
+          f"{st['moe_stage:dispatch']!r}, gather and combine "
+          f"{st['moe_stage:combine']!r}) expert_products_ms={prod!r}; "
+          f"shares of device busy: dispatch {disp / busy!r}, products "
+          f"{prod / busy!r}; dispatch / products "
+          f"{disp / prod if prod else float('nan')!r}")
+
+
+def serve_profile_phase(arch="zamba2_7b", dims=SERVE, steps=4):
     """Where the serving time goes at full width (bf16; ``dims``: batch,
     prompt): one traced prefill (device busy, idle share, the kernels'
-    device time, the top device ops), then 4 traced decode steps."""
+    device time, the top device ops), then ``steps`` traced decode steps;
+    for an MoE model, the expert dispatch's device time against the
+    expert products' in each."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.empty_cache()
     cfg = get_config(arch)
+    stages = _MoeStages() if cfg.n_experts else contextlib.nullcontext()
     params = init_model(cfg, seed=0)
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -3120,8 +3498,8 @@ def serve_profile_phase(arch="zamba2_7b", dims=SERVE):
                          generator=g, device="cuda")
     serve_steps.prefill_into_cache(params, cfg, toks, S + 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with stages, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         logits, cache = serve_steps.prefill_into_cache(params, cfg, toks,
                                                        S + dims["gen"])
@@ -3140,10 +3518,11 @@ def serve_profile_phase(arch="zamba2_7b", dims=SERVE):
               for k, v in kern.items()))
     for k, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  device {ms!r} ms ({n} launches): {k[:90]}")
+    if cfg.n_experts:
+        _moe_share(prof, busy, "prefill")
     tok = serve_steps.greedy(logits, cfg)
-    steps = 4
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with stages, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with torch.inference_mode():
             for i in range(steps):
@@ -3159,8 +3538,11 @@ def serve_profile_phase(arch="zamba2_7b", dims=SERVE):
           f"device_busy_ms_per_step={busy / steps!r} device_idle_share="
           f"{1.0 - busy / wall_ms!r} device_launches_per_step="
           f"{launches / steps!r}")
-    for k, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:5]:
+    for k, (ms, n) in sorted(dev.items(), key=lambda kv: -kv[1][0])[
+            :8 if cfg.n_experts else 5]:
         print(f"  device {ms!r} ms ({n} launches): {k[:90]}")
+    if cfg.n_experts:
+        _moe_share(prof, busy, f"{steps} decode step(s)")
     del params, cache
     return kern
 
@@ -3222,11 +3604,16 @@ def main() -> int:
     _phase(model_parity_phase)
     flash_launches = _phase(consistency_phase)
     flash_launches += _phase(window_consistency_phase)
+    flash_launches += _phase(moe_consistency_phase)
     ssd_launches, wgmma_launches = _phase(serve_phase)
     wgmma_launches += _phase(dense_serve_phase, "gemma2_9b")
     wgmma_launches += _phase(dense_serve_phase, "starcoder2_3b")
+    wgmma_launches += _phase(olmoe_serve_phase)
+    _phase(mla_full_phase)
+    _phase(deepseek_serve_phase)
     _phase(serve_profile_phase)
     _phase(serve_profile_phase, "gemma2_9b", GEMMA_SERVE)
+    _phase(serve_profile_phase, "olmoe_1b_7b", OLMOE_SERVE, steps=1)
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); chain tile: launch-weighted over the tiled route's
     # own tiles (tile_mix_phase), at one lane a launch and, as a row of its
@@ -3272,13 +3659,14 @@ def main() -> int:
                  "src/repro/kernels/minplus/monotone.py:268", d_launches,
                  dnc_err, dnc_t, None))
     # the model kernels: device time per launch at Zamba2-7B's prefill
-    # shapes (the dense family's shapes on the flash phase's own lines);
-    # SSD (float32): launches over the Zamba2 serve phase's two prefills;
-    # the tensor-core flash kernel (bf16): over the two prefills of each of
-    # the three serve phases (Zamba2-7B, Gemma2-9B, StarCoder2-3B); the
-    # float32 flash kernel (TF32 mma.sync): over the float32 path's
-    # prefills (Zamba2-7B's consistency phase, Gemma2-9B's two in the
-    # window consistency phase)
+    # shapes (the dense and MoE families' shapes on the flash phase's own
+    # lines); SSD (float32): launches over the Zamba2 serve phase's two
+    # prefills; the tensor-core flash kernel (bf16): over the two prefills
+    # of each of the four serve phases (Zamba2-7B, Gemma2-9B,
+    # StarCoder2-3B, OLMoE-1B-7B); the float32 flash kernel (TF32
+    # mma.sync): over the float32 path's prefills (Zamba2-7B's consistency
+    # phase, Gemma2-9B's two in the window consistency phase, OLMoE's two
+    # in the MoE consistency phase)
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
     fa_ref = "src/repro/kernels/flash_attention/kernel.py:71"
     rows += [("ssd_mma", "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",

@@ -7,8 +7,9 @@ import importlib
 
 from ..models.config import ModelConfig, smoke_variant
 
-ARCHS = ["granite_34b", "gemma2_27b", "starcoder2_3b", "gemma2_9b",
-         "mamba2_370m", "pixtral_12b", "zamba2_7b"]
+ARCHS = ["olmoe_1b_7b", "deepseek_v3_671b", "granite_34b", "gemma2_27b",
+         "starcoder2_3b", "gemma2_9b", "mamba2_370m", "pixtral_12b",
+         "zamba2_7b"]
 
 
 def norm_name(name: str) -> str:

@@ -5,6 +5,8 @@ on the card (``--device cpu`` for the CPU).
         --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2_9b \\
         --batch 2 --prompt-len 6144 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b \\
+        --batch 4 --prompt-len 2048 --gen 32
 
 Any config ``models/model.py::check_served`` accepts is served (pixtral
 from tokens alone, as the reference's launcher serves it).  Weights are

@@ -1,6 +1,7 @@
 """The model stack of the port: the dense (granite, starcoder2, pixtral,
-gemma2), Mamba2 and Zamba2 families' layers, parameters, prefill and
-decode (``repro/models`` is the reference)."""
+gemma2), MoE (OLMoE, DeepSeek-V3 with MLA), Mamba2 and Zamba2 families'
+layers, parameters, prefill and decode (``repro/models`` is the
+reference)."""
 from .config import ModelConfig, smoke_variant
 from .layers import param_count
 from .model import (decode_step, init_cache, init_model, model_specs,

@@ -1,6 +1,6 @@
-"""Attention: GQA + RoPE + sliding window + logit soft-cap, as
-``repro/models/attention.py`` (self-attention; qk-norm and the MLA and
-cross paths come with the families that use them).
+"""Attention: GQA + RoPE + sliding window + logit soft-cap + qk-norm
+(OLMoE), as ``repro/models/attention.py`` (self-attention; MLA is
+:mod:`.mla`, and the cross path comes with the enc-dec family).
 
 The branch is the reference's: ``naive`` (:func:`_sdpa`, full scores)
 when ``S * Sk <= 256 * 256`` or ``attn_impl == "naive"``, else the
@@ -18,19 +18,23 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..kernels.flash_attention.ops import attention_op
-from .layers import P, apply_rope, softcap
+from .layers import P, apply_rope, rmsnorm, softcap
 
 NEG_INF = -1e30
 
 
 def attn_specs(cfg) -> Dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    specs = {
         "wq": P((d, H * hd), ("embed", "heads")),
         "wk": P((d, KV * hd), ("embed", "kv")),
         "wv": P((d, KV * hd), ("embed", "kv")),
         "wo": P((H * hd, d), ("heads", "embed")),
     }
+    if cfg.qk_norm:
+        specs["qn"] = P((hd,), (None,), "zeros")
+        specs["kn"] = P((hd,), (None,), "zeros")
+    return specs
 
 
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int,
@@ -124,7 +128,9 @@ def attention(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
               return_cache: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Causal self-attention with RoPE; ``window`` > 0 lets a query see
-    only the last ``window`` positions (gemma2's local layers).
+    only the last ``window`` positions (gemma2's local layers).  With
+    qk-norm (``qn``/``kn`` in ``params``) q and k are RMS-normalised over
+    the head dim before RoPE, in prefill and decode alike.
 
     * prefill: cache=None (return_cache to build one)
     * decode:  x is (B,1,D), cache holds K/V, cache_len (an int, one for
@@ -142,6 +148,9 @@ def attention(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
     k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
     v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    if "qn" in params:
+        q = rmsnorm(q, params["qn"], cfg.norm_eps)
+        k = rmsnorm(k, params["kn"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     new_cache = None

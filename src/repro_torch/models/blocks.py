@@ -1,12 +1,14 @@
 """Layer blocks of the families the port serves, as
 ``repro/models/blocks.py``: the MLP (gated or not), the dense decoder
 layer (granite, starcoder2, pixtral, each half of a gemma2 pair, and the
-body of Zamba2's shared block), gemma2's local/global pair, the Mamba2
-layer and the Zamba2 period.
+body of Zamba2's shared block), gemma2's local/global pair, the MoE
+decoder layer (OLMoE), the MLA layer with a dense MLP or an MoE
+(DeepSeek-V3), the Mamba2 layer and the Zamba2 period.
 
 ``body(p, cfg, h, ctx, cache)`` returns ``(h, new_cache)``; ``ctx``
 carries the positions, ``cache_len`` (decode), ``return_cache``
 (prefill) and ``h0`` (the initial embedding Zamba2's shared block reads).
+The MoE's auxiliary loss is dropped here: serving does not read it.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 from .attention import attention, attn_specs
 from .layers import P, activation, apply_norm, norm_spec
 from .mamba2 import mamba_block, mamba_specs
+from .mla import mla_attention, mla_specs
+from .moe import moe_block, moe_specs
 
 
 def mlp_specs(cfg, d_ff: Optional[int] = None) -> Dict:
@@ -86,6 +90,63 @@ def gemma_pair(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
     if nc_l is None and nc_g is None:
         return h, None
     return h, {"local": nc_l, "global": nc_g}
+
+
+def moe_layer_specs(cfg) -> Dict:
+    return {
+        "ln_attn": norm_spec(cfg),
+        "attn": attn_specs(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "moe": moe_specs(cfg),
+    }
+
+
+def moe_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+              cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    a_in = apply_norm(p["ln_attn"], h, cfg)
+    a_out, new_cache = attention(
+        p["attn"], cfg, a_in, ctx["positions"], cache=cache,
+        cache_len=ctx.get("cache_len"),
+        return_cache=ctx.get("return_cache", False))
+    h = h + a_out
+    m_out, _ = moe_block(p["moe"], cfg, apply_norm(p["ln_mlp"], h, cfg))
+    return h + m_out, new_cache
+
+
+def mla_dense_specs(cfg) -> Dict:
+    return {
+        "ln_attn": norm_spec(cfg),
+        "attn": mla_specs(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def mla_moe_specs(cfg) -> Dict:
+    return {
+        "ln_attn": norm_spec(cfg),
+        "attn": mla_specs(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "moe": moe_specs(cfg),
+    }
+
+
+def mla_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+              cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """DeepSeek-V3's layer: MLA, then a dense MLP (its first
+    ``n_dense_layers``) or the MoE."""
+    a_in = apply_norm(p["ln_attn"], h, cfg)
+    a_out, new_cache = mla_attention(
+        p["attn"], cfg, a_in, ctx["positions"], cache=cache,
+        cache_len=ctx.get("cache_len"),
+        return_cache=ctx.get("return_cache", False))
+    h = h + a_out
+    m_in = apply_norm(p["ln_mlp"], h, cfg)
+    if "moe" in p:
+        m_out, _ = moe_block(p["moe"], cfg, m_in)
+    else:
+        m_out = mlp(p["mlp"], cfg, m_in)
+    return h + m_out, new_cache
 
 
 def ssm_layer_specs(cfg) -> Dict:

@@ -1,7 +1,8 @@
 """Model assembly: parameters, prefill and decode for the families the
 port serves so far (``dense``: granite, starcoder2, pixtral's backbone
-and gemma2's local/global pairs; ``ssm``: Mamba2; ``hybrid``: Zamba2), as
-``repro/models/model.py``.
+and gemma2's local/global pairs; ``moe``: OLMoE, and DeepSeek-V3 with MLA
+and its multi-token-prediction parameters; ``ssm``: Mamba2; ``hybrid``:
+Zamba2), as ``repro/models/model.py``.
 
 Layers are organized into *groups* of identical structure, each group's
 parameters stacked along a leading layer axis as in the reference, so
@@ -23,7 +24,7 @@ from .config import ModelConfig
 from .layers import (P, apply_norm, init_params, norm_spec, padded_vocab,
                      softcap, tree_map)
 
-SERVED_FAMILIES = ("dense", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,17 +36,15 @@ class GroupDef:
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Refuse a config that asks for what the port does not compute yet:
-    a family outside :data:`SERVED_FAMILIES`, qk-norm, experts, MLA or
-    multi-token prediction."""
-    if (cfg.family not in SERVED_FAMILIES or cfg.qk_norm or cfg.n_experts
-            or cfg.use_mla or cfg.mtp_depth):
+    """Refuse a family outside :data:`SERVED_FAMILIES` (enc-dec).  The
+    multi-token-prediction module's parameters are built and carried, but
+    no serving path reads them, as in the reference's prefill and
+    decode."""
+    if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"config {cfg.name!r} (family {cfg.family!r}): the port serves "
-            f"the {SERVED_FAMILIES} families without qk-norm, experts, MLA "
-            "or multi-token prediction so far; the MoE, MLA and enc-dec "
-            "families come in a later slice of the model stack "
-            "(ROADMAP Queue 1)")
+            f"the {SERVED_FAMILIES} families so far; the enc-dec family "
+            "comes in a later slice of the model stack (ROADMAP Queue 1)")
 
 
 def group_defs(cfg: ModelConfig) -> List[GroupDef]:
@@ -57,6 +56,18 @@ def group_defs(cfg: ModelConfig) -> List[GroupDef]:
                              blocks.gemma_pair_specs(cfg), blocks.gemma_pair)]
         return [GroupDef("layers", cfg.n_layers,
                          blocks.dense_layer_specs(cfg), blocks.dense_layer)]
+    if f == "moe":
+        if cfg.use_mla:
+            defs = []
+            if cfg.n_dense_layers:
+                defs.append(GroupDef("dense", cfg.n_dense_layers,
+                                     blocks.mla_dense_specs(cfg),
+                                     blocks.mla_layer))
+            defs.append(GroupDef("moe", cfg.n_layers - cfg.n_dense_layers,
+                                 blocks.mla_moe_specs(cfg), blocks.mla_layer))
+            return defs
+        return [GroupDef("layers", cfg.n_layers, blocks.moe_layer_specs(cfg),
+                         blocks.moe_layer)]
     if f == "ssm":
         return [GroupDef("layers", cfg.n_layers, blocks.ssm_layer_specs(cfg),
                          blocks.ssm_layer)]
@@ -92,6 +103,14 @@ def model_specs(cfg: ModelConfig) -> Dict:
         specs["lm_head"] = P((cfg.d_model, vp), ("embed", "vocab"))
     if cfg.family == "hybrid":
         specs["shared_block"] = blocks.shared_attn_specs(cfg)
+    if cfg.mtp_depth:
+        specs["mtp"] = {
+            "proj": P((2 * cfg.d_model, cfg.d_model), ("embed", "embed")),
+            "norm_h": norm_spec(cfg),
+            "norm_e": norm_spec(cfg),
+            "layer": blocks.mla_dense_specs(cfg) if cfg.use_mla
+            else blocks.dense_layer_specs(cfg),
+        }
     return specs
 
 
@@ -194,7 +213,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Optional[Union[str, torch.device]] = None) -> Dict:
     """Stacked per-group decode caches, zeroed (None device: the card);
     a gemma2 pair's local cache is ``min(max_len, sliding_window)`` long
-    and rolls in decode."""
+    and rolls in decode; an MLA group's holds the latent ``ckv`` and the
+    RoPE key ``kr`` per position."""
     dev = resolve_device(device)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
 
@@ -224,7 +244,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             caches[g.name] = {
                 "ssm": [ssm(g.n) for _ in range(cfg.hybrid_period)],
                 "attn": kv(g.n, max_len)}
-        elif cfg.family == "dense":
+        elif cfg.use_mla:
+            caches[g.name] = {
+                "ckv": torch.zeros((g.n, batch, max_len, cfg.kv_lora_rank),
+                                   dtype=dtype, device=dev),
+                "kr": torch.zeros((g.n, batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=dev)}
+        elif cfg.family in ("dense", "moe"):
             caches[g.name] = kv(g.n, max_len)
         else:
             caches[g.name] = ssm(g.n)

@@ -7,9 +7,10 @@ The reference's ``serve/steps.py`` builds the same two steps for pjit
 ``torch.inference_mode()``.  The one piece of glue is
 :func:`prefill_into_cache`: ``models.prefill`` returns attention caches
 of the prompt's length S, so its cache is written into
-``init_cache(cfg, B, max_len)`` — attention K/V at positions [0, S), the
-SSM state and both conv tails as they are — and decoding continues at
-``cache_len = S``.  A decode leaf shorter than the prompt (a gemma2 local
+``init_cache(cfg, B, max_len)`` — attention K/V (the dense and MoE
+families, Zamba2's shared block) and MLA's latent ``ckv`` and RoPE key
+``kr`` (DeepSeek-V3) at positions [0, S), the SSM state and both conv
+tails as they are — and decoding continues at ``cache_len = S``.  A decode leaf shorter than the prompt (a gemma2 local
 cache of ``sliding_window`` slots under a longer prompt) keeps the last
 L positions, position p at slot p % L: the state the reference's decode
 reaches after feeding the prompt one token at a time.  So the copy is
@@ -32,7 +33,7 @@ def _copy_prefix(dst: Any, src: Any, key: Optional[str] = None) -> None:
     elif isinstance(dst, list):
         for d, s in zip(dst, src):
             _copy_prefix(d, s, key)
-    elif key in ("k", "v"):            # (n, B, S, KV, hd) into (n, B, L, ...)
+    elif key in ("k", "v", "ckv", "kr"):   # (n, B, S, ...) into (n, B, L, ...)
         S, L = src.shape[2], dst.shape[2]
         if S <= L:
             dst[:, :, :S].copy_(src)

@@ -1,6 +1,7 @@
-"""Shared pieces of the dense family's parity tests (test_torch_dense.py:
-granite, starcoder2, pixtral; test_torch_gemma2.py: both gemma2 configs
-and the rolling local cache).
+"""Shared pieces of the dense and MoE families' parity tests
+(test_torch_dense.py: granite, starcoder2, pixtral; test_torch_gemma2.py:
+both gemma2 configs and the rolling local cache; test_torch_moe.py and
+test_torch_mla.py: OLMoE and DeepSeek-V3).
 
 The JAX package's own initialised parameters are carried across as numpy
 arrays (``models/convert.py::params_from_numpy``) and the same seeded
@@ -82,7 +83,10 @@ def patch_embeds(cfg, seed, batch=B):
 
 def n_cache_leaves(cfg):
     """K and V per layer group: one for plain layers, local and global
-    for gemma2's pairs."""
+    for gemma2's pairs; ckv and kr for each of DeepSeek-V3's MLA groups
+    (dense, moe)."""
+    if cfg.use_mla:
+        return 4 if cfg.n_dense_layers else 2
     return 4 if cfg.local_global else 2
 
 
@@ -161,13 +165,14 @@ def check_decode(smoke, S, seed, with_patches=False):
     return pcache
 
 
-def check_serve(smoke, prompt=40, gen=6, seed=12):
+def check_serve(smoke, prompt=40, gen=6, seed=12, cache_dtype=jnp.bfloat16):
     """The port's serving route against the JAX launcher's teacher-forced
-    route: the same greedy tokens, logits at relative 2e-2."""
+    route (its cache in ``cache_dtype``, the launcher's bfloat16 by
+    default): the same greedy tokens, logits at relative 2e-2."""
     jcfg, cfg, jparams, params = smoke
     toks = tokens(cfg, prompt, seed)
     jstep = jax.jit(lambda p, t, c, n: jax_decode_step(p, jcfg, t, c, n))
-    jcache = jax_init_cache(jcfg, B, prompt + gen)
+    jcache = jax_init_cache(jcfg, B, prompt + gen, dtype=cache_dtype)
     for i in range(prompt):
         lg, jcache = jstep(jparams, jnp.asarray(toks[:, i:i + 1]), jcache,
                            jnp.int32(i))

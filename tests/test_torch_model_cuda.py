@@ -1,6 +1,7 @@
 """The port's SSD and flash-attention CUDA kernels on the card, against
 their plain versions in every launch plan, and the Zamba2, Mamba2,
-gemma2 and StarCoder2 smoke serves on the card against the CPU.
+gemma2, StarCoder2, OLMoE and DeepSeek-V3 smoke serves on the card
+against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
 on a machine that has the card but no JAX:
@@ -37,6 +38,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ssd import kernel as ssd
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.launch import serve as serve_launch
+from repro_torch.models import mla
 from repro_torch.models.layers import tree_map
 from repro_torch.models.mamba2 import ssd_chunked_plain
 from repro_torch.models.model import init_model
@@ -441,6 +443,37 @@ def test_dense_smoke_serve_on_card_matches_cpu(card, arch):
     assert res["prefill_launches"] == {"ssd": 0, "flash": cfg.n_layers}
     assert res["decode_launches"] == {"ssd": 0, "flash": 0}
     assert fa.flash_attention_wgmma.launches - before[1] == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch,threshold", [("olmoe_1b_7b", None),
+                                            ("deepseek_v3_671b", None),
+                                            ("deepseek_v3_671b", 64)])
+def test_moe_smoke_serve_on_card_matches_cpu(card, arch, threshold,
+                                             monkeypatch):
+    """The MoE smoke models (float32, default capacity) served on the
+    card against the CPU: the same greedy tokens, logits within relative
+    1e-4; OLMoE's qk-norm attention takes one flash launch per layer in
+    prefill, DeepSeek-V3's MLA none (plain PyTorch; with the threshold at
+    64 its chunked branch), and decode none."""
+    if threshold:
+        monkeypatch.setattr(mla, "FLASH_THRESHOLD", threshold)
+    cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32")
+    cpu = init_model(cfg, seed=5, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu, lambda t: isinstance(t,
+                                                               torch.Tensor))
+    g = torch.Generator()
+    g.manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), generator=g)
+    before = (fa.flash_attention_cuda.launches,
+              fa.flash_attention_wgmma.launches)
+    out_g, lg_g = steps.generate(gpu, cfg, toks.cuda(), 6)
+    torch.cuda.synchronize()
+    n_fa = fa.flash_attention_cuda.launches - before[0]
+    n_wg = fa.flash_attention_wgmma.launches - before[1]
+    out_c, lg_c = steps.generate(cpu, cfg, toks, 6)
+    assert torch.equal(out_g.cpu(), out_c)
+    assert _rel(lg_g, lg_c) < 1e-4
+    assert (n_fa, n_wg) == (0 if cfg.use_mla else cfg.n_layers, 0)
 
 
 def test_launcher_on_card_counts_prefill_launches(card):

@@ -19,9 +19,10 @@ tokens go through both:
   the same greedy tokens.
 
 The dense family's parity runs in ``test_torch_dense.py`` and
-``test_torch_gemma2.py``; here its parameter trees are carried across
+``test_torch_gemma2.py``, the MoE family's in ``test_torch_moe.py`` and
+``test_torch_mla.py``; here their parameter trees are carried across
 too, every served config's full-width shapes equal the JAX package's
-leaf by leaf, and the families still to come are refused.
+leaf by leaf, and the family still to come (enc-dec) is refused.
 """
 import dataclasses
 
@@ -110,7 +111,8 @@ def _jax_decode_cache(jcfg, pcache, max_len):
     return put(cache, pcache)
 
 
-@pytest.mark.parametrize("smoke", ARCHS + ["starcoder2_3b", "gemma2_9b"],
+@pytest.mark.parametrize("smoke", ARCHS + ["starcoder2_3b", "gemma2_9b",
+                                   "olmoe_1b_7b", "deepseek_v3_671b"],
                          indirect=True)
 def test_params_carried_across_keep_the_tree(smoke):
     _, jcfg, cfg, jparams, params = smoke
@@ -189,7 +191,10 @@ def test_serve_prefill_route_matches_jax_teacher_forced(smoke):
                                         ("starcoder2_3b", 3_029_710_848),
                                         ("pixtral_12b", 12_247_782_400),
                                         ("gemma2_9b", 9_241_705_984),
-                                        ("gemma2_27b", 27_227_128_320)])
+                                        ("gemma2_27b", 27_227_128_320),
+                                        ("olmoe_1b_7b", 6_816_339_968),
+                                        ("deepseek_v3_671b",
+                                         671_712_662_528)])
 def test_full_config_shapes_equal_jax(arch, count):
     """Full-width parameter shapes, leaf by leaf, without allocating."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
@@ -223,18 +228,20 @@ def test_entry_points_need_the_card_by_default(monkeypatch):
 
 
 def test_unserved_families_raise():
-    """MoE (olmoe), enc-dec (whisper) and qk-norm are still refused."""
-    moe = ModelConfig(**dataclasses.asdict(jax_get_smoke("olmoe_1b_7b")))
-    assert moe.family == "moe"
+    """Enc-dec (whisper) is still refused, by the config registry and by
+    the model stack, whose MoE, MLA and qk-norm configs are served."""
+    encdec = ModelConfig(**dataclasses.asdict(
+        jax_get_smoke("whisper_large_v3")))
+    assert encdec.family == "encdec"
     with pytest.raises(NotImplementedError, match="later slice"):
-        model_specs(moe)
+        model_specs(encdec)
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        steps.prefill_into_cache({}, moe, torch.zeros((1, 4), dtype=int), 8)
-    for arch in ("olmoe_1b_7b", "whisper_large_v3", "deepseek_v3_671b"):
-        with pytest.raises(NotImplementedError):
-            get_config(arch)
-    encdec = get_smoke("starcoder2_3b").scaled(family="encdec")
-    qk = get_smoke("starcoder2_3b").scaled(qk_norm=True)
-    for cfg in (encdec, qk):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            model_specs(cfg)
+        steps.prefill_into_cache({}, encdec, torch.zeros((1, 4), dtype=int),
+                                 8)
+    with pytest.raises(NotImplementedError):
+        get_config("whisper_large_v3")
+    for arch in ("olmoe_1b_7b", "deepseek_v3_671b"):
+        model_specs(get_smoke(arch))
+    model_specs(get_smoke("starcoder2_3b").scaled(qk_norm=True))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        model_specs(get_smoke("starcoder2_3b").scaled(family="encdec"))
