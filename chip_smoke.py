@@ -101,9 +101,23 @@ branch against the dense one, the absorbed decode against the expanded
 prefill), and DeepSeek-V3 at full width cut to depth 4 (3 dense MLA
 layers, 1 MLA-MoE layer of 256 routed experts and the shared one, the
 multi-token-prediction parameters; bfloat16 parameters) served at batch
-1 of a 4608-token prompt, no kernel launched.  Traced prefills and
-decode steps of Zamba2-7B, Gemma2-9B and OLMoE show where the serving
-time goes, OLMoE's with its expert dispatch against its expert products.
+1 of a 4608-token prompt, no kernel launched.  The enc-dec family and
+the batcher follow: both flash kernels non-causal at Whisper-large-v3's
+encoder (Sq = Sk = 1500) and cross-attention (Sq 224, Sk 1500) shapes,
+beside SDPA and their bounds; Whisper's smoke model on the card against
+the CPU (also with 320 frames, where every attention takes the kernel);
+one decode step with per-row cache lengths on every family with an
+attention cache against the CPU; Whisper-large-v3 at full width and depth
+in float32 (the prefill against its teacher-forced decode from
+``encdec_prepare``'s cross K/V; 96 recorded float32 flash launches held);
+Whisper-large-v3 served at full width and depth (batch 8 clips of 1500
+frames, prompt 224, 32 new tokens: 64 bfloat16 flash launches a prefill,
+none in decode); and the continuous batcher
+(``repro_torch.serve.batcher``) on StarCoder2-3B at full width in
+float32, 12 requests over 4 rows, each request held to its solo decode.
+Traced prefills and decode steps of Zamba2-7B, Gemma2-9B, OLMoE and
+Whisper-large-v3 show where the serving time goes, OLMoE's with its
+expert dispatch against its expert products.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -152,11 +166,13 @@ from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.models.attention import _sdpa_chunked  # noqa: E402
 from repro_torch.models import mla, moe  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
-    init_params, param_count, tree_map)
+    init_params, param_count, tree_leaves, tree_map)
 from repro_torch.models.mamba2 import ssd_chunked_plain  # noqa: E402
 from repro_torch.models.model import (  # noqa: E402
-    decode_step, init_cache, init_model, prefill)
+    decode_step, encdec_prepare, init_cache, init_model, model_specs,
+    prefill)
 from repro_torch.serve import steps as serve_steps  # noqa: E402
+from repro_torch.serve.batcher import ContinuousBatcher, Request  # noqa: E402,E501
 from repro_torch.rl import env as rl_env  # noqa: E402
 from repro_torch.rl import policy as rl_policy  # noqa: E402
 from repro_torch.rl import train as rl_train  # noqa: E402
@@ -2443,6 +2459,30 @@ DEEPSEEK_SERVE = {"batch": 1, "prompt": 4608, "gen": 16}
 DEEPSEEK_DEPTH = 4
 DEEPSEEK_DEPTH4_PARAMS = 15_797_359_616
 MOE_SMOKE = ("olmoe_1b_7b", "deepseek_v3_671b")
+# the enc-dec family: Whisper-large-v3 served at full width and depth,
+# batch 8 clips of 1500 frames, decoder prompt 224, 32 new tokens (max_len
+# 256, inside its 448 text positions): a prefill's 32 non-causal encoder
+# self-attentions (Sq = Sk = 1500) and 32 cross-attentions (Sq 224, Sk
+# 1500) take the flash kernel, its decoder's causal 224 x 224 the naive
+# branch; its float32 consistency at one clip and a 64-token prompt
+WHISPER_SERVE = {"batch": 8, "prompt": 224, "gen": 32}
+WHISPER_FLASH = 64
+WHISPER_PARAMS = 1_534_937_600
+FLASH_WHISPER_ENC = (8, 1500, 1500, 20, 20, 64)
+FLASH_WHISPER_CROSS = (8, 224, 1500, 20, 20, 64)
+WHISPER_PROMPT = 64
+# the continuous batcher at full width on StarCoder2-3B (the JAX package's
+# batcher test's architecture), float32: 12 requests over 4 rows
+BATCHER_ROWS, BATCHER_REQUESTS, BATCHER_MAX_LEN = 4, 12, 64
+BATCHER_PROMPT, BATCHER_NEW = (4, 32), (4, 16)
+# one decode step with per-row cache lengths on every family with an
+# attention cache, smoke size (gemma2_9b's 40 past its 32-slot local
+# cache; OLMoE at a capacity that drops nothing)
+PER_ROW = (("starcoder2_3b", {}, (3, 29, 11)),
+           ("gemma2_9b", {}, (5, 40, 31)),
+           ("olmoe_1b_7b", {"capacity_factor": 8.0}, (0, 17, 6)),
+           ("deepseek_v3_671b", {}, (11, 2, 40)),
+           ("zamba2_7b", {}, (7, 30, 1)))
 
 
 def _ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
@@ -2575,22 +2615,24 @@ def _flash_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
             nbytes / PEAK_BYTES * 1e3)
 
 
-def _time_flash(shape, dtype, q, k, v, kernel, reps, window=0, cap=0.0):
+def _time_flash(shape, dtype, q, k, v, kernel, reps, window=0, cap=0.0,
+                causal=True):
     """(kernel ms, plain ms, bound ms, tensor-core ops ms, bytes ms,
-    library ms, CUDA-core ops ms) at ``shape``, causal, with ``window``
-    and soft-cap ``cap``: device time per launch of ``kernel``, the
-    model's chunked plain version, and torch's
-    scaled_dot_product_attention as a yardstick the port never calls (K
-    and V repeated to every head outside the timing where KV < H; a
-    window as a boolean mask; it has no soft-cap, so with ``cap`` it is a
-    guide, not the same function)."""
+    library ms, CUDA-core ops ms) at ``shape`` (Sq and Sk may differ),
+    ``causal`` or not, with ``window`` and soft-cap ``cap``: device time
+    per launch of ``kernel``, the model's chunked plain version, and
+    torch's scaled_dot_product_attention as a yardstick the port never
+    calls (K and V repeated to every head outside the timing where KV <
+    H; a window as a boolean mask; it has no soft-cap, so with ``cap`` it
+    is a guide, not the same function)."""
     B, Sq, Sk, H, KV, D = shape
-    k_ms = _device_ms(lambda: kernel(q, k, v, causal=True, window=window,
+    k_ms = _device_ms(lambda: kernel(q, k, v, causal=causal, window=window,
                                      softcap=cap), reps)
     qg = q.reshape(B, Sq, KV, H // KV, D)
-    pos = torch.arange(Sq, device="cuda")
-    p_ms = _time_ms(lambda: _sdpa_chunked(qg, k, v, pos, pos, True, window,
-                                          cap, None, 1024), reps=2)
+    qpos = torch.arange(Sq, device="cuda")
+    kpos = torch.arange(Sk, device="cuda")
+    p_ms = _time_ms(lambda: _sdpa_chunked(qg, k, v, qpos, kpos, causal,
+                                          window, cap, None, 1024), reps=2)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if KV < H:
         kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
@@ -2600,12 +2642,12 @@ def _time_flash(shape, dtype, q, k, v, kernel, reps, window=0, cap=0.0):
         mask = (qp >= kp) & (qp - kp < window)
         lib = {"attn_mask": mask}
     else:
-        lib = {"is_causal": True}
+        lib = {"is_causal": causal}
     lib_ms = _device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, **lib), 5)
     del qt, kt, vt
-    cc_ms, tc_ms, byte_ms = _flash_bounds(*shape, True, window, dtype)
+    cc_ms, tc_ms, byte_ms = _flash_bounds(*shape, causal, window, dtype)
     return k_ms, p_ms, max(tc_ms, byte_ms), tc_ms, byte_ms, lib_ms, cc_ms
 
 
@@ -2643,20 +2685,24 @@ def _check_flash(q, k, v, causal, window, cap, kernel, case):
     return e, rel
 
 
-def _flash_dense(err):
-    """The flash kernels at the dense and MoE families' served shapes:
-    Gemma2-9B's local and global layers at its serve phase's prompt
-    (FLASH_GEMMA, FLASH_GEMMA_MASKS), StarCoder2-3B's causal attention at
-    its own (FLASH_STARCODER) and OLMoE-1B-7B's (FLASH_OLMOE, where SDPA
-    computes the same function), bf16 on the wgmma kernel and float32 on the
+DENSE_FLASH_CASES = ((FLASH_GEMMA, FLASH_GEMMA_MASKS, "Gemma2-9B"),
+                     (FLASH_STARCODER, [(True, 0, 0.0)], "StarCoder2-3B"),
+                     (FLASH_OLMOE, [(True, 0, 0.0)], "OLMoE-1B-7B"))
+
+
+def _flash_served(err, cases=DENSE_FLASH_CASES):
+    """The flash kernels at served shapes (``cases``: (shape, masks,
+    model); by default the dense and MoE families': Gemma2-9B's local and
+    global layers at its serve phase's prompt (FLASH_GEMMA,
+    FLASH_GEMMA_MASKS), StarCoder2-3B's causal attention at its own
+    (FLASH_STARCODER) and OLMoE-1B-7B's (FLASH_OLMOE, where SDPA computes
+    the same function)), bf16 on the wgmma kernel and float32 on the
     mma.sync kernel (:func:`_check_flash`), each timed against the chunked
     plain version, SDPA and its bound.  Raises the worst errors in
-    ``err``; returns {(model, window, dtype): _time_flash's tuple}."""
+    ``err``; returns {(model, shape, window, dtype): _time_flash's
+    tuple}."""
     timing = {}
-    for shape, masks, model in (
-            (FLASH_GEMMA, FLASH_GEMMA_MASKS, "Gemma2-9B"),
-            (FLASH_STARCODER, [(True, 0, 0.0)], "StarCoder2-3B"),
-            (FLASH_OLMOE, [(True, 0, 0.0)], "OLMoE-1B-7B")):
+    for shape, masks, model in cases:
         B, Sq, Sk, H, KV, D = shape
         for dtype in (torch.float32, torch.bfloat16):
             f32 = dtype == torch.float32
@@ -2667,8 +2713,10 @@ def _flash_dense(err):
                  "wgmma"))
             q, k, v = _flash_inputs(*shape, dtype)
             for causal, window, cap in masks:
-                case = (f"{model} (B={B}, S={Sq}, H={H}, KV={KV}, D={D}, "
-                        f"causal, window={window}, cap={cap}) "
+                seq = f"S={Sq}" if Sq == Sk else f"Sq={Sq}, Sk={Sk}"
+                case = (f"{model} (B={B}, {seq}, H={H}, KV={KV}, D={D}, "
+                        f"{'causal' if causal else 'non-causal'}, "
+                        f"window={window}, cap={cap}) "
                         f"{str(dtype).split('.')[-1]}")
                 e, rel = _check_flash(q, k, v, causal, window, cap, kernel,
                                       f"{case} {name}")
@@ -2677,8 +2725,8 @@ def _flash_dense(err):
                         f"bound 2e-2; chunked plain; rel_norm_err={rel!r} "
                         f"against the naive oracle, bound {WGMMA_REL_NORM}")
                 t = _time_flash(shape, dtype, q, k, v, kernel,
-                                5 if f32 else 10, window, cap)
-                timing[(model, window, dtype)] = t
+                                5 if f32 else 10, window, cap, causal)
+                timing[(model, shape, window, dtype)] = t
                 lib = ("uncapped SDPA, a guide, not the same function"
                        + (", the window as a boolean mask" if window else "")
                        if cap else "torch scaled_dot_product_attention")
@@ -2706,7 +2754,7 @@ def flash_phase():
     wgmma kernel and f32 on the mma.sync kernel are timed against the
     chunked plain version, torch's scaled_dot_product_attention and the
     bound, and f32 also at the consistency prefill's shape; then the
-    dense family's served shapes (:func:`_flash_dense`).  Returns (max
+    dense family's served shapes (:func:`_flash_served`).  Returns (max
     err, timing at the prefill shape) of the f32 kernel over its f32
     cases and of the bf16 kernel, and the dense shapes' timings."""
     err = {"f32": 0.0, "wgmma": 0.0}
@@ -2781,7 +2829,7 @@ def flash_phase():
                       f"float32 CUDA-core operations {t[6]!r} ms at "
                       f"{PEAK_OPS[torch.float32]:.3g} op/s)")
             del q, k, v
-    dense = _flash_dense(err)
+    dense = _flash_served(err)
     every_plan = {(D, flash_kernel.mma_plan(D, bh, 320))
                   for D in flash_kernel.WGMMA_HEAD_DIMS for bh in (1, 1024)}
     assert plans == every_plan, (
@@ -2863,7 +2911,7 @@ class _Capacities:
         moe.capacity = self._orig
 
 
-def _parity_run(arch, patches=False):
+def _parity_run(arch, patches=False, **changes):
     """One smoke model in float32: the port on the card (its kernels)
     against the port on the CPU (their plain versions): prefill logits and
     every cache leaf, then 8 decode steps from ``prefill_into_cache`` (a
@@ -2872,8 +2920,12 @@ def _parity_run(arch, patches=False):
     flash, bf16 flash) launches expected for the family, none in decode.
     ``patches``: pixtral's prompt starts with seeded patch embeddings.
     An MoE model runs at its default capacity; the smallest router top-k
-    margin of the CPU's run is printed beside the result."""
-    cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32")
+    margin of the CPU's run is printed beside the result.  Whisper reads
+    seeded frame embeddings; with ``encoder_seq`` 320 among ``changes``
+    its encoder (320 x 320) and cross-attention (300 x 320) take the
+    kernel too, beside the decoder's self-attention (300 x 300)."""
+    cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32",
+                                 **changes)
     cpu_params = init_model(cfg, seed=3, device="cpu")
     gpu_params = tree_map(lambda t: t.cuda(), cpu_params,
                           lambda t: isinstance(t, torch.Tensor))
@@ -2883,10 +2935,14 @@ def _parity_run(arch, patches=False):
     toks = torch.randint(0, cfg.vocab_size, (B, S + steps), generator=g)
     pe = (torch.randn((B, cfg.n_patches, cfg.d_model), generator=g) * 0.1
           if patches else None)
+    fr = (torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=g) * 0.1
+          if cfg.family == "encdec" else None)
     cpu_batch = {"tokens": toks[:, :S]}
     gpu_batch = {"tokens": toks[:, :S].cuda()}
     if patches:
         cpu_batch["patch_embeds"], gpu_batch["patch_embeds"] = pe, pe.cuda()
+    if fr is not None:
+        cpu_batch["frames"], gpu_batch["frames"] = fr, fr.cuda()
     _reset_model_counts()
     margins = _RouterMargins()
     with torch.inference_mode():
@@ -2899,10 +2955,12 @@ def _parity_run(arch, patches=False):
         _rel(a, b) for a, b in zip(_leaves(c_gpu), _leaves(c_cpu))]
     with margins:
         _, d_cpu = serve_steps.prefill_into_cache(
-            cpu_params, cfg, toks[:, :S], S + steps, patch_embeds=pe)
+            cpu_params, cfg, toks[:, :S], S + steps, patch_embeds=pe,
+            frames=fr)
     _, d_gpu = serve_steps.prefill_into_cache(
         gpu_params, cfg, toks[:, :S].cuda(), S + steps,
-        patch_embeds=None if pe is None else pe.cuda())
+        patch_embeds=None if pe is None else pe.cuda(),
+        frames=None if fr is None else fr.cuda())
     before = _model_counts()
     dec = []
     with torch.inference_mode():
@@ -2920,9 +2978,16 @@ def _parity_run(arch, patches=False):
         want = (cfg.n_layers, cfg.n_layers // cfg.hybrid_period, 0)
     elif cfg.use_mla:                  # MLA: plain PyTorch, no kernel
         want = (0, 0, 0)
+    elif cfg.family == "encdec":       # the attentions past 256 x 256
+        Se = cfg.encoder_seq
+        want = (0, (S * S > 256 * 256) * cfg.n_layers
+                + (Se * Se > 256 * 256) * cfg.n_encoder_layers
+                + (S * Se > 256 * 256) * cfg.n_layers, 0)
     else:
         want = (0, cfg.n_layers, 0)
     label = cfg.name + (" with patch embeddings" if patches else "")
+    if cfg.family == "encdec":
+        label += f", encoder_seq {cfg.encoder_seq}"
     if cfg.use_mla:
         label += (f", MLA threshold {mla.FLASH_THRESHOLD}: the "
                   + ("chunked" if S > mla.FLASH_THRESHOLD else "dense")
@@ -2965,11 +3030,11 @@ def _recorded_flash_err(seen):
     for q, k, v, kw, got in seen:
         B, S, H, D = q.shape
         KV = k.shape[2]
-        pos = torch.arange(S, device="cuda")
-        chunked = _sdpa_chunked(q.reshape(B, S, KV, H // KV, D), k, v, pos,
-                                pos, kw["causal"], kw["window"],
-                                kw["softcap"], None, 1024
-                                ).reshape(B, S, H, D)
+        chunked = _sdpa_chunked(q.reshape(B, S, KV, H // KV, D), k, v,
+                                torch.arange(S, device="cuda"),
+                                torch.arange(k.shape[1], device="cuda"),
+                                kw["causal"], kw["window"], kw["softcap"],
+                                None, 1024).reshape(B, S, H, D)
         naive = attention_ref(q, k, v, **kw)
         errs = [float((got - want).abs().max()) for want in (chunked, naive)]
         err = max(err, *errs)
@@ -3160,7 +3225,10 @@ def _serve_run(arch, dims, n_ssd, n_flash, caps=None):
     print(f"serve ({cfg.name}, bf16, batch {dims['batch']}, prompt "
           f"{dims['prompt']}, {dims['gen']} new tokens): prefill_s="
           f"{res['prefill_s']!r} prompt_tokens_per_s="
-          f"{res['prompt_tokens_per_s']!r} decode_ms_p50="
+          f"{res['prompt_tokens_per_s']!r} "
+          + (f"frames_per_s={res['frames_per_s']!r} "
+             if res["frames_per_s"] is not None else "")
+          + f"decode_ms_p50="
           f"{res['decode_ms_p50']!r} decode_ms_p95={res['decode_ms_p95']!r} "
           f"generated_tokens_per_s={res['generated_tokens_per_s']!r} "
           f"launches_per_prefill={res['prefill_launches']} "
@@ -3428,6 +3496,315 @@ def deepseek_serve_phase():
     del params, res
 
 
+def flash_whisper_phase():
+    """Both flash kernels at Whisper-large-v3's served attention, both
+    non-causal with H = KV = 20 and D 64 (:func:`_flash_served`): the
+    encoder's self-attention (FLASH_WHISPER_ENC, Sq = Sk = 1500, a last
+    key tile of 92 keys) and the decoder's cross-attention over it
+    (FLASH_WHISPER_CROSS, Sq 224, Sk 1500), SDPA (no mask) computing the
+    same function; then float32 at one clip (one row tile a warp) with V
+    coherent along the keys (mean 2, as the encoder's values run), where
+    the kernel's per-8-key partials of P V hold 2e-5 and truncated sums
+    taken straight into O drifted past it.  Returns {kind: max abs
+    error}."""
+    err = {"f32": 0.0, "wgmma": 0.0}
+    _flash_served(err, ((FLASH_WHISPER_ENC, [(False, 0, 0.0)],
+                         "Whisper-large-v3 encoder"),
+                        (FLASH_WHISPER_CROSS, [(False, 0, 0.0)],
+                         "Whisper-large-v3 cross-attention")))
+    q, k, v = _flash_inputs(1, 1500, 1500, 20, 20, 64, torch.float32)
+    e, _ = _check_flash(q, k, 2.0 + 0.5 * v, False, 0, 0.0,
+                        flash_kernel.flash_attention_cuda,
+                        "float32 (1, 1500, 1500, 20, 20, 64), coherent V")
+    err["f32"] = max(err["f32"], e)
+    print(f"flash_attention_mma float32 (B=1, Sq=Sk=1500, H=KV=20, D=64, "
+          f"non-causal), V of mean 2: max_abs_err={e!r} (bound 2e-5; "
+          "chunked and naive plain)")
+    return err
+
+
+def encdec_smoke_phase():
+    """Whisper's smoke config on the card against the port on the CPU
+    (:func:`_parity_run`): at its 16 frames (the decoder's self-attention
+    takes the kernel at S 300), and at 320 frames, where the encoder and
+    the cross-attention take it too."""
+    _parity_run("whisper_large_v3")
+    _parity_run("whisper_large_v3", encoder_seq=320)
+
+
+def _spec_count(cfg):
+    """Parameters of ``cfg``'s full tree, from its specs (no allocation)."""
+    return sum(int(np.prod(p.shape)) for p in tree_leaves(model_specs(cfg)))
+
+
+def whisper_consistency_phase():
+    """Whisper-large-v3 at full width and depth in float32 compute, one
+    clip of 1500 seeded frames and WHISPER_PROMPT prompt tokens: the
+    prefill's last-position logits against the last of WHISPER_PROMPT
+    teacher-forced decode steps from an empty self cache with
+    ``encdec_prepare``'s cross K/V, within relative 2e-2 (the JAX
+    package's bound for decode against a full forward); those cross K/V
+    against the prefill's cross cache within 1e-5.  Every float32 flash
+    launch (the prefill's 32 encoder and 32 cross-attention launches,
+    ``encdec_prepare``'s 32 encoder launches) is recorded and held within
+    2e-5 of the chunked plain version and the naive oracle on its own
+    inputs.  Counts set to 0 just before the prefill; returns the float32
+    flash launches."""
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper_large_v3").scaled(dtype="float32")
+    params = init_model(cfg, seed=0)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1)
+    P = WHISPER_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (1, P), generator=g,
+                         device="cuda")
+    frames = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device="cuda") * 0.1
+    seen, kernel = [], flash_ops.flash_attention_cuda
+
+    def recorded(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
+        return out
+
+    flash_ops.flash_attention_cuda = recorded
+    _reset_model_counts()
+    try:
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            lg_pre, pcache = prefill(params, cfg, {"tokens": toks,
+                                                   "frames": frames}, P)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            pre = _model_counts()
+            enc, cross = encdec_prepare(params, cfg, frames)
+            torch.cuda.synchronize()
+            prep = tuple(x - y for x, y in zip(_model_counts(), pre))
+    finally:
+        flash_ops.flash_attention_cuda = kernel
+    with torch.inference_mode():
+        n_seen, flash_err = len(seen), _recorded_flash_err(seen)
+        del seen
+        cross_rel = max(_rel(cross[w], pcache["decoder"]["cross"][w])
+                        for w in ("k", "v"))
+        cross_same = all(torch.equal(cross[w], pcache["decoder"]["cross"][w])
+                         for w in ("k", "v"))
+        del pcache
+        cache = init_cache(cfg, 1, P, dtype=torch.float32)
+        cache["decoder"]["cross"] = cross
+        before = _model_counts()
+        t0 = time.perf_counter()
+        for i in range(P):
+            lg_dec, cache = decode_step(params, cfg, toks[:, i:i + 1], cache,
+                                        i, {"enc": enc})
+        torch.cuda.synchronize()
+        tf_s = time.perf_counter() - t0
+    dec = tuple(x - y for x, y in zip(_model_counts(), before))
+    rel = _rel(lg_pre[:, -1], lg_dec[:, -1])
+    same = bool(torch.equal(lg_pre[:, -1, :cfg.vocab_size].argmax(-1),
+                            lg_dec[:, -1, :cfg.vocab_size].argmax(-1)))
+    L, E = cfg.n_layers, cfg.n_encoder_layers
+    print(f"Whisper consistency (Whisper-large-v3, float32 compute, "
+          f"{_spec_count(cfg)} parameters, 1 clip x {cfg.encoder_seq} "
+          f"frames, {P} prompt tokens): prefill_s={prefill_s!r} launches "
+          f"(ssd, flash, flash_wgmma) prefill={pre} encdec_prepare={prep} "
+          f"decode={dec}; encdec_prepare cross K/V against the prefill's "
+          f"cross cache rel={cross_rel!r} (bound 1e-5) bitwise_equal="
+          f"{cross_same}; teacher-forced decode {tf_s!r} s; last-logits "
+          f"rel={rel!r} (bound 2e-2) same_argmax={same}; float32 flash "
+          f"kernel on its {n_seen} recorded launches: max_abs_err="
+          f"{flash_err!r} (bound 2e-5; chunked and naive plain)")
+    if not (rel <= 2e-2 and cross_rel <= 1e-5 and pre == (0, E + L, 0)
+            and prep == (0, E, 0) and dec == (0, 0, 0)
+            and n_seen == 2 * E + L and bool(torch.isfinite(lg_pre).all())):
+        raise AssertionError("Whisper's prefill and its teacher-forced "
+                             "decode disagree, or the kernels were not "
+                             "taken")
+    del params, cache, cross, enc
+    return pre[1] + prep[1]
+
+
+def whisper_serve_phase():
+    """The enc-dec family's main path (:func:`_serve_run`):
+    Whisper-large-v3 at full width and depth (WHISPER_PARAMS float32
+    parameters, counted from its specs), batch 8 clips of 1500 frames,
+    prompt 224, 32 new tokens: 64 tensor-core flash launches a prefill
+    (32 encoder self-attentions, 32 cross-attentions; the decoder's
+    224 x 224 self-attention takes the naive branch), none in decode.
+    Returns those launches."""
+    n = _spec_count(get_config("whisper_large_v3"))
+    print(f"Whisper-large-v3: {n} parameters (expected {WHISPER_PARAMS})")
+    if n != WHISPER_PARAMS:
+        raise AssertionError(f"Whisper-large-v3 has {n} parameters")
+    return _serve_run("whisper_large_v3", WHISPER_SERVE, 0, WHISPER_FLASH)[2]
+
+
+def _solo_decode(params, cfg, prompt, max_new, max_len):
+    """One request alone on the card through ``decode_step`` with an int
+    ``cache_len`` (the JAX package's test loop), the argmax over the full
+    logits row as the batcher takes it: (tokens, each output step's
+    top-two logit margin over the row's largest magnitude)."""
+    cache = init_cache(cfg, 1, max_len, dtype=torch.float32)
+    toks = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                           device="cuda")[None]
+    out, margins, cur = [], [], None
+    with torch.inference_mode():
+        for i in range(len(prompt) + max_new - 1):
+            t = toks[:, i:i + 1] if i < len(prompt) else cur
+            lg, cache = decode_step(params, cfg, t, cache, i)
+            if i >= len(prompt) - 1:
+                row = lg[0, 0]
+                top = torch.topk(row, 2).values
+                margins.append(float((top[0] - top[1]) / row.abs().max()))
+                cur = torch.argmax(row).reshape(1, 1)
+                out.append(int(cur))
+                if len(out) >= max_new:
+                    break
+    return out, margins
+
+
+def batcher_phase():
+    """The second entry, ``repro_torch.serve.batcher.ContinuousBatcher``,
+    over ``decode_step`` with a (B,) ``cache_len`` on the card, at full
+    width on StarCoder2-3B (the JAX package's batcher test's
+    architecture), float32 compute, TF32 off: BATCHER_ROWS rows,
+    BATCHER_REQUESTS requests from a numpy generator seeded 0 (prompts
+    of BATCHER_PROMPT tokens, BATCHER_NEW new ones), counts set to 0 just
+    before the run and read just after (plain PyTorch: no kernel).  Every
+    request finishes; rows are reused (each later request starts the step
+    after a row frees; fewer steps than the serial sum); each request's
+    tokens equal the same request decoded alone, where a differing token
+    is a fault unless the solo run's top-two margin there is under 1e-4
+    of the row's largest logit (then the rest of that request is not
+    compared).  Prints the steps, the step p50/p95 and the tokens a
+    second."""
+    torch.cuda.empty_cache()
+    cfg = get_config("starcoder2_3b").scaled(dtype="float32")
+    params = init_model(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(BATCHER_REQUESTS):
+        n = int(rng.integers(BATCHER_PROMPT[0], BATCHER_PROMPT[1] + 1))
+        reqs.append(Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                       size=n),
+                            max_new=int(rng.integers(BATCHER_NEW[0],
+                                                     BATCHER_NEW[1] + 1))))
+
+    def decode_fn(t, c, n):
+        with torch.inference_mode():
+            return decode_step(params, cfg, t, c, n)
+
+    cache = init_cache(cfg, BATCHER_ROWS, BATCHER_MAX_LEN,
+                       dtype=torch.float32)
+    bat = ContinuousBatcher(batch=BATCHER_ROWS, max_len=BATCHER_MAX_LEN,
+                            decode_fn=decode_fn)
+    for r in reqs:
+        bat.submit(r)
+    torch.cuda.synchronize()
+    _reset_model_counts()
+    step_ms = []
+    t0 = time.perf_counter()
+    while bat.queue or bat.active:
+        ts = time.perf_counter()
+        cache, _ = bat.step(cache)       # ends in the argmax's read-back
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    counts = _model_counts()
+    generated = sum(len(r.output) for r in reqs)
+    processed = sum(len(r.prompt) + len(r.output) - 1 for r in reqs)
+    serial = sum(len(r.prompt) + r.max_new for r in reqs)
+    finished = collections.Counter(r.finished_step for r in reqs)
+    started = collections.Counter(r.started_step for r in reqs
+                                  if r.started_step > 0)
+    reused = bool(started) and all(started[s] <= finished[s - 1]
+                                   for s in started)
+    del cache
+    allowed, worst, faults = [], float("inf"), []
+    for r in reqs:
+        solo, margins = _solo_decode(params, cfg, r.prompt, r.max_new,
+                                     BATCHER_MAX_LEN)
+        worst = min(worst, min(margins))
+        for j, (a, b) in enumerate(zip(r.output, solo)):
+            if a != b:
+                if margins[j] < 1e-4:
+                    allowed.append((r.rid, j, margins[j]))
+                else:
+                    faults.append((r.rid, j, a, b, margins[j]))
+                break
+        else:
+            if len(r.output) != len(solo):
+                faults.append((r.rid, len(r.output), len(solo)))
+    print(f"batcher (StarCoder2-3B, float32, {BATCHER_ROWS} rows, "
+          f"{BATCHER_REQUESTS} requests, prompts {BATCHER_PROMPT}, new "
+          f"{BATCHER_NEW}): steps={bat.step_no} (serial sum {serial}) "
+          f"done={len(bat.done)} rows_reused={reused} starts="
+          f"{sorted(r.started_step for r in reqs)} step_ms_p50="
+          f"{float(np.percentile(step_ms, 50))!r} step_ms_p95="
+          f"{float(np.percentile(step_ms, 95))!r} wall_s={wall!r} "
+          f"generated_tokens_per_s={generated / wall!r} "
+          f"processed_tokens_per_s={processed / wall!r} launches (ssd, "
+          f"flash, flash_wgmma)={counts}; against solo decodes: smallest "
+          f"top-two margin {worst!r} of the row's largest logit, near-tie "
+          f"allowances used {allowed}")
+    if faults or not (len(bat.done) == BATCHER_REQUESTS and reused
+                      and bat.step_no < serial and counts == (0, 0, 0)):
+        raise AssertionError(f"the batcher differs from solo decoding or "
+                             f"did not batch: {faults}")
+    del params
+
+
+def per_row_phase():
+    """One ``decode_step`` with an unequal (B,) ``cache_len`` on the smoke
+    configs of every family with an attention cache (PER_ROW: StarCoder2,
+    Gemma2-9B with a row past its 32-slot local cache, OLMoE at
+    ``capacity_factor = n_experts``, DeepSeek-V3's MLA, Zamba2), float32,
+    over a seeded random cache: the card against the port on the CPU,
+    logits and every cache leaf within relative 1e-4; then Whisper's
+    refusal of a (B,) ``cache_len`` on the card."""
+    worst = 0.0
+    for arch, changes, lengths in PER_ROW:
+        cfg = get_smoke(arch).scaled(dtype="float32", param_dtype="float32",
+                                     **changes)
+        cpu_params = init_model(cfg, seed=3, device="cpu")
+        gpu_params = tree_map(lambda t: t.cuda(), cpu_params,
+                              lambda t: isinstance(t, torch.Tensor))
+        B = len(lengths)
+        c_cpu = init_cache(cfg, B, 48, dtype=torch.float32, device="cpu")
+        g = torch.Generator()
+        g.manual_seed(8)
+        for leaf in _leaves(c_cpu):
+            leaf.copy_(torch.randn(leaf.shape, generator=g))
+        c_gpu = tree_map(lambda t: t.cuda(), c_cpu,
+                         lambda t: isinstance(t, torch.Tensor))
+        tok = torch.randint(0, cfg.vocab_size, (B, 1), generator=g)
+        n = torch.tensor(lengths)
+        with torch.inference_mode():
+            a, c_cpu = decode_step(cpu_params, cfg, tok, c_cpu, n)
+            b, c_gpu = decode_step(gpu_params, cfg, tok.cuda(), c_gpu,
+                                   n.cuda())
+        torch.cuda.synchronize()
+        rels = [_rel(b, a)] + [_rel(x, y) for x, y in zip(_leaves(c_gpu),
+                                                         _leaves(c_cpu))]
+        print(f"per-row decode ({cfg.name}, float32, cache_len "
+              f"{list(lengths)}): logits rel={rels[0]!r}, max cache-leaf "
+              f"rel={max(rels[1:])!r} over {len(rels) - 1} leaves")
+        worst = max(worst, *rels)
+    cfg = get_smoke("whisper_large_v3").scaled(dtype="float32")
+    params = init_model(cfg, seed=3)
+    try:
+        decode_step(params, cfg, torch.zeros((2, 1), dtype=torch.int64,
+                                             device="cuda"),
+                    init_cache(cfg, 2, 8), torch.tensor([0, 3],
+                                                        device="cuda"))
+    except NotImplementedError as e:
+        print(f"per-row decode (Whisper): refused as in the reference: {e}")
+    else:
+        raise AssertionError("Whisper took a per-row cache_len")
+    if worst > 1e-4:
+        raise AssertionError(f"per-row decode on the card differs from the "
+                             f"CPU: rel {worst!r}")
+
+
 def _stage_device_ms(prof, names):
     """{range name: device ms of the kernels launched inside it}, over the
     profile's CPU op tree (each kernel belongs to the op that launched it)."""
@@ -3482,7 +3859,7 @@ def _moe_share(prof, busy, what):
 
 def serve_profile_phase(arch="zamba2_7b", dims=SERVE, steps=4):
     """Where the serving time goes at full width (bf16; ``dims``: batch,
-    prompt): one traced prefill (device busy, idle share, the kernels'
+    prompt; Whisper's frames seeded after the prompt): one traced prefill (device busy, idle share, the kernels'
     device time, the top device ops), then ``steps`` traced decode steps;
     for an MoE model, the expert dispatch's device time against the
     expert products' in each."""
@@ -3496,13 +3873,16 @@ def serve_profile_phase(arch="zamba2_7b", dims=SERVE, steps=4):
     S = dims["prompt"]
     toks = torch.randint(0, cfg.vocab_size, (dims["batch"], S),
                          generator=g, device="cuda")
-    serve_steps.prefill_into_cache(params, cfg, toks, S + 1)
+    frames = (torch.randn((dims["batch"], cfg.encoder_seq, cfg.d_model),
+                          generator=g, device="cuda") * 0.1
+              if cfg.family == "encdec" else None)
+    serve_steps.prefill_into_cache(params, cfg, toks, S + 1, frames=frames)
     torch.cuda.synchronize()
     with stages, profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        logits, cache = serve_steps.prefill_into_cache(params, cfg, toks,
-                                                       S + dims["gen"])
+        logits, cache = serve_steps.prefill_into_cache(
+            params, cfg, toks, S + dims["gen"], frames=frames)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = _device_table(prof)
@@ -3601,19 +3981,28 @@ def main() -> int:
     _phase(profile_phase, "tiled", lanes=8)
     ssd_err, ssd_t = _phase(ssd_phase)
     (flash_err, flash_t), (wgmma_err, wgmma_t), _ = _phase(flash_phase)
+    whisper_err = _phase(flash_whisper_phase)
+    flash_err = max(flash_err, whisper_err["f32"])
+    wgmma_err = max(wgmma_err, whisper_err["wgmma"])
     _phase(model_parity_phase)
+    _phase(encdec_smoke_phase)
+    _phase(per_row_phase)
     flash_launches = _phase(consistency_phase)
     flash_launches += _phase(window_consistency_phase)
     flash_launches += _phase(moe_consistency_phase)
+    flash_launches += _phase(whisper_consistency_phase)
     ssd_launches, wgmma_launches = _phase(serve_phase)
     wgmma_launches += _phase(dense_serve_phase, "gemma2_9b")
     wgmma_launches += _phase(dense_serve_phase, "starcoder2_3b")
     wgmma_launches += _phase(olmoe_serve_phase)
+    wgmma_launches += _phase(whisper_serve_phase)
     _phase(mla_full_phase)
     _phase(deepseek_serve_phase)
+    _phase(batcher_phase)
     _phase(serve_profile_phase)
     _phase(serve_profile_phase, "gemma2_9b", GEMMA_SERVE)
     _phase(serve_profile_phase, "olmoe_1b_7b", OLMOE_SERVE, steps=1)
+    _phase(serve_profile_phase, "whisper_large_v3", WHISPER_SERVE)
     # sweep: launch-weighted means over the whole route's 10x sweep shapes
     # (f64, cost only); chain tile: launch-weighted over the tiled route's
     # own tiles (tile_mix_phase), at one lane a launch and, as a row of its
@@ -3659,14 +4048,16 @@ def main() -> int:
                  "src/repro/kernels/minplus/monotone.py:268", d_launches,
                  dnc_err, dnc_t, None))
     # the model kernels: device time per launch at Zamba2-7B's prefill
-    # shapes (the dense and MoE families' shapes on the flash phase's own
-    # lines); SSD (float32): launches over the Zamba2 serve phase's two
-    # prefills; the tensor-core flash kernel (bf16): over the two prefills
-    # of each of the four serve phases (Zamba2-7B, Gemma2-9B,
-    # StarCoder2-3B, OLMoE-1B-7B); the float32 flash kernel (TF32
-    # mma.sync): over the float32 path's prefills (Zamba2-7B's consistency
-    # phase, Gemma2-9B's two in the window consistency phase, OLMoE's two
-    # in the MoE consistency phase)
+    # shapes (the dense, MoE and enc-dec families' shapes on the flash
+    # phases' own lines); SSD (float32): launches over the Zamba2 serve
+    # phase's two prefills; the tensor-core flash kernel (bf16): over the
+    # two prefills of each of the five serve phases (Zamba2-7B, Gemma2-9B,
+    # StarCoder2-3B, OLMoE-1B-7B, Whisper-large-v3); the float32 flash
+    # kernel (TF32 mma.sync): over the float32 path's prefills (Zamba2-7B's
+    # consistency phase, Gemma2-9B's two in the window consistency phase,
+    # OLMoE's two in the MoE consistency phase, Whisper's prefill and
+    # encdec_prepare in its consistency phase); max_abs_err over the
+    # Whisper shapes too
     fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
     fa_ref = "src/repro/kernels/flash_attention/kernel.py:71"
     rows += [("ssd_mma", "src/repro_torch/kernels/ssd/csrc/ssd_mma.cu",

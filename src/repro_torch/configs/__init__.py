@@ -7,9 +7,9 @@ import importlib
 
 from ..models.config import ModelConfig, smoke_variant
 
-ARCHS = ["olmoe_1b_7b", "deepseek_v3_671b", "granite_34b", "gemma2_27b",
-         "starcoder2_3b", "gemma2_9b", "mamba2_370m", "pixtral_12b",
-         "zamba2_7b"]
+ARCHS = ["whisper_large_v3", "olmoe_1b_7b", "deepseek_v3_671b",
+         "granite_34b", "gemma2_27b", "starcoder2_3b", "gemma2_9b",
+         "mamba2_370m", "pixtral_12b", "zamba2_7b"]
 
 
 def norm_name(name: str) -> str:
@@ -18,10 +18,7 @@ def norm_name(name: str) -> str:
 
 def get_config(name: str) -> ModelConfig:
     if norm_name(name) not in ARCHS:
-        raise NotImplementedError(
-            f"{name!r}: the port serves {ARCHS} so far; the other "
-            "architectures of the reference come with their families in a "
-            "later slice (ROADMAP Queue 1)")
+        raise NotImplementedError(f"{name!r}: the port serves {ARCHS}")
     mod = importlib.import_module(f".{norm_name(name)}", __package__)
     return mod.CONFIG
 

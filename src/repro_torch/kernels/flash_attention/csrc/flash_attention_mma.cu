@@ -49,6 +49,16 @@
 //   a_hi b_hi: about 2^-20 relative per operand, where one pass keeps
 //   ~3 decimal digits and misses the float32 tolerance (2e-5) by ~100x
 //   (tests/test_torch_flash_attention.py emulates both on the CPU).
+//   The tensor cores round each sum they write toward zero, so a row's
+//   P V taken straight into O (three passes for every 8 keys: 563
+//   truncations over Whisper's 1500 keys) drifted low by up to ~5e-5 of
+//   |O| where V is coherent along the keys, past the 2e-5 tolerance on
+//   a Whisper-large-v3 encoder layer; each 8 keys' three passes now go
+//   into a zeroed partial, added to O on the CUDA cores in round to
+//   nearest (tests/test_torch_flash_attention.py emulates both).  The
+//   four adds per three mma cost 9-19 % up to D = 128 and 38 % at
+//   D = 256 on an H100 (PERF.md).  The scores' own chain is D / 8 steps
+//   long and stays as it is.
 //   wgmma would need both TF32 operands K-major, so V staged again
 //   transposed and the B operands split ahead of time in shared memory;
 //   for the SSD kernel that staging cost more than wgmma saved.
@@ -370,8 +380,13 @@ flash_mma_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split(vr[8 * dt], bh[0], bl[0]);
         split(vr[8 * dt + kS], bh[1], bl[1]);
 #pragma unroll
-        for (int mt = 0; mt < kM; ++mt)
-          mma3(acc[mt][dt], ah[mt], al[mt], bh, bl);
+        for (int mt = 0; mt < kM; ++mt) {
+          // the 8 keys' three passes from zero, then one rounded add
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma3(part, ah[mt], al[mt], bh, bl);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][dt][e] += part[e];
+        }
       }
     }
   }

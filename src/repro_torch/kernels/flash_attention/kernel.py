@@ -10,7 +10,8 @@ ragged edges themselves.
 
 :func:`flash_attention_cuda` (``csrc/flash_attention_mma.cu``) takes
 float32: both products as TF32 ``mma.sync`` in three passes (each
-operand split in a hi and a lo part), which keeps float32's accuracy,
+operand split in a hi and a lo part; each 8 keys' P V passes summed from
+zero and rounded into O), which keeps float32's accuracy,
 one warp per 32 query rows (16 at D = 256, or on a grid too small for
 the SMs), K and V brought by ``cp.async`` into a ring.
 :func:`mma_plan` is its plan, a function of the head dim D and of how

@@ -1,19 +1,20 @@
 """Attention: GQA + RoPE + sliding window + logit soft-cap + qk-norm
-(OLMoE), as ``repro/models/attention.py`` (self-attention; MLA is
-:mod:`.mla`, and the cross path comes with the enc-dec family).
+(OLMoE), causal or not, self or cross (Whisper), as
+``repro/models/attention.py`` (MLA is :mod:`.mla`).
 
 The branch is the reference's: ``naive`` (:func:`_sdpa`, full scores)
-when ``S * Sk <= 256 * 256`` or ``attn_impl == "naive"``, else the
+when ``Sq * Sk <= 256 * 256`` or ``attn_impl == "naive"``, else the
 flash-style recurrence.  There a CUDA tensor goes to the hand-written
 flash-attention kernel (``kernels/flash_attention``) and a CPU tensor to
 :func:`_sdpa_chunked`, the same online-softmax recurrence in plain
 PyTorch.  Decode attends one new token against the KV cache with
-:func:`_sdpa`, plain PyTorch on both, as in the reference.
+:func:`_sdpa`, plain PyTorch on both, as in the reference; its cache
+length is one int for the batch or each row's own.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -109,78 +110,124 @@ def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           positions: torch.Tensor, window: int, cap: float) -> torch.Tensor:
+           qpos: torch.Tensor, kpos: torch.Tensor, causal: bool, window: int,
+           cap: float) -> torch.Tensor:
     """The chunked branch on the card: one flash-attention launch.  Its
-    masks are by index, so the positions must be ``arange(S)`` (they are
-    on every prefill).  q: (B,S,H,D) -> (B,S,H,D) in q's dtype."""
-    S = q.shape[1]
-    if positions.ndim != 1 or not torch.equal(
-            positions, torch.arange(S, device=positions.device)):
-        raise NotImplementedError(
-            "the flash-attention kernel masks by index: positions must be "
-            "arange(S)")
-    return attention_op(q, k, v, causal=True, window=window, softcap=cap)
+    masks are by index, so a causal or windowed call needs its positions
+    to be ``arange(Sq)`` and ``arange(Sk)`` (they are on every prefill);
+    a non-causal call with no window has no positional mask and takes any
+    positions (Whisper's encoder and cross-attention).  q: (B,Sq,H,D),
+    k/v: (B,Sk,KV,D) -> (B,Sq,H,D) in q's dtype."""
+    if causal or window > 0:
+        for pos, n in ((qpos, q.shape[1]), (kpos, k.shape[1])):
+            if pos.ndim != 1 or not torch.equal(
+                    pos, torch.arange(n, device=pos.device)):
+                raise NotImplementedError(
+                    "the flash-attention kernel masks by index: a causal or "
+                    "windowed call needs positions arange(S)")
+    return attention_op(q, k, v, causal=causal, window=window, softcap=cap)
+
+
+def _write_rows(c: torch.Tensor, new: torch.Tensor,
+                start: torch.Tensor) -> None:
+    """Row b of ``new`` (B, S, ...) into ``c`` (B, L, ...) at slots
+    ``start[b]`` .. ``start[b] + S - 1``, in place (the reference's per-row
+    ``dynamic_update_slice``, which clamps each start to ``L - S``)."""
+    B, S = new.shape[:2]
+    start = torch.clamp(start, max=c.shape[1] - S)
+    rows = torch.arange(B, device=c.device)[:, None]
+    c[rows, start[:, None] + torch.arange(S, device=c.device)] = new.to(
+        c.dtype)
+
+
+def _decode_mask(cache_len, S: int, size: int,
+                 device: torch.device) -> torch.Tensor:
+    """Keys valid in a decode step: (S, size) for an int ``cache_len``
+    (the batch's), (B, S, size) for a (B,) tensor (each row's own),
+    keys below ``min(cache_len + S, size)``."""
+    kpos = torch.arange(size, device=device)
+    if isinstance(cache_len, torch.Tensor):
+        valid = torch.clamp(cache_len + S, max=size)
+        return (kpos[None, None, :] < valid[:, None, None]).expand(
+            -1, S, size)
+    return (kpos[None, :] < min(int(cache_len) + S, size)).expand(S, size)
 
 
 def attention(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-              *, window: int = 0, cache: Optional[Dict] = None,
-              cache_len: Optional[int] = None,
+              *, window: int = 0, causal: bool = True, use_rope: bool = True,
+              kv_src: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None,
+              cache: Optional[Dict] = None,
+              cache_len: Optional[Union[int, torch.Tensor]] = None,
               return_cache: bool = False
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Causal self-attention with RoPE; ``window`` > 0 lets a query see
-    only the last ``window`` positions (gemma2's local layers).  With
-    qk-norm (``qn``/``kn`` in ``params``) q and k are RMS-normalised over
-    the head dim before RoPE, in prefill and decode alike.
+    """Attention with RoPE (``use_rope``), causal or not; ``window`` > 0
+    lets a query see only the last ``window`` positions (gemma2's local
+    layers).  With qk-norm (``qn``/``kn`` in ``params``) q and k are
+    RMS-normalised over the head dim before RoPE, in prefill and decode
+    alike.
 
-    * prefill: cache=None (return_cache to build one)
-    * decode:  x is (B,1,D), cache holds K/V, cache_len (an int, one for
-               the whole batch) is the number of valid positions; the new
-               K/V are written into ``cache`` in place, and it is returned.
-               Decode masks no window, as the reference: a local layer's
-               cache is ``window`` slots long and rolls, so it holds
-               exactly the positions the window sees, and once it has
-               rolled its slots are not positions.
+    * self-attention prefill: cache=None (return_cache to build one)
+    * cross-attention:        K/V projected from ``kv_src`` (the encoder
+                              states, at ``kv_positions``), never rotated
+    * decode:  x is (B,1,D), cache holds K/V, ``cache_len`` is the number
+               of valid positions: an int for the whole batch, or a (B,)
+               tensor of each row's own (continuous batching), positions
+               then (B, S); the new K/V are written into ``cache`` in
+               place at ``cache_len % size`` (per row for a tensor), and
+               it is returned.  Decode masks no window, as the reference:
+               a local layer's cache is ``window`` slots long and rolls,
+               so it holds exactly the positions the window sees, and
+               once it has rolled its slots are not positions.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     dt = x.dtype
+    src = x if kv_src is None else kv_src
     q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    k = (src @ params["wk"].to(dt)).reshape(B, -1, KV, hd)
+    v = (src @ params["wv"].to(dt)).reshape(B, -1, KV, hd)
     if "qn" in params:
         q = rmsnorm(q, params["qn"], cfg.norm_eps)
         k = rmsnorm(k, params["kn"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    kpos = kv_positions if kv_positions is not None else positions
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        if kv_src is None:
+            k = apply_rope(k, kpos, cfg.rope_theta)
     new_cache = None
-    if cache is not None:
+    if cache is not None and kv_src is None:
         # decode: write the new K/V at cache_len, in place (the reference
         # returns an updated copy; a cache smaller than the stream rolls
         # over: keys are stored post-RoPE, so slot order does not matter)
         kc, vc = cache["k"], cache["v"]
         size = kc.shape[1]
-        write = min(int(cache_len) % size, size - S)
-        kc[:, write:write + S] = k.to(kc.dtype)
-        vc[:, write:write + S] = v.to(vc.dtype)
+        if isinstance(cache_len, torch.Tensor):
+            _write_rows(kc, k, cache_len % size)
+            _write_rows(vc, v, cache_len % size)
+        else:
+            write = min(int(cache_len) % size, size - S)
+            kc[:, write:write + S] = k.to(kc.dtype)
+            vc[:, write:write + S] = v.to(vc.dtype)
         new_cache = cache
-        kpos = torch.arange(size, device=x.device)
-        valid = min(int(cache_len) + S, size)
-        msk = (kpos[None, :] < valid).expand(S, size)
-        o = _sdpa(q.reshape(B, S, KV, G, hd), kc, vc, msk,
+        o = _sdpa(q.reshape(B, S, KV, G, hd), kc, vc,
+                  _decode_mask(cache_len, S, size, x.device),
                   cfg.attn_logit_softcap)
     else:
         if return_cache:
             new_cache = {"k": k, "v": v}
-        if cfg.attn_impl == "naive" or S * S <= 256 * 256:
+        Sk = k.shape[1]
+        if cfg.attn_impl == "naive" or S * Sk <= 256 * 256:
             o = _sdpa(q.reshape(B, S, KV, G, hd), k, v,
-                      _mask(positions, positions, True, window, None),
+                      _mask(positions, kpos, causal, window, None),
                       cfg.attn_logit_softcap)
         elif x.is_cuda:
-            o = _flash(q, k, v, positions, window, cfg.attn_logit_softcap)
+            o = _flash(q, k, v, positions, kpos, causal, window,
+                       cfg.attn_logit_softcap)
         else:
             o = _sdpa_chunked(q.reshape(B, S, KV, G, hd), k, v, positions,
-                              positions, True, window,
+                              kpos, causal, window,
                               cfg.attn_logit_softcap, None, cfg.attn_chunk)
     # every path yields (B, S, KV, G, D) or (B, S, H, D)
     o = o.reshape(B, S, H * hd).to(dt)

@@ -3,11 +3,13 @@
 layer (granite, starcoder2, pixtral, each half of a gemma2 pair, and the
 body of Zamba2's shared block), gemma2's local/global pair, the MoE
 decoder layer (OLMoE), the MLA layer with a dense MLP or an MoE
-(DeepSeek-V3), the Mamba2 layer and the Zamba2 period.
+(DeepSeek-V3), the Mamba2 layer, the Zamba2 period, and Whisper's
+encoder and decoder layers.
 
 ``body(p, cfg, h, ctx, cache)`` returns ``(h, new_cache)``; ``ctx``
 carries the positions, ``cache_len`` (decode), ``return_cache``
-(prefill) and ``h0`` (the initial embedding Zamba2's shared block reads).
+(prefill), ``h0`` (the initial embedding Zamba2's shared block reads)
+and, for Whisper, the encoder states ``enc`` and their ``enc_positions``.
 The MoE's auxiliary loss is dropped here: serving does not read it.
 """
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from .attention import attention, attn_specs
+from .attention import _sdpa, attention, attn_specs
 from .layers import P, activation, apply_norm, norm_spec
 from .mamba2 import mamba_block, mamba_specs
 from .mla import mla_attention, mla_specs
@@ -191,3 +193,77 @@ def zamba_period(p: Dict, shared: Dict, cfg, h: torch.Tensor, ctx: Dict,
     if all(c is None for c in new_cache["ssm"]) and nc_a is None:
         new_cache = None
     return h, new_cache
+
+
+def enc_layer_specs(cfg) -> Dict:
+    return {
+        "ln_attn": norm_spec(cfg),
+        "attn": attn_specs(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def enc_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+              cache: Optional[Dict] = None) -> Tuple[torch.Tensor, None]:
+    """Whisper's encoder layer: non-causal self-attention without RoPE,
+    then the MLP; no cache."""
+    a_in = apply_norm(p["ln_attn"], h, cfg)
+    a_out, _ = attention(p["attn"], cfg, a_in, ctx["enc_positions"],
+                         causal=False, use_rope=False)
+    h = h + a_out
+    return h + mlp(p["mlp"], cfg, apply_norm(p["ln_mlp"], h, cfg)), None
+
+
+def dec_layer_specs(cfg) -> Dict:
+    return {
+        "ln_self": norm_spec(cfg),
+        "self_attn": attn_specs(cfg),
+        "ln_cross": norm_spec(cfg),
+        "cross_attn": attn_specs(cfg),
+        "ln_mlp": norm_spec(cfg),
+        "mlp": mlp_specs(cfg),
+    }
+
+
+def _cross_from_cache(p: Dict, cfg, x: torch.Tensor,
+                      cross: Dict) -> torch.Tensor:
+    """Decode's cross-attention over the precomputed encoder K/V: every
+    key visible (``_sdpa`` with an all-true mask), nothing written."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = x.dtype
+    q = (x @ p["wq"].to(dt)).reshape(B, S, KV, H // KV, hd)
+    kc, vc = cross["k"], cross["v"]
+    mask = torch.ones((S, kc.shape[1]), dtype=torch.bool, device=x.device)
+    o = _sdpa(q, kc, vc, mask, 0.0)
+    return o.reshape(B, S, H * hd).to(dt) @ p["wo"].to(dt)
+
+
+def dec_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
+              cache: Optional[Dict]) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Whisper's decoder layer: causal self-attention without RoPE, then
+    cross-attention over the encoder states (non-causal, no RoPE; in
+    decode over ``cache["cross"]``, left as it is), then the MLP."""
+    self_c = cache.get("self") if cache else None
+    a_in = apply_norm(p["ln_self"], h, cfg)
+    a_out, nc_self = attention(
+        p["self_attn"], cfg, a_in, ctx["positions"], cache=self_c,
+        cache_len=ctx.get("cache_len"), use_rope=False,
+        return_cache=ctx.get("return_cache", False))
+    h = h + a_out
+    c_in = apply_norm(p["ln_cross"], h, cfg)
+    if cache is not None and cache.get("cross") is not None:
+        c_out = _cross_from_cache(p["cross_attn"], cfg, c_in, cache["cross"])
+        nc_cross = cache["cross"]
+    else:
+        c_out, nc_cross = attention(
+            p["cross_attn"], cfg, c_in, ctx["positions"], causal=False,
+            use_rope=False, kv_src=ctx["enc"],
+            kv_positions=ctx["enc_positions"],
+            return_cache=ctx.get("return_cache", False))
+    h = h + c_out
+    new_cache = None
+    if nc_self is not None or nc_cross is not None:
+        new_cache = {"self": nc_self, "cross": nc_cross}
+    return h + mlp(p["mlp"], cfg, apply_norm(p["ln_mlp"], h, cfg)), new_cache

@@ -1,6 +1,6 @@
 """Model configuration: the port's own copy of ``repro/models/config.py``
 (the same fields, defaults and smoke reduction), covering every family
-of the reference; the port serves every family but ``encdec`` so far.
+of the reference, all of which the port serves.
 """
 from __future__ import annotations
 

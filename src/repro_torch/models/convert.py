@@ -5,9 +5,10 @@ trees come across as they are: a LayerNorm's bias, a gemma2 pair's
 ``local`` and ``global`` layers with their post-norms, an untied
 ``lm_head`` (pixtral, DeepSeek-V3), qk-norm's ``qn``/``kn``, the MoE
 router, the stacked expert weights ``wg``/``wi``/``wo`` (E, d, f) and the
-shared expert's, MLA's low-rank projections and norms, and DeepSeek-V3's
-``mtp`` subtree (carried, read by no serving path) are leaves like any
-other.  A bfloat16 leaf (``ml_dtypes.bfloat16``, DeepSeek-V3's parameter
+shared expert's, MLA's low-rank projections and norms, DeepSeek-V3's
+``mtp`` subtree (carried, read by no serving path) and Whisper's
+``encoder`` and ``decoder`` groups (``ln_cross``, ``cross_attn``) are
+leaves like any other.  A bfloat16 leaf (``ml_dtypes.bfloat16``, DeepSeek-V3's parameter
 dtype) comes across bit for bit."""
 from __future__ import annotations
 

@@ -12,6 +12,7 @@ so the parity tests carry the reference's parameters across instead
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -167,6 +168,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """Whisper's sinusoidal position table (no parameters), (length, dim)
+    float32: built in float64 numpy and rounded once, as the reference
+    builds it, so the bits match (kept on the host per shape: decode asks
+    for it every step)."""
+    return torch.tensor(_sinusoidal_table(length, dim), device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoidal_table(length: int, dim: int) -> np.ndarray:
+    pos = np.arange(length)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=1)
+    return out.astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

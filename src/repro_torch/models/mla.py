@@ -8,18 +8,18 @@ all at once up to :data:`FLASH_THRESHOLD` positions (full scores), in
 chunks of 2048 keys under an online softmax above it
 (:func:`_mla_flash`).  Decode uses the *absorbed* form: ``W^{UK}`` is
 folded into the query so attention runs in latent space over the cache,
-written in place at ``cache_len``.  The attention itself runs in float32,
+written in place at ``cache_len`` (one for the batch or each row's).  The attention itself runs in float32,
 as in the reference, and in plain PyTorch on every device (the reference
 leaves it to XLA: no Pallas kernel).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from .attention import NEG_INF, _mask
+from .attention import NEG_INF, _decode_mask, _mask, _write_rows
 from .layers import P, apply_rope, rmsnorm
 
 # sequences longer than this take the chunked online-softmax branch
@@ -67,14 +67,15 @@ def _latent_kv(params: Dict, cfg, x: torch.Tensor, positions: torch.Tensor
 
 def mla_attention(params: Dict, cfg, x: torch.Tensor,
                   positions: torch.Tensor, *, cache: Optional[Dict] = None,
-                  cache_len: Optional[int] = None,
+                  cache_len: Optional[Union[int, torch.Tensor]] = None,
                   return_cache: bool = False
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """* prefill: cache=None (``return_cache`` for the latent entries of
                the prompt, ``{"ckv", "kr"}`` of length S);
     * decode:  ``cache`` holds ``ckv`` (B, L, kv_lora_rank) and ``kr``
                (B, L, qk_rope_dim); the new entries are written in place
-               at ``cache_len`` (an int, one for the batch; no roll), and
+               at ``cache_len`` (an int for the batch, or a (B,) tensor
+               of each row's own, positions then (B, S); no roll), and
                keys at or past ``cache_len + S`` are masked."""
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -92,18 +93,22 @@ def mla_attention(params: Dict, cfg, x: torch.Tensor,
         # ---- decode: absorbed attention in latent space ----
         ckv_new, kr_new = _latent_kv(params, cfg, x, positions)
         ckv, kr = cache["ckv"], cache["kr"]
-        n = int(cache_len)
-        ckv[:, n:n + S] = ckv_new.to(ckv.dtype)
-        kr[:, n:n + S] = kr_new.to(kr.dtype)
+        if isinstance(cache_len, torch.Tensor):    # per row (batcher)
+            _write_rows(ckv, ckv_new, cache_len)
+            _write_rows(kr, kr_new, cache_len)
+        else:
+            n = int(cache_len)
+            ckv[:, n:n + S] = ckv_new.to(ckv.dtype)
+            kr[:, n:n + S] = kr_new.to(kr.dtype)
         new_cache = cache
         # fold W^{UK} into q: (B,S,H,nope) x (lr,H,nope) -> (B,S,H,lr)
         q_lat = torch.einsum("bshn,lhn->bshl", qn, wk_b)
         ckv_f = ckv.float()
         s = (torch.einsum("bshl,btl->bhst", q_lat, ckv_f)
              + torch.einsum("bshr,btr->bhst", qr, kr.float())) * scale
-        kpos = torch.arange(ckv.shape[1], device=x.device)
-        msk = _mask(positions, kpos, False, 0, n + S)
-        s = torch.where(msk[None, None], s, neg)
+        msk = _decode_mask(cache_len, S, ckv.shape[1], x.device)
+        s = torch.where(msk[:, None] if msk.ndim == 3 else msk[None, None],
+                        s, neg)
         p = torch.softmax(s, dim=-1)
         ctx = torch.einsum("bhst,btl->bshl", p, ckv_f)
         o = torch.einsum("bshl,lhv->bshv", ctx, wv_b)

@@ -1,15 +1,17 @@
-"""Model assembly: parameters, prefill and decode for the families the
-port serves so far (``dense``: granite, starcoder2, pixtral's backbone
-and gemma2's local/global pairs; ``moe``: OLMoE, and DeepSeek-V3 with MLA
-and its multi-token-prediction parameters; ``ssm``: Mamba2; ``hybrid``:
-Zamba2), as ``repro/models/model.py``.
+"""Model assembly: parameters, prefill and decode for every family of
+the reference (``dense``: granite, starcoder2, pixtral's backbone and
+gemma2's local/global pairs; ``moe``: OLMoE, and DeepSeek-V3 with MLA and
+its multi-token-prediction parameters; ``ssm``: Mamba2; ``hybrid``:
+Zamba2; ``encdec``: Whisper, its encoder run once a prefill and its
+cross K/V precomputed for decode), as ``repro/models/model.py``.
 
 Layers are organized into *groups* of identical structure, each group's
 parameters stacked along a leading layer axis as in the reference, so
 the parameter and cache trees are the reference's.  The reference's
 ``lax.scan`` over a group becomes a Python loop over the layer index.
 Prefill returns caches stacked the same way; decode updates the cache it
-is given in place and returns it.
+is given in place and returns it.  The training entry points
+(``forward_train``, ``_mtp_logits``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ from .. import resolve_device
 from . import blocks
 from .config import ModelConfig
 from .layers import (P, apply_norm, init_params, norm_spec, padded_vocab,
-                     softcap, tree_map)
+                     sinusoidal_positions, softcap, tree_map)
 
-SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+SERVED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,15 +38,14 @@ class GroupDef:
 
 
 def check_served(cfg: ModelConfig) -> None:
-    """Refuse a family outside :data:`SERVED_FAMILIES` (enc-dec).  The
-    multi-token-prediction module's parameters are built and carried, but
-    no serving path reads them, as in the reference's prefill and
-    decode."""
+    """Refuse a family outside :data:`SERVED_FAMILIES` (one the reference
+    does not know either).  The multi-token-prediction module's
+    parameters are built and carried, but no serving path reads them, as
+    in the reference's prefill and decode."""
     if cfg.family not in SERVED_FAMILIES:
         raise NotImplementedError(
             f"config {cfg.name!r} (family {cfg.family!r}): the port serves "
-            f"the {SERVED_FAMILIES} families so far; the enc-dec family "
-            "comes in a later slice of the model stack (ROADMAP Queue 1)")
+            f"the {SERVED_FAMILIES} families")
 
 
 def group_defs(cfg: ModelConfig) -> List[GroupDef]:
@@ -81,6 +82,10 @@ def group_defs(cfg: ModelConfig) -> List[GroupDef]:
             defs.append(GroupDef("tail", tail, blocks.ssm_layer_specs(cfg),
                                  blocks.ssm_layer))
         return defs
+    return [GroupDef("encoder", cfg.n_encoder_layers,        # encdec
+                     blocks.enc_layer_specs(cfg), blocks.enc_layer),
+            GroupDef("decoder", cfg.n_layers, blocks.dec_layer_specs(cfg),
+                     blocks.dec_layer)]
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +200,33 @@ def _embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     return h
 
 
+def _run_encoder(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
+                 ctx: Dict) -> Tuple[torch.Tensor, Dict]:
+    """Whisper's encoder over the (stubbed) frame embeddings (B, Se, d):
+    the frames plus the sinusoidal table, then the encoder group.
+    Returns (the encoder states, ``ctx`` with ``enc`` and
+    ``enc_positions``)."""
+    dt = getattr(torch, cfg.dtype)
+    Se = frames.shape[1]
+    ctx = dict(ctx, enc_positions=torch.arange(Se, device=frames.device))
+    h = frames.to(dt) + sinusoidal_positions(Se, cfg.d_model,
+                                             frames.device).to(dt)
+    gdef = next(g for g in group_defs(cfg) if g.name == "encoder")
+    h, _ = _scan_group(gdef, params["groups"]["encoder"], cfg, h, ctx, None,
+                       None)
+    ctx["enc"] = h
+    return h, ctx
+
+
+def _dec_embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+               pos_tab: torch.Tensor) -> torch.Tensor:
+    """Whisper's decoder input: the token embeddings plus ``pos_tab``
+    (the sinusoidal rows of their positions), in the compute dtype, with
+    no sqrt(d) scale."""
+    dt = getattr(torch, cfg.dtype)
+    return params["embed"][tokens].to(dt) + pos_tab.to(dt)
+
+
 def _logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     h = apply_norm(params["final_norm"], h, cfg)
     if cfg.tie_embeddings:
@@ -214,7 +246,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Stacked per-group decode caches, zeroed (None device: the card);
     a gemma2 pair's local cache is ``min(max_len, sliding_window)`` long
     and rolls in decode; an MLA group's holds the latent ``ckv`` and the
-    RoPE key ``kr`` per position."""
+    RoPE key ``kr`` per position; Whisper's decoder holds its ``self``
+    K/V of ``max_len`` and its ``cross`` K/V of ``encoder_seq``."""
     dev = resolve_device(device)
     KV, hd = cfg.n_kv_heads, cfg.head_dim
 
@@ -236,7 +269,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
     caches: Dict[str, Any] = {}
     for g in group_defs(cfg):
-        if g.name == "pairs":
+        if g.name == "encoder":
+            continue
+        if g.name == "decoder":
+            caches[g.name] = {"self": kv(g.n, max_len),
+                              "cross": kv(g.n, cfg.encoder_seq)}
+        elif g.name == "pairs":
             caches[g.name] = {
                 "local": kv(g.n, min(max_len, cfg.sliding_window)),
                 "global": kv(g.n, max_len)}
@@ -257,23 +295,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return caches
 
 
+def encdec_prepare(params: Dict, cfg: ModelConfig, frames: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """Run Whisper's encoder once over ``frames`` and precompute each
+    decoder layer's cross K/V (static during decode): returns (the
+    encoder states (B, Se, d), {"k", "v"} stacked (n_layers, B, Se, KV,
+    hd))."""
+    enc, _ = _run_encoder(params, cfg, frames, {})
+    dec_p = params["groups"]["decoder"]["cross_attn"]
+    B, Se, _ = enc.shape
+    shape = (B, Se, cfg.n_kv_heads, cfg.head_dim)
+    dt = enc.dtype
+    cross = {w[1]: torch.stack([(enc @ dec_p[w][i].to(dt)).reshape(shape)
+                                for i in range(cfg.n_layers)])
+             for w in ("wk", "wv")}
+    return enc, cross
+
+
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int
             ) -> Tuple[torch.Tensor, Dict]:
-    """Forward over the prompt ``batch["tokens"]`` (B, S), and for pixtral
-    ``batch["patch_embeds"]`` (B, n_patches, d_model) if given; returns
-    (last-position logits (B, 1, Vpad) float32, cache) with the attention
-    caches of length S, local ones too, as the reference's (``max_len``
+    """Forward over the prompt ``batch["tokens"]`` (B, S), for pixtral
+    ``batch["patch_embeds"]`` (B, n_patches, d_model) if given, and for
+    Whisper over ``batch["frames"]`` (B, encoder_seq, d_model) first (the
+    encoder); returns (last-position logits (B, 1, Vpad) float32, cache)
+    with the attention caches of length S, local ones too, and Whisper's
+    cross K/V of length ``encoder_seq``, as the reference's (``max_len``
     is unused there too; :mod:`repro_torch.serve.steps` moves the cache
     into a decode cache of ``max_len``)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     ctx: Dict[str, Any] = {"positions": positions, "return_cache": True}
-    h = _embed(params, cfg, tokens, batch.get("patch_embeds"))
+    if cfg.family == "encdec":
+        _, ctx = _run_encoder(params, cfg, batch["frames"], ctx)
+        h = _dec_embed(params, cfg, tokens, sinusoidal_positions(
+            S, cfg.d_model, tokens.device))
+    else:
+        h = _embed(params, cfg, tokens, batch.get("patch_embeds"))
     ctx["h0"] = h
     shared = params.get("shared_block")
     cache_out: Dict[str, Any] = {}
     for g in group_defs(cfg):
+        if g.name == "encoder":
+            continue
         h, nc = _scan_group(g, params["groups"][g.name], cfg, h, ctx, None,
                             shared)
         cache_out[g.name] = nc
@@ -281,19 +345,50 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict, max_len: int
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Dict, cache_len: int) -> Tuple[torch.Tensor, Dict]:
+                cache: Dict, cache_len: Union[int, torch.Tensor],
+                batch_extras: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: (B, 1); ``cache`` from :func:`init_cache`
-    (updated in place and returned); ``cache_len``: the number of valid
-    positions, one for the whole batch."""
+    (updated in place and returned; Whisper's ``cross`` K/V read, never
+    written); ``cache_len``: the number of valid positions, an int for
+    the whole batch or a (B,) integer tensor of each row's own
+    (continuous batching, :mod:`repro_torch.serve.batcher`), positions
+    then ``cache_len[:, None] + arange(S)``.  ``batch_extras["enc"]``
+    (Whisper's encoder states) is carried into the layers' context as in
+    the reference; decode reads the cross cache instead.
+
+    Whisper with a (B,) ``cache_len`` raises NotImplementedError: the
+    reference fails there too (``pos_tab[positions][None]``,
+    ``repro/models/model.py:382``, makes a 4-D hidden state)."""
     B, S = tokens.shape
-    cache_len = int(cache_len)
-    positions = cache_len + torch.arange(S, device=tokens.device)
+    ar = torch.arange(S, device=tokens.device)
+    if isinstance(cache_len, torch.Tensor):
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                f"{cfg.name}: a per-row cache_len on the enc-dec family; the "
+                "reference's decode fails there too (pos_tab[positions]"
+                "[None] at repro/models/model.py:382 gives a 4-D hidden "
+                "state)")
+        positions = cache_len[:, None] + ar[None, :]
+    else:
+        cache_len = int(cache_len)
+        positions = cache_len + ar
     ctx: Dict[str, Any] = {"positions": positions, "cache_len": cache_len,
                            "return_cache": True}
-    h = _embed(params, cfg, tokens)
+    if cfg.family == "encdec":
+        ctx["enc"] = (batch_extras or {}).get("enc")
+        ctx["enc_positions"] = torch.arange(cfg.encoder_seq,
+                                            device=tokens.device)
+        max_len = cache["decoder"]["self"]["k"].shape[2]
+        pos_tab = sinusoidal_positions(max_len, cfg.d_model, tokens.device)
+        h = _dec_embed(params, cfg, tokens, pos_tab[positions][None])
+    else:
+        h = _embed(params, cfg, tokens)
     ctx["h0"] = h
     shared = params.get("shared_block")
     for g in group_defs(cfg):
+        if g.name == "encoder":
+            continue
         h, cache[g.name] = _scan_group(g, params["groups"][g.name], cfg, h,
                                        ctx, cache[g.name], shared)
     return _logits(params, cfg, h), cache

@@ -9,8 +9,10 @@ The reference's ``serve/steps.py`` builds the same two steps for pjit
 of the prompt's length S, so its cache is written into
 ``init_cache(cfg, B, max_len)`` — attention K/V (the dense and MoE
 families, Zamba2's shared block) and MLA's latent ``ckv`` and RoPE key
-``kr`` (DeepSeek-V3) at positions [0, S), the SSM state and both conv
-tails as they are — and decoding continues at ``cache_len = S``.  A decode leaf shorter than the prompt (a gemma2 local
+``kr`` (DeepSeek-V3) at positions [0, S), Whisper's cross K/V (length
+``encoder_seq``) whole, the SSM state and both conv tails as they are —
+and decoding continues at ``cache_len = S``; decode reads the cross K/V
+and never rewrites them.  A decode leaf shorter than the prompt (a gemma2 local
 cache of ``sliding_window`` slots under a longer prompt) keeps the last
 L positions, position p at slot p % L: the state the reference's decode
 reaches after feeding the prompt one token at a time.  So the copy is
@@ -45,10 +47,11 @@ def _copy_prefix(dst: Any, src: Any, key: Optional[str] = None) -> None:
 
 def prefill_into_cache(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                        max_len: int,
-                       patch_embeds: Optional[torch.Tensor] = None
+                       patch_embeds: Optional[torch.Tensor] = None,
+                       frames: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, Dict]:
     """Prefill ``tokens`` (B, S) (and pixtral's ``patch_embeds``, if
-    given) and return (last logits (B, 1, V), a decode cache of
+    given; Whisper's ``frames`` (B, encoder_seq, d_model)) and return (last logits (B, 1, V), a decode cache of
     ``max_len`` holding the prompt).  The cache holds K/V and the conv
     tails in the compute dtype (for Zamba2 the reference launcher's
     bfloat16; the reference's decode step returns its conv tails in the
@@ -61,6 +64,8 @@ def prefill_into_cache(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         batch = {"tokens": tokens}
         if patch_embeds is not None:
             batch["patch_embeds"] = patch_embeds
+        if frames is not None:
+            batch["frames"] = frames
         logits, pcache = prefill(params, cfg, batch, max_len)
         cache = init_cache(cfg, B, max_len, dtype=getattr(torch, cfg.dtype),
                            device=tokens.device)
@@ -74,14 +79,17 @@ def greedy(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def generate(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, gen: int,
-             on_step: Optional[Callable[[str], None]] = None
+             on_step: Optional[Callable[[str], None]] = None,
+             frames: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prefill, then ``gen - 1`` greedy decode steps: returns (the ``gen``
-    generated tokens (B, gen), the logits they came from (B, gen, Vpad)).
+    """Prefill (Whisper: over ``frames`` too), then ``gen - 1`` greedy
+    decode steps: returns (the ``gen`` generated tokens (B, gen), the
+    logits they came from (B, gen, Vpad)).
     ``on_step("prefill")`` and ``on_step("decode")`` are called after each
     step (the launcher's clocks)."""
     S = tokens.shape[1]
-    logits, cache = prefill_into_cache(params, cfg, tokens, S + gen)
+    logits, cache = prefill_into_cache(params, cfg, tokens, S + gen,
+                                       frames=frames)
     if on_step:
         on_step("prefill")
     tok = greedy(logits, cfg)

@@ -10,15 +10,16 @@ Tolerances are the JAX kernel test's: 2e-5 in float32, 2e-2 in bfloat16.
 The CUDA kernels themselves (both on the tensor cores: wgmma for
 bfloat16, TF32 mma.sync in three passes for float32) are held to these
 plain versions on the card (``tests/test_torch_model_cuda.py``); here
-their launch plans, the wrappers' refusals and the precision argument of
-the float32 kernel's three TF32 passes are checked.
+their launch plans, the wrappers' refusals and the precision arguments of
+the float32 kernel's three TF32 passes and of its P V partials (the
+tensor cores round each sum toward zero) are checked.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import mm_one_pass, mm_three_pass
+from _torch_parity import mm_one_pass, mm_three_pass, tf32
 from repro.kernels.flash_attention.kernel import flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -150,6 +151,60 @@ def test_tf32_three_pass_split_keeps_float32_tolerance():
           f"one_pass={err['one_pass']:.3g}")
     assert err["three_pass"] < 0.2 * 2e-5
     assert err["one_pass"] > 2e-5
+
+
+def _round_to_zero(a: torch.Tensor) -> torch.Tensor:
+    """float64 -> the float32 next toward zero, as the tensor cores round
+    each sum they write."""
+    f = a.float()
+    over = f.double().abs() > a.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
+                       f).double()
+
+
+def _pv_tensor_cores(p, v, partial):
+    """P V as the float32 kernel's mma.sync takes it: 8 keys a step, three
+    TF32 passes a step, each sum rounded toward zero; ``partial``: each
+    step's passes into a zeroed partial added to O in round to nearest
+    (the kernel), else straight into O (its form before)."""
+    ph, vh = tf32(p), tf32(v)
+    pl, vl = tf32(p - ph).double(), tf32(v - vh).double()
+    ph, vh = ph.double(), vh.double()
+    acc = torch.zeros(p.shape[0], v.shape[1], dtype=torch.float64)
+    for k0 in range(0, p.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        part = torch.zeros_like(acc) if partial else acc
+        for a, b in ((pl, vh), (ph, vl), (ph, vh)):
+            part = _round_to_zero(part + a[:, s] @ b[s])
+        acc = (acc + part).float().double() if partial else part
+    return acc
+
+
+def test_tf32_accumulation_per_key_step_keeps_float32_tolerance():
+    """The float32 kernel's P V over a long row whose V is coherent along
+    the keys (mean 2, as a Whisper encoder layer's values run): the
+    tensor cores round each sum toward zero, so taken straight into O
+    the bias grows with the row (563 truncations over 1500 keys); each 8
+    keys' passes into a zeroed partial keep it under a tenth of the
+    float32 tolerance (2e-5 abs + 2e-5 rel), at least ten times below
+    the straight form.  The errors are printed (pytest -s)."""
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((128, 64)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal((1500, 64)).astype(np.float32))
+    v = torch.from_numpy((2.0 + 0.5 * rng.standard_normal((1500, 64)))
+                         .astype(np.float32))
+    s = (q @ k.T) / 8.0
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    rowsum = p.double().sum(-1, keepdim=True)
+    want = (p.double() @ v.double()) / rowsum
+    tol = 2e-5 + 2e-5 * want.abs()
+    err = {name: float(((_pv_tensor_cores(p, v, partial) / rowsum - want)
+                        .abs() / tol).max())
+           for name, partial in (("partial", True), ("straight", False))}
+    print(f"P V error over the float32 tolerance: per-step partial "
+          f"{err['partial']:.3g}, straight into O {err['straight']:.3g}")
+    assert err["partial"] < 0.1
+    assert err["straight"] > 10 * err["partial"]
 
 
 def test_flash_kernel_wrapper_refuses_cpu_tensors():

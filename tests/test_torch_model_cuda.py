@@ -1,6 +1,7 @@
 """The port's SSD and flash-attention CUDA kernels on the card, against
-their plain versions in every launch plan, and the Zamba2, Mamba2,
-gemma2, StarCoder2, OLMoE and DeepSeek-V3 smoke serves on the card
+their plain versions in every launch plan (Whisper's non-causal encoder
+and cross-attention shapes too), and the Zamba2, Mamba2, gemma2,
+StarCoder2, OLMoE, DeepSeek-V3 and Whisper smoke serves on the card
 against the CPU.
 
 Needs a CUDA device (marker ``cuda``) and nothing of JAX, so it also runs
@@ -487,3 +488,75 @@ def test_launcher_on_card_counts_prefill_launches(card):
     assert res["decode_launches"] == {"ssd": 0, "flash": 0}
     assert fa.flash_attention_wgmma.launches - before == 2
     assert res["tokens"].shape == (2, 3) and res["device"] != "cpu"
+
+
+# Whisper-large-v3's attention at a reduced batch: the encoder's
+# non-causal self-attention (Sq = Sk = 1500, whose last key tile holds
+# 1500 - 11 * 128 = 92 keys) and the decoder's cross-attention over it
+# (Sq 224 != Sk 1500), H = KV = 20, D 64
+WHISPER_FLASH = [(2, 1500, 1500, 20, 20, 64), (2, 224, 1500, 20, 20, 64)]
+
+
+@pytest.mark.parametrize("shape", WHISPER_FLASH, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_whisper_shapes_match_plain(card, shape, dtype):
+    """Both kernels non-causal at Whisper's shapes, one launch each,
+    through ``attention_op`` as the model calls it: float32 within 2e-5
+    of the plain version, bfloat16 within 2e-2 and WGMMA_REL_NORM."""
+    q, k, v = flash_inputs(*shape, dtype)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=False)
+    kernel = (fa.flash_attention_cuda if dtype == torch.float32
+              else fa.flash_attention_wgmma)
+    before = kernel.launches
+    got = attention_op(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want, atol=2e-2, rtol=2e-2)
+        assert rel_norm(got, want) <= WGMMA_REL_NORM
+
+
+def test_whisper_smoke_serve_on_card_matches_cpu(card):
+    """Whisper's smoke config with 320 frames (float32), prompt 260: the
+    encoder (320 x 320), the cross-attention (260 x 320) and the decoder's
+    self-attention (260 x 260) each take the float32 flash kernel, one
+    launch a layer (2 + 4 + 4) in prefill and none in decode; the same
+    greedy tokens as the CPU, logits within relative 1e-4."""
+    cfg = get_smoke("whisper_large_v3").scaled(
+        dtype="float32", param_dtype="float32", encoder_seq=320)
+    cpu = init_model(cfg, seed=5, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu, lambda t: isinstance(t,
+                                                               torch.Tensor))
+    g = torch.Generator()
+    g.manual_seed(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 260), generator=g)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g) * 0.1
+    before = fa.flash_attention_cuda.launches
+    out_g, lg_g = steps.generate(gpu, cfg, toks.cuda(), 6,
+                                 frames=frames.cuda())
+    torch.cuda.synchronize()
+    n_fa = fa.flash_attention_cuda.launches - before
+    out_c, lg_c = steps.generate(cpu, cfg, toks, 6, frames=frames)
+    assert torch.equal(out_g.cpu(), out_c)
+    assert _rel(lg_g, lg_c) < 1e-4
+    assert n_fa == cfg.n_encoder_layers + 2 * cfg.n_layers
+
+
+# long rows whose values run coherently along the keys (mean 2): the
+# tensor cores round each sum toward zero, and P V taken straight into O
+# drifted past 2e-5 over 1500 keys on a Whisper encoder layer; the
+# float32 kernel's per-8-key partials hold it (both row-tile plans)
+COHERENT = [(1, 1500, 1500, 20, 20, 64), (8, 1500, 1500, 20, 20, 64),
+            (1, 4096, 4096, 4, 4, 112)]
+
+
+@pytest.mark.parametrize("shape", COHERENT, ids=str)
+def test_flash_f32_coherent_values_long_rows(card, shape):
+    q, k, v = flash_inputs(*shape, torch.float32)
+    v = 2.0 + 0.5 * v
+    want = attention_ref(q, k, v, causal=False)
+    got = fa.flash_attention_cuda(q, k, v, causal=False)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)

@@ -21,8 +21,10 @@ tokens go through both:
 The dense family's parity runs in ``test_torch_dense.py`` and
 ``test_torch_gemma2.py``, the MoE family's in ``test_torch_moe.py`` and
 ``test_torch_mla.py``; here their parameter trees are carried across
-too, every served config's full-width shapes equal the JAX package's
-leaf by leaf, and the family still to come (enc-dec) is refused.
+too, every config's full-width shapes equal the JAX package's leaf by
+leaf, every config of the registry is served (Whisper's enc-dec family
+since its slice, ``test_torch_whisper.py``), and a family the port does
+not know is refused.
 """
 import dataclasses
 
@@ -46,7 +48,8 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models import ModelConfig, convert
 from repro_torch.models.layers import param_count, shapes_tree
-from repro_torch.models.model import (decode_step, init_model, model_specs,
+from repro_torch.models.model import (SERVED_FAMILIES, decode_step,
+                                      init_cache, init_model, model_specs,
                                       prefill)
 from repro_torch.serve import steps
 
@@ -194,7 +197,9 @@ def test_serve_prefill_route_matches_jax_teacher_forced(smoke):
                                         ("gemma2_27b", 27_227_128_320),
                                         ("olmoe_1b_7b", 6_816_339_968),
                                         ("deepseek_v3_671b",
-                                         671_712_662_528)])
+                                         671_712_662_528),
+                                        ("whisper_large_v3",
+                                         1_534_937_600)])
 def test_full_config_shapes_equal_jax(arch, count):
     """Full-width parameter shapes, leaf by leaf, without allocating."""
     cfg, jcfg = get_config(arch), jax_get_config(arch)
@@ -228,20 +233,29 @@ def test_entry_points_need_the_card_by_default(monkeypatch):
 
 
 def test_unserved_families_raise():
-    """Enc-dec (whisper) is still refused, by the config registry and by
-    the model stack, whose MoE, MLA and qk-norm configs are served."""
+    """Every config of the registry is served, the reference's registry
+    all of it (Whisper's enc-dec family included); a family the port
+    does not know is refused by the model stack and by the serving step,
+    and a name outside the registry by ``get_config``."""
+    from repro.configs import ARCHS as JAX_ARCHS
+    from repro_torch.configs import ARCHS
+    assert ARCHS == JAX_ARCHS
+    for arch in ARCHS:
+        cfg = get_smoke(arch)
+        assert cfg.family in SERVED_FAMILIES
+        model_specs(cfg)
+        init_cache(cfg, 1, 8, device="cpu")
     encdec = ModelConfig(**dataclasses.asdict(
         jax_get_smoke("whisper_large_v3")))
     assert encdec.family == "encdec"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model_specs(encdec)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        steps.prefill_into_cache({}, encdec, torch.zeros((1, 4), dtype=int),
-                                 8)
-    with pytest.raises(NotImplementedError):
-        get_config("whisper_large_v3")
-    for arch in ("olmoe_1b_7b", "deepseek_v3_671b"):
-        model_specs(get_smoke(arch))
+    assert shapes_tree(model_specs(encdec)) == shapes_tree(
+        model_specs(get_smoke("whisper_large_v3")))
     model_specs(get_smoke("starcoder2_3b").scaled(qk_norm=True))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model_specs(get_smoke("starcoder2_3b").scaled(family="encdec"))
+    unknown = get_smoke("starcoder2_3b").scaled(family="retrieval")
+    with pytest.raises(NotImplementedError, match="serves"):
+        model_specs(unknown)
+    with pytest.raises(NotImplementedError, match="serves"):
+        steps.prefill_into_cache({}, unknown, torch.zeros((1, 4), dtype=int),
+                                 8)
+    with pytest.raises(NotImplementedError, match="serves"):
+        get_config("whisper_tiny")
