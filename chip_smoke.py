@@ -63,8 +63,9 @@ unrecorded run with the same kernel launches, its derived figures and
 host ms per span printed; the ``REPRO_DECIDE_PROFILE`` stage breakdown
 over the 10x trace's first 200 jobs; and the CLI ``python -m
 repro_torch.launch.cluster_sim --scenario churn --quick --trace`` on the
-card.  Traced runs show where the time goes (the tiled route one job at
-a time, and in bursts at one and at eight lanes).
+card.  Traced runs of the 10x trace's first 100 jobs show where the
+time goes (the whole route; the tiled route one job at a time, and in
+bursts at one and at eight lanes).
 
 The model stack's slice follows: the Mamba2 SSD scan (chunks in
 parallel across a thread-block cluster, chunk products on the tensor
@@ -117,7 +118,25 @@ none in decode); and the continuous batcher
 float32, 12 requests over 4 rows, each request held to its solo decode.
 Traced prefills and decode steps of Zamba2-7B, Gemma2-9B, OLMoE and
 Whisper-large-v3 show where the serving time goes, OLMoE's with its
-expert dispatch against its expert products.
+expert dispatch against its expert products.  The training slice
+follows: the flash-attention backward kernel
+(``csrc/flash_attention_bwd.cu``, reached on the model path through the
+autograd function ``kernel.FlashAttention``) against the plain
+version's autograd gradients in both dtypes, every mask case and head
+dim, then timed at StarCoder2-3B's training attention, Zamba2-7B's,
+Gemma2-9B's local layer and Whisper's cross-attention beside the plain
+backward, its bound and SDPA's backward; the reference test's TINY
+trained on the card at 512 tokens (its first step's loss and gradients
+against the port on the CPU, its loss falling, one float32 flash
+forward and one backward launch a layer and step); and StarCoder2-3B
+trained at full width and depth through ``repro_torch.launch.train``
+(bfloat16 compute, float32 parameters and moments, remat, AdamW, 2 x
+2048 tokens from the data pipeline, 4 steps, the counts set to 0 just
+before and read just after: 60 wgmma forward and 30 backward launches a
+step; step 1's backward launches held to the plain gradients; step
+wall, tokens/s, model TFLOP/s and peak memory printed); then its first
+four steps at full width and two layers on the card, float32 and
+bfloat16, held step by step to the port's float32 run on the host CPU.
 Exits non-zero on any failure, and without a CUDA device before printing
 any result.
 
@@ -163,6 +182,7 @@ from repro_torch.core.pricing import price_params_from_jobs  # noqa: E402
 from repro_torch.core.schedule_torch import _shape_bucket  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models.attention import _sdpa_chunked  # noqa: E402
 from repro_torch.models import mla, moe  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
@@ -173,6 +193,11 @@ from repro_torch.models.model import (  # noqa: E402
     prefill)
 from repro_torch.serve import steps as serve_steps  # noqa: E402
 from repro_torch.serve.batcher import ContinuousBatcher, Request  # noqa: E402,E501
+from repro_torch.data.pipeline import DataConfig, DataPipeline  # noqa: E402,E501
+from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.train.optimizer import OptConfig, init_opt  # noqa: E402
+from repro_torch.train.steps import (  # noqa: E402
+    TrainHyper, make_train_step, value_and_grad)
 from repro_torch.rl import env as rl_env  # noqa: E402
 from repro_torch.rl import policy as rl_policy  # noqa: E402
 from repro_torch.rl import train as rl_train  # noqa: E402
@@ -2195,8 +2220,7 @@ def obs_phase(paper, one_lane, tile_launches):
        figures (row-cache hit rate, early-exit tile fraction, device
        uploads) and the host ms per span name;
     3. the decision-stage profile (``REPRO_DECIDE_PROFILE=1``) over the
-       10x trace's first 200 arrivals, profile_phase's window, tiled
-       route: the decisions equal an unprofiled run's, every stage's
+       10x trace's first 200 arrivals, tiled route: the decisions equal an unprofiled run's, every stage's
        time positive;
     4. the CLI, ``python -m repro_torch.launch.cluster_sim --scenario
        churn --quick --trace`` on the card: the trace parses, its
@@ -2308,7 +2332,7 @@ def obs_phase(paper, one_lane, tile_launches):
     print(f"obs phase: wall_s={time.perf_counter() - t_phase!r}")
 
 
-def profile_phase(core, n_jobs=200, lanes=1, sequential=False):
+def profile_phase(core, n_jobs=100, lanes=1, sequential=False):
     """Where the time goes: a traced run of the 10x trace's first
     ``n_jobs`` arrivals through ``core`` (same price parameters as the
     full run, so these are the main run's first decisions); on the tiled
@@ -2483,6 +2507,65 @@ PER_ROW = (("starcoder2_3b", {}, (3, 29, 11)),
            ("olmoe_1b_7b", {"capacity_factor": 8.0}, (0, 17, 6)),
            ("deepseek_v3_671b", {}, (11, 2, 40)),
            ("zamba2_7b", {}, (7, 30, 1)))
+
+
+# the training slice: the flash-attention backward against the plain
+# version's autograd gradients, each gradient's relative norm error
+# bounded per dtype (float32: the kernel sums in float32 in another order
+# from the TF32 x 3 forward's O, 3.9e-6 seen; bfloat16: the gradients are
+# rounded to bfloat16, 1.7e-3 seen on random inputs and on StarCoder2-3B's
+# activations, the bound tightened from 1e-2 after the first run);
+# (label, (B, Sq, Sk, H, KV), causal, window, cap), at every head dim
+FLASH_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+FLASH_BWD_CASES = [("causal", (2, 256, 256, 4, 2), True, 0, 0.0),
+                   ("window 64", (1, 300, 300, 4, 2), True, 64, 0.0),
+                   ("soft-cap 50", (1, 260, 260, 4, 4), True, 0, 50.0),
+                   ("GQA 24/2", (1, 256, 256, 24, 2), True, 0, 0.0),
+                   ("non-causal Sq 224 x Sk 1500", (1, 224, 1500, 4, 4),
+                    False, 0, 0.0),
+                   ("ragged S 77", (1, 77, 77, 2, 1), True, 0, 0.0)]
+# the backward timed at StarCoder2-3B's training attention (batch 2 of
+# 2048 tokens), Zamba2-7B's prefill shape (D 112), Gemma2-9B's local
+# layer (window 4096, cap 50, D 256) and Whisper-large-v3's
+# cross-attention: (model, shape, causal, window, cap, dtypes)
+FLASH_STARCODER_TRAIN = (2, 2048, 2048, 24, 2, 128)
+FLASH_BWD_TIMED = [
+    ("StarCoder2-3B", FLASH_STARCODER_TRAIN, True, 0, 0.0,
+     (torch.bfloat16, torch.float32)),
+    ("Zamba2-7B", FLASH_ZAMBA, True, 0, 0.0, (torch.bfloat16,)),
+    ("Gemma2-9B local", FLASH_GEMMA, True, 4096, 50.0, (torch.bfloat16,)),
+    ("Whisper-large-v3 cross", FLASH_WHISPER_CROSS, False, 0, 0.0,
+     (torch.bfloat16,))]
+# the reference test's TINY (tests/test_train.py), float32, at 512 tokens
+# (512 * 512 > 256 * 256: flash forward and backward), batch 8, 40 steps
+# at the test's OptConfig; its CE over the last 5 steps under 0.8 x the
+# first 5, the test's bar; the first step's loss (relative 1e-5) and each
+# gradient leaf (relative max-abs 1e-4, the JAX parity tests' bound) held
+# to the port's own CPU run of the same step
+TINY = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                   n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+                   vocab_size=256, dtype="float32", param_dtype="float32",
+                   remat=False)
+TINY_TRAIN = {"batch": 8, "seq": 512, "steps": 40}
+TINY_OPT = OptConfig(lr=3e-3, warmup_steps=5, total_steps=60,
+                     weight_decay=0.0)
+# StarCoder2-3B trained at full width and depth through the launcher
+# (repro_torch.launch.train): bfloat16 compute, float32 parameters and
+# moments, remat, batch 2 x 2048 tokens from the data pipeline, 4 steps;
+# per step 30 wgmma forward launches, 30 more in the remat recomputes and
+# 30 backward launches
+STARCODER_TRAIN = {"batch": 2, "seq": 2048, "steps": 4}
+# steps 2-4 held, not step 1 alone: StarCoder2-3B at full width and 2
+# layers, batch 2 x 512 tokens (the chunked branch), 4 steps under the
+# launcher's AdamW, against the port's own float32 run on the host CPU
+# from the same parameters and batches.  Card float32: each step's CE
+# within relative 1e-5 and each parameter after step 4 within relative
+# norm 1e-4 (2.7e-07 and 3.6e-06 seen, tools/train_curve_probe.py);
+# card bfloat16: each step's CE within relative 1e-2 of the float32
+# CPU's (1.9e-03 seen)
+STARCODER_STEPS = {"layers": 2, "batch": 2, "seq": 512, "steps": 4}
+TRAIN_STEPS_REL = {"ce_float32": 1e-5, "param_float32": 1e-4,
+                   "ce_bfloat16": 1e-2}
 
 
 def _ssd_inputs(b, L, H, P, G, N, dtype, seed=0):
@@ -2842,6 +2925,17 @@ def flash_phase():
             (err["wgmma"], timing[torch.bfloat16]), dense)
 
 
+def _routed_to(recorded):
+    """``ops.forward_kernel`` with ``recorded`` in the float32 kernel's
+    place: a phase's stand-in that records each float32 flash launch the
+    model path makes (the kernel itself, and its count, stay as they
+    are)."""
+    def forward_kernel(dtype):
+        return (recorded if dtype == torch.float32
+                else flash_kernel.forward_kernel(dtype))
+    return forward_kernel
+
+
 def _model_counts():
     """(SSD, float32 flash, bfloat16 flash) launches so far."""
     return (ssd_kernel.ssd_cuda.launches,
@@ -3069,14 +3163,14 @@ def consistency_phase():
     n = CONSISTENCY_LEN
     toks = torch.randint(0, cfg.vocab_size, (1, n), generator=g,
                          device="cuda")
-    seen, kernel = [], flash_ops.flash_attention_cuda
+    seen, kernel = [], flash_kernel.flash_attention_cuda
 
     def recorded(q, k, v, **kw):
         out = kernel(q, k, v, **kw)
         seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
         return out
 
-    flash_ops.flash_attention_cuda = recorded
+    flash_ops.forward_kernel = _routed_to(recorded)
     _reset_model_counts()
     try:
         with torch.inference_mode():
@@ -3084,7 +3178,7 @@ def consistency_phase():
             torch.cuda.synchronize()
             pre = _model_counts()
     finally:
-        flash_ops.flash_attention_cuda = kernel
+        flash_ops.forward_kernel = flash_kernel.forward_kernel
     with torch.inference_mode():
         n_seen, flash_err = len(seen), _recorded_flash_err(seen)
         del seen
@@ -3138,14 +3232,14 @@ def window_consistency_phase():
     P, n = WINDOW_PROMPT, WINDOW_STEPS
     toks = torch.randint(0, cfg.vocab_size, (1, P + n), generator=g,
                          device="cuda")
-    seen, kernel = [], flash_ops.flash_attention_cuda
+    seen, kernel = [], flash_kernel.flash_attention_cuda
 
     def recorded(q, k, v, **kw):
         out = kernel(q, k, v, **kw)
         seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
         return out
 
-    flash_ops.flash_attention_cuda = recorded
+    flash_ops.forward_kernel = _routed_to(recorded)
     _reset_model_counts()
     try:
         t0 = time.perf_counter()
@@ -3155,7 +3249,7 @@ def window_consistency_phase():
         prefill_s = time.perf_counter() - t0
         pre = _model_counts()
     finally:
-        flash_ops.flash_attention_cuda = kernel
+        flash_ops.forward_kernel = flash_kernel.forward_kernel
     windows = collections.Counter((kw["window"], kw["softcap"])
                                   for _, _, _, kw, _ in seen)
     with torch.inference_mode():
@@ -3313,14 +3407,14 @@ def moe_consistency_phase():
     P, n = OLMOE_PROMPT, OLMOE_STEPS
     toks = torch.randint(0, cfg.vocab_size, (1, P + n), generator=g,
                          device="cuda")
-    seen, kernel = [], flash_ops.flash_attention_cuda
+    seen, kernel = [], flash_kernel.flash_attention_cuda
 
     def recorded(q, k, v, **kw):
         out = kernel(q, k, v, **kw)
         seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
         return out
 
-    flash_ops.flash_attention_cuda = recorded
+    flash_ops.forward_kernel = _routed_to(recorded)
     _reset_model_counts()
     try:
         t0 = time.perf_counter()
@@ -3339,7 +3433,7 @@ def moe_consistency_phase():
             lg_full, _ = prefill(params, cfg, {"tokens": toks}, P + n)
             torch.cuda.synchronize()
     finally:
-        flash_ops.flash_attention_cuda = kernel
+        flash_ops.forward_kernel = flash_kernel.forward_kernel
     full = tuple(x - y - z for x, y, z in zip(_model_counts(), pre, dec))
     with torch.inference_mode():
         n_seen, flash_err = len(seen), _recorded_flash_err(seen)
@@ -3560,14 +3654,14 @@ def whisper_consistency_phase():
                          device="cuda")
     frames = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=g,
                          device="cuda") * 0.1
-    seen, kernel = [], flash_ops.flash_attention_cuda
+    seen, kernel = [], flash_kernel.flash_attention_cuda
 
     def recorded(q, k, v, **kw):
         out = kernel(q, k, v, **kw)
         seen.append((q.clone(), k.clone(), v.clone(), kw, out.clone()))
         return out
 
-    flash_ops.flash_attention_cuda = recorded
+    flash_ops.forward_kernel = _routed_to(recorded)
     _reset_model_counts()
     try:
         with torch.inference_mode():
@@ -3581,7 +3675,7 @@ def whisper_consistency_phase():
             torch.cuda.synchronize()
             prep = tuple(x - y for x, y in zip(_model_counts(), pre))
     finally:
-        flash_ops.flash_attention_cuda = kernel
+        flash_ops.forward_kernel = flash_kernel.forward_kernel
     with torch.inference_mode():
         n_seen, flash_err = len(seen), _recorded_flash_err(seen)
         del seen
@@ -3927,6 +4021,403 @@ def serve_profile_phase(arch="zamba2_7b", dims=SERVE, steps=4):
     return kern
 
 
+def _flash_bwd_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
+    """(ms over the tensor cores' peak, ms over HBM) for one backward: the
+    five products of the function (S = Q K^T recomputed, dP = dO V^T, dV
+    = P^T dO, dQ = dS K, dK = dS^T Q) over the visible (query, key) pairs
+    of this mask, two operations per multiply-add, at the bf16 rate or,
+    for float32, as three TF32 passes (the card's fastest route at
+    float32's accuracy, as the forward rows count theirs); q, k, v, o and
+    dO read once, dq, dk and dv written once."""
+    qp = np.arange(Sq)[:, None]
+    kp = np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis &= qp >= kp
+    if window > 0:
+        vis &= qp - kp < window
+    ops = 5 * 2.0 * B * H * int(vis.sum()) * D
+    tc = (3 * ops / PEAK_TF32 if dtype == torch.float32
+          else ops / PEAK_OPS[torch.bfloat16])
+    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KV * D) * dtype.itemsize
+    return tc * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def _flash_bwd_inputs(B, Sq, Sk, H, KV, D, dtype, seed=0):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + B * Sq + H * D + KV + Sk)
+    return tuple(torch.randn(sh, generator=g, device="cuda").to(dtype)
+                 for sh in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D),
+                            (B, Sq, H, D)))
+
+
+def _plain_flash_grads(q, k, v, do, causal, window, cap):
+    """The plain version's gradients: ``attention_ref`` on the inputs
+    upcast to float32, differentiated by autograd with dO upcast too."""
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    o = attention_ref(qf, kf, vf, causal=causal, window=window,
+                      softcap=cap)
+    return torch.autograd.grad(o, (qf, kf, vf), do.float())
+
+
+def _bwd_o(q, k, v, causal, window, cap):
+    """The backward's ``o``: the float32 forward kernel's output, None
+    for bfloat16 (whose backward recomputes it)."""
+    if q.dtype != torch.float32:
+        return None
+    return flash_kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window, softcap=cap)
+
+
+def _held_bwd(q, k, v, o, do, causal, window, cap, case):
+    """One backward launch on (q, k, v, o, dO) held to the plain
+    version's float32 autograd gradients: each gradient's relative norm
+    error within FLASH_BWD_REL of its dtype.  Returns (max abs error,
+    largest relative norm error)."""
+    got = flash_kernel.flash_attention_bwd_cuda(
+        q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    want = _plain_flash_grads(q, k, v, do, causal, window, cap)
+    e = r = 0.0
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == q.dtype and g.shape == w.shape, (case, name)
+        assert bool(torch.isfinite(g).all()), f"flash bwd {case}: {name}"
+        rel = float((g.float() - w).norm() / w.norm())
+        assert rel <= FLASH_BWD_REL[q.dtype], (
+            f"flash bwd {case}: {name} rel_norm_err {rel!r} > "
+            f"{FLASH_BWD_REL[q.dtype]}")
+        e, r = max(e, float((g.float() - w).abs().max())), max(r, rel)
+    return e, r
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, reps):
+    """Device ms of the backward of torch's scaled_dot_product_attention
+    (a yardstick the port never calls) on the same inputs, K and V
+    repeated to every head before the forward where KV < H, the forward
+    outside the timing."""
+    H, KV = q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if KV < H:
+        kt, vt = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+    leaves = [t.requires_grad_() for t in (qt, kt, vt)]
+    o = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=causal)
+    dot = do.transpose(1, 2).contiguous()
+    return _device_ms(lambda: torch.autograd.grad(o, leaves, dot,
+                                                  retain_graph=True), reps)
+
+
+def flash_bwd_phase():
+    """The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
+    against the plain version's autograd gradients on the card, the
+    forward kernel's O given it as ``FlashAttention`` saves it: both
+    dtypes x FLASH_BWD_CASES (causal, window, soft-cap, GQA 24/2,
+    non-causal Sq 224 x Sk 1500, ragged S) x every head dim, each
+    gradient's relative norm error within FLASH_BWD_REL.  Then timed at
+    FLASH_BWD_TIMED: device ms per launch, the plain version's backward
+    (autograd through ``attention_ref``, its forward outside the timing),
+    the bound (:func:`_flash_bwd_bounds`) and, for the uncapped,
+    unwindowed shapes, SDPA's backward.  Returns (max abs error, largest
+    relative norm error per dtype, StarCoder2-3B's bf16 timing tuple
+    (kernel, plain, bound, tensor-core ms, bytes ms), its SDPA ms)."""
+    e_max, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, (B, Sq, Sk, H, KV), causal, window, cap in FLASH_BWD_CASES:
+            for D in flash_kernel.WGMMA_HEAD_DIMS:
+                q, k, v, do = _flash_bwd_inputs(B, Sq, Sk, H, KV, D, dtype)
+                o = _bwd_o(q, k, v, causal, window, cap)
+                e, r = _held_bwd(q, k, v, o, do, causal, window, cap,
+                                 f"{label} D={D} {dtype}")
+                e_max, worst[dtype] = max(e_max, e), max(worst[dtype], r)
+    print("flash_attention_bwd: "
+          f"{2 * len(FLASH_BWD_CASES) * len(flash_kernel.WGMMA_HEAD_DIMS)} "
+          "cases (float32, bfloat16 x causal, window 64, soft-cap 50, GQA "
+          "24/2, non-causal Sq 224 x Sk 1500, ragged S 77 x D 16/64/112/"
+          "128/256) against the plain version's float32 autograd gradients:"
+          f" max_abs_err={e_max!r} rel_norm_err float32={worst[torch.float32]!r}"
+          f" (bound {FLASH_BWD_REL[torch.float32]}) bfloat16="
+          f"{worst[torch.bfloat16]!r} (bound {FLASH_BWD_REL[torch.bfloat16]})",
+          flush=True)
+    row = lib_row = None
+    for model, shape, causal, window, cap, dtypes in FLASH_BWD_TIMED:
+        B, Sq, Sk, H, KV, D = shape
+        for dtype in dtypes:
+            q, k, v, do = _flash_bwd_inputs(B, Sq, Sk, H, KV, D, dtype)
+            o = _bwd_o(q, k, v, causal, window, cap)
+            case = (f"{model} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, KV={KV}, "
+                    f"D={D}, {'causal' if causal else 'non-causal'}, "
+                    f"window={window}, cap={cap}) "
+                    f"{str(dtype).split('.')[-1]}")
+            e, r = _held_bwd(q, k, v, o, do, causal, window, cap, case)
+            e_max = max(e_max, e)
+            worst[dtype] = max(worst[dtype], r)
+            k_ms = _device_ms(lambda: flash_kernel.flash_attention_bwd_cuda(
+                q, k, v, o, do, causal=causal, window=window, softcap=cap),
+                3)
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            of = attention_ref(qf, kf, vf, causal=causal, window=window,
+                               softcap=cap)
+            dof = do.float()
+            p_ms = _time_ms(lambda: torch.autograd.grad(
+                of, (qf, kf, vf), dof, retain_graph=True), reps=2)
+            del qf, kf, vf, of, dof
+            tc_ms, byte_ms = _flash_bwd_bounds(*shape, causal, window, dtype)
+            lib = (_sdpa_bwd_ms(q, k, v, do, causal, 3)
+                   if not window and not cap else None)
+            t = (k_ms, p_ms, max(tc_ms, byte_ms), tc_ms, byte_ms)
+            if model == "StarCoder2-3B" and dtype == torch.bfloat16:
+                row, lib_row = t, lib
+            print(f"flash_attention_bwd {case}: max_abs_err={e!r} "
+                  f"rel_norm_err={r!r} (bound {FLASH_BWD_REL[dtype]}) "
+                  f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} (autograd "
+                  f"through attention_ref, backward only) bound_ms="
+                  f"{t[2]!r} (tensor-core operations {tc_ms!r} ms, five "
+                  "products, " + ("TF32 x 3 at " + f"{PEAK_TF32:.3g}"
+                                  if dtype == torch.float32 else
+                                  f"at {PEAK_OPS[torch.bfloat16]:.3g}")
+                  + f" op/s; bytes {byte_ms!r} ms) library_ms (SDPA "
+                  f"backward)={lib!r}", flush=True)
+            del q, k, v, o, do
+            torch.cuda.empty_cache()
+    return e_max, worst, row, lib_row
+
+
+def _bwd_counts():
+    """(float32 flash, bfloat16 flash, flash backward) launches so far."""
+    return (flash_kernel.flash_attention_cuda.launches,
+            flash_kernel.flash_attention_wgmma.launches,
+            flash_kernel.flash_attention_bwd_cuda.launches)
+
+
+def _reset_bwd_counts():
+    _reset_model_counts()
+    flash_kernel.flash_attention_bwd_cuda.launches = 0
+
+
+def _grad_rel(got, want):
+    """Relative max-abs error of one gradient leaf (0 where both are 0)."""
+    scale = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    return err / scale if scale else err
+
+
+def _ssd_refuses_a_gradient():
+    """``ssd_chunked`` on CUDA inputs that require a gradient raises
+    NotImplementedError (the SSD kernel has no backward yet) and launches
+    nothing; under ``no_grad`` the same call launches the kernel once."""
+    from repro_torch.models.mamba2 import ssd_chunked
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    b, L, H, P, G, N = 1, 64, 2, 16, 1, 16
+    x = torch.randn(b, L, H, P, generator=g, device="cuda")
+    dt = torch.rand(b, L, H, generator=g, device="cuda")
+    A = -torch.rand(H, generator=g, device="cuda")
+    B = torch.randn(b, L, G, N, generator=g, device="cuda")
+    C = torch.randn(b, L, G, N, generator=g, device="cuda")
+    n = ssd_kernel.ssd_cuda.launches
+    try:
+        ssd_chunked(x.requires_grad_(), dt, A, B, C, 16)
+    except NotImplementedError as e:
+        assert "next slice" in str(e), e
+    else:
+        raise AssertionError("ssd_chunked ran on CUDA inputs that need a "
+                             "gradient")
+    assert ssd_kernel.ssd_cuda.launches == n
+    with torch.no_grad():
+        y, _ = ssd_chunked(x, dt, A, B, C, 16)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_cuda.launches == n + 1 and y.shape == (b, L, H, P)
+    print("ssd_chunked on CUDA inputs that require a gradient: "
+          "NotImplementedError, no launch (one under no_grad)", flush=True)
+
+
+def train_tiny_phase():
+    """The reference test's TINY trained on the card (float32, seq 512:
+    the chunked branch, so every layer's attention is one float32 flash
+    forward launch and one backward launch a step): first the first
+    step's loss and gradients on the card held to the port's own CPU run
+    of the same step (loss relative 1e-5, each gradient leaf relative
+    max-abs 1e-4), then TINY_TRAIN["steps"] steps of ``make_train_step``
+    from the seeded data pipeline with the counts set to 0 just before
+    and read just after: 2 forward and 2 backward launches a step, and
+    the CE of the last 5 steps under 0.8 x the first 5's.  First of all,
+    ``ssd_chunked``'s refusal of a gradient on the card
+    (:func:`_ssd_refuses_a_gradient`).  Returns the backward launches."""
+    _ssd_refuses_a_gradient()
+    data = DataConfig(vocab_size=TINY.vocab_size, seq_len=TINY_TRAIN["seq"],
+                      global_batch=TINY_TRAIN["batch"], seed=0, n_chunks=64)
+    host = init_model(TINY, seed=0, device="cpu")
+    params = tree_map(lambda x: x.cuda(), host,
+                      lambda x: isinstance(x, torch.Tensor))
+    first = DataPipeline(data).next_batch()
+    cpu_b = {k: torch.as_tensor(v).long() for k, v in first.items()}
+    dev_b = {k: v.cuda() for k, v in cpu_b.items()}
+    want_m, want_g = value_and_grad(host, TINY, cpu_b, TrainHyper())
+    got_m, got_g = value_and_grad(params, TINY, dev_b, TrainHyper())
+    loss_rel = abs(float(got_m["loss"]) - float(want_m["loss"])) / abs(
+        float(want_m["loss"]))
+    g_rel = max(_grad_rel(g, w) for g, w in zip(got_g, want_g))
+    assert loss_rel <= 1e-5, f"TINY first step: loss rel {loss_rel!r}"
+    assert g_rel <= 1e-4, f"TINY first step: gradient rel {g_rel!r}"
+    del got_g, want_g
+    opt = init_opt(params, TINY_OPT)
+    step = make_train_step(TINY, TINY_OPT, TrainHyper())
+    pipe = DataPipeline(data)
+    ces = []
+    _reset_bwd_counts()
+    t0 = time.perf_counter()
+    for _ in range(TINY_TRAIN["steps"]):
+        params, opt, m = step(params, opt, pipe.next_batch())
+        ces.append(float(m["ce"]))
+    wall = time.perf_counter() - t0
+    f32, bf16, bwd = _bwd_counts()
+    n = TINY_TRAIN["steps"] * TINY.n_layers
+    assert (f32, bf16, bwd) == (n, 0, n), (f32, bf16, bwd)
+    first5, last5 = float(np.mean(ces[:5])), float(np.mean(ces[-5:]))
+    assert np.all(np.isfinite(ces)) and last5 < 0.8 * first5, (first5,
+                                                               last5)
+    print(f"train TINY (float32, batch {TINY_TRAIN['batch']} x "
+          f"{TINY_TRAIN['seq']} tokens, {TINY_TRAIN['steps']} steps on the "
+          f"card): first step against the CPU loss_rel={loss_rel!r} "
+          f"grad_rel={g_rel!r} (bounds 1e-5, 1e-4); ce first5={first5!r} "
+          f"last5={last5!r} (last5 < 0.8 x first5); flash launches: "
+          f"forward float32 {f32}, backward {bwd}; wall_s={wall!r}",
+          flush=True)
+    return bwd
+
+
+def train_phase(arch="starcoder2_3b", dims=STARCODER_TRAIN):
+    """``arch`` trained at full width and depth through the launcher
+    (``repro_torch.launch.train.train``: bfloat16 compute, float32
+    parameters and moments, remat, AdamW, batches from the data
+    pipeline), the counts set to 0 just before and read just after: per
+    step one wgmma forward launch a layer, one more in its remat
+    recompute and one backward launch.  The first step's backward
+    launches are recorded (inputs copied to the host) and each is held,
+    after the run, to the plain version's float32 autograd gradients
+    within FLASH_BWD_REL[bfloat16].  The loss is finite and falls from
+    the first step to the last.  Prints the step wall p50 (steps 2 on;
+    the first records), tokens/s, model TFLOP/s (6 N tokens plus the
+    attention's 12 B H (S (S + 1) / 2) D a layer, no remat) and the peak
+    device memory.  Returns the backward launches."""
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    B, S, n_steps = dims["batch"], dims["seq"], dims["steps"]
+    kernel, seen = flash_kernel.flash_attention_bwd_cuda, []
+
+    def recorded(q, k, v, o, do, **kw):
+        # stands in for the module's wrapper during the run: the wrapper
+        # counts its launch on this function's ``launches``
+        out = kernel(q, k, v, o, do, **kw)
+        if len(seen) < L:
+            seen.append(tuple(None if t is None else t.detach().cpu()
+                              for t in (q, k, v, o, do))
+                        + (kw,))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_bwd_counts()
+    recorded.launches = 0
+    flash_kernel.flash_attention_bwd_cuda = recorded
+    try:
+        out = train_launch.train(arch, steps=n_steps, seq=S, batch=B,
+                                 ckpt=os.path.join("chiprun_out",
+                                                   "train_ckpt"))
+        torch.cuda.synchronize()
+    finally:
+        flash_kernel.flash_attention_bwd_cuda = kernel
+    kernel.launches += recorded.launches
+    f32, bf16, bwd = _bwd_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    ces = out["ce"]
+    assert (f32, bf16, bwd) == (0, 2 * L * n_steps, L * n_steps), (
+        f32, bf16, bwd)
+    assert np.all(np.isfinite(ces)) and ces[-1] < ces[0], ces
+    assert len(seen) == L
+    e_max = r_max = 0.0
+    for q, k, v, o, do, kw in seen:
+        e, r = _held_bwd(*(None if t is None else t.cuda()
+                           for t in (q, k, v, o, do)),
+                         kw["causal"], kw["window"], kw["softcap"],
+                         f"{arch} training step 1")
+        e_max, r_max = max(e_max, e), max(r_max, r)
+    del seen
+    n_params = _spec_count(cfg)
+    p50 = float(np.median(out["step_seconds"][1:]))
+    tokens = B * S
+    attn = 12.0 * B * cfg.n_heads * (S * (S + 1) // 2) * cfg.head_dim * L
+    tflops = (6.0 * n_params * tokens + attn) / p50 / 1e12
+    print(f"train {arch} (full width and depth: {L} layers, d "
+          f"{cfg.d_model}, {n_params} parameters; bfloat16 compute, float32 "
+          f"parameters and moments, remat; batch {B} x {S} tokens, "
+          f"{n_steps} steps): ce={ces!r}; step wall p50={p50!r} s (steps "
+          f"2-{n_steps}; {out['step_seconds']!r}); tokens_per_s="
+          f"{tokens / p50!r}; model_tflops={tflops!r} (6 N tokens + "
+          f"attention {attn:.4g} flops a step); peak_gb={peak_gb!r}; "
+          f"launches: wgmma forward {bf16} ({2 * L} a step with the remat "
+          f"recomputes), backward {bwd} ({L} a step); step 1's {L} backward "
+          f"launches against the plain gradients: max_abs_err={e_max!r} "
+          f"rel_norm_err={r_max!r} (bound "
+          f"{FLASH_BWD_REL[torch.bfloat16]})", flush=True)
+    return bwd
+
+
+def _train_steps(cfg, host, dims, device):
+    """``dims["steps"]`` launcher steps of ``cfg`` on ``device`` from a
+    copy of the host parameters ``host``; returns (CEs, parameters)."""
+    params = tree_map(lambda x: x.to(device, copy=True), host,
+                      lambda x: isinstance(x, torch.Tensor))
+    opt_cfg = train_launch.launcher_opt(dims["steps"])
+    opt = init_opt(params, opt_cfg)
+    step = make_train_step(cfg, opt_cfg, TrainHyper(), device=device)
+    pipe = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=dims["seq"],
+                                   global_batch=dims["batch"]))
+    ces = []
+    for _ in range(dims["steps"]):
+        params, opt, m = step(params, opt, pipe.next_batch())
+        ces.append(float(m["ce"]))
+    return ces, params
+
+
+def train_steps_phase(arch="starcoder2_3b", dims=STARCODER_STEPS):
+    """Steps 2 on held as well as step 1: ``arch`` at full width and
+    ``dims["layers"]`` layers trained on the card for ``dims["steps"]``
+    steps of the launcher's AdamW (in place, remat, the flash forward and
+    backward kernels), in float32 and in bfloat16 compute, against the
+    port's float32 run on the host CPU from the same parameters and
+    batches, within TRAIN_STEPS_REL."""
+    small = get_config(arch).scaled(n_layers=dims["layers"])
+    host = init_model(small, seed=0, device="cpu")
+    want, want_p = _train_steps(small.scaled(dtype="float32"), host, dims,
+                                "cpu")
+    ce_rel = {}
+    for dt in ("float32", "bfloat16"):
+        got, got_p = _train_steps(small.scaled(dtype=dt), host, dims, "cuda")
+        ce_rel[dt] = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        assert np.all(np.isfinite(got)), (dt, got)
+        assert ce_rel[dt] <= TRAIN_STEPS_REL[f"ce_{dt}"], (dt, got, want)
+        if dt == "float32":
+            pairs = zip(tree_leaves(got_p, torch.is_tensor),
+                        tree_leaves(want_p, torch.is_tensor))
+            p_rel = max(float((g.cpu() - w).norm()
+                              / w.norm().clamp(min=1e-30))
+                        for g, w in pairs)
+            assert p_rel <= TRAIN_STEPS_REL["param_float32"], p_rel
+        del got_p
+    torch.cuda.empty_cache()
+    print(f"train {arch} steps held (full width, {dims['layers']} layers, "
+          f"batch {dims['batch']} x {dims['seq']} tokens, "
+          f"{dims['steps']} launcher steps, against the port's float32 run "
+          f"on the host CPU): cpu ce={want!r}; card float32 ce max rel "
+          f"{ce_rel['float32']!r}, parameters after the last step max rel "
+          f"norm {p_rel!r}; card bfloat16 ce max rel {ce_rel['bfloat16']!r} "
+          f"(bounds {TRAIN_STEPS_REL})", flush=True)
+
+
 def _phase(fn, *args, **kw):
     """``fn(*args, **kw)``, its wall time printed after it: where the
     phases' time goes."""
@@ -3984,6 +4475,7 @@ def main() -> int:
     whisper_err = _phase(flash_whisper_phase)
     flash_err = max(flash_err, whisper_err["f32"])
     wgmma_err = max(wgmma_err, whisper_err["wgmma"])
+    bwd_err, _, bwd_t, bwd_lib = _phase(flash_bwd_phase)
     _phase(model_parity_phase)
     _phase(encdec_smoke_phase)
     _phase(per_row_phase)
@@ -3999,6 +4491,9 @@ def main() -> int:
     _phase(mla_full_phase)
     _phase(deepseek_serve_phase)
     _phase(batcher_phase)
+    bwd_launches = _phase(train_tiny_phase)
+    bwd_launches += _phase(train_phase, "starcoder2_3b")
+    _phase(train_steps_phase, "starcoder2_3b")
     _phase(serve_profile_phase)
     _phase(serve_profile_phase, "gemma2_9b", GEMMA_SERVE)
     _phase(serve_profile_phase, "olmoe_1b_7b", OLMOE_SERVE, steps=1)
@@ -4067,6 +4562,15 @@ def main() -> int:
               fa_ref, wgmma_launches, wgmma_err, wgmma_t, wgmma_t[5]),
              ("flash_attention_mma", fa_src + "flash_attention_mma.cu",
               fa_ref, flash_launches, flash_err, flash_t, flash_t[5])]
+    # the flash-attention backward: the counterpart of no Pallas kernel
+    # (the reference differentiates its jnp attention with
+    # jax.value_and_grad); launches over the two training phases (TINY on
+    # the card, StarCoder2-3B at full width), times at StarCoder2-3B's
+    # training attention in bfloat16, beside SDPA's backward
+    rows.append(("flash_attention_bwd", fa_src + "flash_attention_bwd.cu",
+                 "jax.value_and_grad (src/repro/train/steps.py:152) through "
+                 "src/repro/models/attention.py::_sdpa_chunked (:66)",
+                 bwd_launches, bwd_err, bwd_t, bwd_lib))
     print(f"chip_smoke phases: wall_s={time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

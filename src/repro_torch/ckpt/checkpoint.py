@@ -46,10 +46,14 @@ def _host(x: Any) -> np.ndarray:
 
 
 def _paths(tree: Any, prefix: Tuple[str, ...] = ()) -> Any:
-    """The tree with each leaf replaced by its "/"-joined path: dict keys
-    and sequence indices, as the reference names them."""
+    """The tree with each leaf replaced by its "/"-joined path: dict keys,
+    sequence indices and NamedTuple fields, as the reference names them."""
     if isinstance(tree, dict):
         return {k: _paths(tree[k], prefix + (str(k),)) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        # a NamedTuple (the optimizer's state): ``.field``, as JAX names it
+        return type(tree)(*(_paths(getattr(tree, f), prefix + (f".{f}",))
+                            for f in tree._fields))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_paths(x, prefix + (str(i),))
                           for i, x in enumerate(tree))

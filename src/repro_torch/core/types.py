@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -137,3 +137,38 @@ class Schedule:
     cost: float    # dual resource cost of the schedule
     payoff: float  # utility - cost ( = mu_i when positive)
     utility: float
+
+
+# An NVIDIA H100 SXM's dense bf16 tensor-core rate and its NVLink rate
+# each way (NVIDIA's data sheet, 700 W): the port's defaults for
+# job_from_arch, where the reference's are a TPU's
+H100_BF16_FLOPS = 989e12
+H100_NVLINK_BYTES = 450e9
+
+
+def job_from_arch(name: str, arrival: int, *, flops_per_token: float,
+                  param_bytes: float, tokens_per_step: int, target_steps: int,
+                  chip_flops: float = H100_BF16_FLOPS,
+                  chip_bw: float = H100_NVLINK_BYTES,
+                  utility: Optional[Callable[[float], float]] = None,
+                  slot_seconds: float = 1200.0) -> Job:
+    """A scheduler Job from an architecture's roofline terms, as the
+    reference's: tau_i from one worker-chip's compute time per step
+    (``flops_per_token * tokens_per_step / chip_flops``), e_i from the
+    gradient (= parameter) bytes over ``chip_bw``, both in slots of
+    ``slot_seconds``; one chunk = 100 steps, one mini-batch = 1 step.
+    The defaults are an NVIDIA H100 SXM's (989 TFLOP/s dense bf16, 450
+    GB/s NVLink each way; the reference's, 197e12 and 50e9, are a TPU's).
+    ``name`` is carried for the caller's records, unused, as in the
+    reference."""
+    step_sec = flops_per_token * tokens_per_step / chip_flops
+    tau = step_sec / slot_seconds
+    m_per_chunk = 100
+    n_chunks = max(1, target_steps // m_per_chunk)
+    e = param_bytes / chip_bw / slot_seconds    # gradient exchange time unit
+    w = np.array([4.0, 8.0, 32.0, 10.0, 5.0])
+    s = np.array([0.0, 8.0, 32.0, 10.0, 20.0])
+    util = utility or SigmoidUtility(50.0, 0.05, max(2 * n_chunks, 4))
+    return Job(jid=-1, arrival=arrival, epochs=1, num_chunks=n_chunks,
+               minibatches_per_chunk=m_per_chunk, tau=tau, grad_size=e,
+               worker_bw=1.0, ps_bw=4.0, worker_res=w, ps_res=s, utility=util)

@@ -146,6 +146,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         _require(init_state.shape == (b, H, P, N),
                  f"init_state must be {(b, H, P, N)}")
     plan = ssd_plan(L, P, N, chunk)
+    refuse_grad(*tensors.values())
     y = torch.empty((b, L, H, P), dtype=torch.float32, device=x.device)
     final = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
     launch(load_library(), "ssd_mma_bf16" if x.dtype == torch.bfloat16
@@ -159,3 +160,20 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 ssd_cuda.launches = 0
+
+
+def refuse_grad(*tensors: torch.Tensor) -> None:
+    """Raise NotImplementedError when grad mode is on and an input
+    requires a gradient: the kernel writes into buffers of its own (no
+    autograd graph) and has no backward yet, so its output would silently
+    cut the gradients.  The SSD backward kernel, and with it ``ssm`` and
+    ``hybrid`` training on the card, is the port's next slice; until then
+    such a model trains on the CPU, whose plain chunked scan autograd
+    differentiates."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssd_chunked on a CUDA device with an input that requires a "
+            "gradient: the SSD kernel has no backward yet (the SSD backward "
+            "kernel is the port's next slice), so ssm/hybrid training on "
+            "the card is refused; train on the CPU (device='cpu') or run "
+            "the forward without grad")

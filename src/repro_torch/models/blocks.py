@@ -8,9 +8,12 @@ encoder and decoder layers.
 
 ``body(p, cfg, h, ctx, cache)`` returns ``(h, new_cache)``; ``ctx``
 carries the positions, ``cache_len`` (decode), ``return_cache``
-(prefill), ``h0`` (the initial embedding Zamba2's shared block reads)
-and, for Whisper, the encoder states ``enc`` and their ``enc_positions``.
-The MoE's auxiliary loss is dropped here: serving does not read it.
+(prefill), ``h0`` (the initial embedding Zamba2's shared block reads),
+for Whisper the encoder states ``enc`` and their ``enc_positions``, and
+in training a list ``aux``: an MoE layer appends its load-balancing loss
+there (the reference's third return value, ``blocks.Aux``).  Serving
+passes no list and drops the loss, which ``moe_block`` computes either
+way, so the serving path's launches and numbers are those it had.
 """
 from __future__ import annotations
 
@@ -94,6 +97,13 @@ def gemma_pair(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
     return h, {"local": nc_l, "global": nc_g}
 
 
+def _keep_aux(ctx: Dict, aux: torch.Tensor) -> None:
+    """Append an MoE layer's auxiliary loss to ``ctx["aux"]`` (training);
+    without the list (serving) it is dropped."""
+    if ctx.get("aux") is not None:
+        ctx["aux"].append(aux)
+
+
 def moe_layer_specs(cfg) -> Dict:
     return {
         "ln_attn": norm_spec(cfg),
@@ -111,7 +121,8 @@ def moe_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
         cache_len=ctx.get("cache_len"),
         return_cache=ctx.get("return_cache", False))
     h = h + a_out
-    m_out, _ = moe_block(p["moe"], cfg, apply_norm(p["ln_mlp"], h, cfg))
+    m_out, aux = moe_block(p["moe"], cfg, apply_norm(p["ln_mlp"], h, cfg))
+    _keep_aux(ctx, aux)
     return h + m_out, new_cache
 
 
@@ -145,7 +156,8 @@ def mla_layer(p: Dict, cfg, h: torch.Tensor, ctx: Dict,
     h = h + a_out
     m_in = apply_norm(p["ln_mlp"], h, cfg)
     if "moe" in p:
-        m_out, _ = moe_block(p["moe"], cfg, m_in)
+        m_out, aux = moe_block(p["moe"], cfg, m_in)
+        _keep_aux(ctx, aux)
     else:
         m_out = mlp(p["mlp"], cfg, m_in)
     return h + m_out, new_cache

@@ -9,7 +9,10 @@ shared expert's, MLA's low-rank projections and norms, DeepSeek-V3's
 ``mtp`` subtree (carried, read by no serving path) and Whisper's
 ``encoder`` and ``decoder`` groups (``ln_cross``, ``cross_attn``) are
 leaves like any other.  A bfloat16 leaf (``ml_dtypes.bfloat16``, DeepSeek-V3's parameter
-dtype) comes across bit for bit."""
+dtype) comes across bit for bit.  The optimizer's state (the reference's
+``train/optimizer.py::OptState``: step, mu, nu) comes across by
+:func:`opt_state_from_numpy`, so one step of each package starts from the
+same state."""
 from __future__ import annotations
 
 from typing import Any, Optional, Union
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..train.optimizer import OptState
 from .layers import tree_map
 
 
@@ -39,3 +43,17 @@ def params_from_numpy(tree: Any,
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor(a).to(dev), tree,
                     lambda x: isinstance(x, np.ndarray))
+
+
+def opt_state_from_numpy(state: Any,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> OptState:
+    """The reference's ``OptState(step, mu, nu)`` with numpy leaves (or any
+    (step, mu, nu) triple) as the port's: step an int32 scalar, the
+    moments' trees through :func:`params_from_numpy` on ``device`` (None:
+    the card)."""
+    step, mu, nu = state
+    dev = resolve_device(device)
+    return OptState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                 device=dev),
+                    params_from_numpy(mu, dev), params_from_numpy(nu, dev))

@@ -40,11 +40,14 @@ def is_spec(x: Any) -> bool:
 
 def tree_map(fn: Callable, tree: Any, is_leaf: Callable = is_spec) -> Any:
     """``fn`` over the leaves of a tree of dicts, lists and tuples (dict
-    keys visited in sorted order, as ``jax.tree_util`` does)."""
+    keys visited in sorted order, a NamedTuple's fields in their order, as
+    ``jax.tree_util`` does)."""
     if is_leaf(tree):
         return fn(tree)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], is_leaf) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
+        return type(tree)(*(tree_map(fn, x, is_leaf) for x in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, x, is_leaf) for x in tree)
     if tree is None:

@@ -137,7 +137,10 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """SSD core.  x: (b, L, H, P); dt: (b, L, H); A: (H,) < 0;
     B, C: (b, L, G, N).  Returns (y (b,L,H,P) float32, final_state
     (b,H,P,N) float32): one launch of the CUDA kernel for a CUDA tensor,
-    :func:`ssd_chunked_plain` for a CPU tensor."""
+    :func:`ssd_chunked_plain` for a CPU tensor.  The kernel has no
+    backward yet: a CUDA call with grad mode on and an input that
+    requires a gradient raises NotImplementedError
+    (``kernels/ssd/kernel.py::refuse_grad``), never a silent cut."""
     if x.is_cuda:
         return ssd_cuda(x.contiguous(), dt.float().contiguous(),
                         A.float().contiguous(), B.contiguous(),

@@ -10,8 +10,14 @@ parameters stacked along a leading layer axis as in the reference, so
 the parameter and cache trees are the reference's.  The reference's
 ``lax.scan`` over a group becomes a Python loop over the layer index.
 Prefill returns caches stacked the same way; decode updates the cache it
-is given in place and returns it.  The training entry points
-(``forward_train``, ``_mtp_logits``) are not ported yet.
+is given in place and returns it.  Training's forward,
+:func:`forward_train` (with DeepSeek-V3's multi-token prediction,
+:func:`_mtp_logits`), runs every family under autograd: each stacked
+leaf is unbound along its layer axis once, and with ``cfg.remat`` each
+layer runs under ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint``), its activations recomputed in the backward pass.
+On the card its chunked attention goes through the flash kernels'
+autograd function; the SSD kernel has no backward yet and refuses.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from .. import resolve_device
 from . import blocks
@@ -185,6 +192,41 @@ def _scan_group(gdef: GroupDef, params: Dict, cfg: ModelConfig,
     return h, _stack(caches)
 
 
+def _train_group(gdef: GroupDef, params: Dict, cfg: ModelConfig,
+                 h: torch.Tensor, ctx: Dict, shared: Optional[Dict]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training's loop over a group: returns (h, the sum of its layers'
+    MoE auxiliary losses, a float32 scalar).  Each stacked leaf is
+    unbound along the layer axis once, so autograd stacks the layers'
+    gradients in one copy (``x[i]`` per layer would scatter each into a
+    zeroed leaf-sized gradient).  With ``cfg.remat`` each layer runs
+    under a non-reentrant ``torch.utils.checkpoint``: only its input is
+    kept, and its forward runs again in the backward pass."""
+    slices = tree_map(lambda x: x.unbind(0), params, _is_tensor)
+
+    def step(hh: torch.Tensor, p: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        lctx = dict(ctx, aux=[])
+        if gdef.name == "periods":
+            hh, _ = blocks.zamba_period(p, shared, cfg, hh, lctx, None)
+        else:
+            hh, _ = gdef.body(p, cfg, hh, lctx, None)
+        aux = (torch.stack(lctx["aux"]).sum() if lctx["aux"] else
+               torch.zeros((), dtype=torch.float32, device=hh.device))
+        return hh, aux
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(gdef.n):
+        p_i = tree_map(lambda t: t[i], slices,
+                       lambda x: isinstance(x, tuple))
+        if cfg.remat:
+            h, aux = torch.utils.checkpoint.checkpoint(
+                step, h, p_i, use_reentrant=False)
+        else:
+            h, aux = step(h, p_i)
+        total = total + aux
+    return h, total
+
+
 def _embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
            patch_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token embeddings in the compute dtype; gemma's scaled by
@@ -201,19 +243,23 @@ def _embed(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _run_encoder(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
-                 ctx: Dict) -> Tuple[torch.Tensor, Dict]:
+                 ctx: Dict, train: bool = False) -> Tuple[torch.Tensor, Dict]:
     """Whisper's encoder over the (stubbed) frame embeddings (B, Se, d):
-    the frames plus the sinusoidal table, then the encoder group.
-    Returns (the encoder states, ``ctx`` with ``enc`` and
-    ``enc_positions``)."""
+    the frames plus the sinusoidal table, then the encoder group (through
+    :func:`_train_group` when ``train``).  Returns (the encoder states,
+    ``ctx`` with ``enc`` and ``enc_positions``)."""
     dt = getattr(torch, cfg.dtype)
     Se = frames.shape[1]
     ctx = dict(ctx, enc_positions=torch.arange(Se, device=frames.device))
     h = frames.to(dt) + sinusoidal_positions(Se, cfg.d_model,
                                              frames.device).to(dt)
     gdef = next(g for g in group_defs(cfg) if g.name == "encoder")
-    h, _ = _scan_group(gdef, params["groups"]["encoder"], cfg, h, ctx, None,
-                       None)
+    if train:
+        h, _ = _train_group(gdef, params["groups"]["encoder"], cfg, h, ctx,
+                            None)
+    else:
+        h, _ = _scan_group(gdef, params["groups"]["encoder"], cfg, h, ctx,
+                           None, None)
     ctx["enc"] = h
     return h, ctx
 
@@ -239,6 +285,61 @@ def _logits(params: Dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
+
+def forward_train(params: Dict, cfg: ModelConfig, batch: Dict
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training's forward over ``batch["tokens"]`` (B, S) (Whisper's
+    encoder over ``batch["frames"]`` first; pixtral's
+    ``batch["patch_embeds"]`` if given), as the reference's: returns
+    (logits (B, S, Vpad) float32, {"moe_aux": the layers' summed MoE
+    auxiliary loss (float32 scalar, 0 without experts), and for
+    DeepSeek-V3 "mtp_logits" (B, S, Vpad)}).  Differentiable on both
+    devices; the reference's sharding hooks (``constrain*``) have no
+    counterpart on one card."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    ctx: Dict[str, Any] = {"positions": torch.arange(S, device=tokens.device),
+                           "return_cache": False}
+    if cfg.family == "encdec":
+        _, ctx = _run_encoder(params, cfg, batch["frames"], ctx, train=True)
+        h = _dec_embed(params, cfg, tokens, sinusoidal_positions(
+            S, cfg.d_model, tokens.device))
+    else:
+        h = _embed(params, cfg, tokens, batch.get("patch_embeds"))
+    ctx["h0"] = h
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    shared = params.get("shared_block")
+    for g in group_defs(cfg):
+        if g.name == "encoder":
+            continue
+        h, aux = _train_group(g, params["groups"][g.name], cfg, h, ctx,
+                              shared)
+        aux_total = aux_total + aux
+    aux_out: Dict[str, torch.Tensor] = {"moe_aux": aux_total}
+    if cfg.mtp_depth:
+        aux_out["mtp_logits"] = _mtp_logits(params, cfg, h, tokens)
+    return _logits(params, cfg, h), aux_out
+
+
+def _mtp_logits(params: Dict, cfg: ModelConfig, h: torch.Tensor,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's multi-token prediction (depth 1): the trunk's hidden
+    state at position t (normed) beside the embedding of token t + 1
+    (normed, the last position wrapping around as ``jnp.roll``), fused by
+    ``proj``, through one more layer (MLA with a dense MLP), then the
+    shared head: logits for token t + 2."""
+    mtp = params["mtp"]
+    dt = h.dtype
+    e = params["embed"][torch.roll(tokens, -1, dims=1)].to(dt)
+    hin = torch.cat([apply_norm(mtp["norm_h"], h, cfg),
+                     apply_norm(mtp["norm_e"], e, cfg)], dim=-1)
+    hm = hin @ mtp["proj"].to(dt)
+    ctx = {"positions": torch.arange(h.shape[1], device=h.device),
+           "return_cache": False}
+    layer = blocks.mla_layer if cfg.use_mla else blocks.dense_layer
+    hm, _ = layer(mtp["layer"], cfg, hm, ctx, None)
+    return _logits(params, cfg, hm)
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,

@@ -3,9 +3,11 @@
 ``jax_shims`` maps two JAX APIs that newer JAX releases renamed back to
 the names the reference package calls (``jax.experimental.enable_x64``,
 ``pltpu.TPUCompilerParams``), only where the attribute is missing, and
-only for the test that asks for it: monkeypatch undoes both at teardown,
-and JAX's compilation caches are cleared so no executable traced under
-the shims outlives the test.
+makes ``jax.make_mesh`` build Auto axes where its default became
+Explicit ones (which the reference's ``with_sharding_constraint`` calls
+refuse), only for the test that asks for it: monkeypatch undoes all three
+at teardown, and JAX's compilation caches are cleared so no executable
+traced under the shims outlives the test.
 
 ``one_torch_thread`` (autouse where a test module imports it) runs
 torch's CPU ops on one thread: the scheduler instances of the serving and
@@ -19,6 +21,7 @@ kernels rest on.
 """
 import jax
 import jax.experimental
+import jax.sharding
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -32,6 +35,16 @@ def jax_shims(monkeypatch):
     if not hasattr(pltpu, "TPUCompilerParams"):
         monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
                             raising=False)
+    axis_type = getattr(jax.sharding, "AxisType", None)
+    if axis_type is not None and any(
+            t != axis_type.Auto for t in jax.make_mesh((1,), ("x",)).axis_types):
+        make_mesh = jax.make_mesh
+
+        def auto_mesh(shape, names, axis_types=None, **kw):
+            if axis_types is None:
+                axis_types = (axis_type.Auto,) * len(names)
+            return make_mesh(shape, names, axis_types, **kw)
+        monkeypatch.setattr(jax, "make_mesh", auto_mesh)
     yield
     jax.clear_caches()
 
