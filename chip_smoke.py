@@ -4027,8 +4027,9 @@ def _flash_bwd_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
     = P^T dO, dQ = dS K, dK = dS^T Q) over the visible (query, key) pairs
     of this mask, two operations per multiply-add, at the bf16 rate or,
     for float32, as three TF32 passes (the card's fastest route at
-    float32's accuracy, as the forward rows count theirs); q, k, v, o and
-    dO read once, dq, dk and dv written once."""
+    float32's accuracy, as the forward rows count theirs); q, k, v and dO
+    (and for float32 the forward's o, which its kernel reads) read once,
+    dq, dk and dv written once."""
     qp = np.arange(Sq)[:, None]
     kp = np.arange(Sk)[None, :]
     vis = np.ones((Sq, Sk), bool)
@@ -4039,7 +4040,8 @@ def _flash_bwd_bounds(B, Sq, Sk, H, KV, D, causal, window, dtype):
     ops = 5 * 2.0 * B * H * int(vis.sum()) * D
     tc = (3 * ops / PEAK_TF32 if dtype == torch.float32
           else ops / PEAK_OPS[torch.bfloat16])
-    nbytes = (4 * B * Sq * H * D + 4 * B * Sk * KV * D) * dtype.itemsize
+    q_like = 4 if dtype == torch.float32 else 3
+    nbytes = (q_like * B * Sq * H * D + 4 * B * Sk * KV * D) * dtype.itemsize
     return tc * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
@@ -4069,13 +4071,26 @@ def _bwd_o(q, k, v, causal, window, cap):
                                              window=window, softcap=cap)
 
 
-def _held_bwd(q, k, v, o, do, causal, window, cap, case):
+def _launch_bwd(q, k, v, o, do, causal, window, cap):
+    """One launch of the backward kernel of q's dtype
+    (``kernel.backward_kernel``): bfloat16's takes (q, k, v, dO), float32's
+    (q, k, v, o, dO)."""
+    args = (q, k, v, do) if o is None else (q, k, v, o, do)
+    return flash_kernel.backward_kernel(q.dtype)(
+        *args, causal=causal, window=window, softcap=cap)
+
+
+def _held_bwd(q, k, v, o, do, causal, window, cap, case, twice=False):
     """One backward launch on (q, k, v, o, dO) held to the plain
     version's float32 autograd gradients: each gradient's relative norm
-    error within FLASH_BWD_REL of its dtype.  Returns (max abs error,
-    largest relative norm error)."""
-    got = flash_kernel.flash_attention_bwd_cuda(
-        q, k, v, o, do, causal=causal, window=window, softcap=cap)
+    error within FLASH_BWD_REL of its dtype; with ``twice``, a second
+    launch on the same inputs must give the same bits.  Returns (max abs
+    error, largest relative norm error)."""
+    got = _launch_bwd(q, k, v, o, do, causal, window, cap)
+    if twice:
+        again = _launch_bwd(q, k, v, o, do, causal, window, cap)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+            f"flash bwd {case}: two launches differ")
     torch.cuda.synchronize()
     want = _plain_flash_grads(q, k, v, do, causal, window, cap)
     e = r = 0.0
@@ -4107,53 +4122,83 @@ def _sdpa_bwd_ms(q, k, v, do, causal, reps):
                                                   retain_graph=True), reps)
 
 
+def _bwd_plan_str(B, Sq, Sk, H, KV, D, dtype):
+    """The backward's plan at a shape: grids, shared bytes and blocks."""
+    if dtype == torch.float32:
+        p = flash_kernel.bwd_plan(D)
+        nq, nk = -(-Sq // p.bq), -(-Sk // p.bk)
+        return (f"flash_attention_bwd plan: tiles {p.bq} x {p.bk}, prep and "
+                f"dq grid ({B * H}, {nq}) = {B * H * nq} blocks, dkdv grid "
+                f"({B * KV}, {nk}) = {B * KV * nk} blocks, 256 threads, "
+                f"dkdv shared bytes {p.smem_bytes}")
+    p = flash_kernel.bwd_wgmma_plan(D)
+    n_split, prep, dkdv, dq = flash_kernel.bwd_wgmma_grids(
+        B, Sq, Sk, H, KV, D, torch.cuda.get_device_properties(0)
+        .multi_processor_count)
+    return (f"flash_attention_bwd_wgmma plan: prep and dq {p.bq} query rows "
+            f"a block, K/V tiles of {p.bk} keys; dkdv {p.bkv} keys a block, "
+            f"Q/dO tiles of {p.bqd} rows, {p.d_split} column block(s), "
+            f"heads split over {n_split}; {p.stages} stages; grids prep "
+            f"{prep}, dkdv {dkdv}, dq {dq} blocks of 384 threads (one a SM); "
+            f"shared bytes prep/dq {p.smem_q}, dkdv {p.smem_k}")
+
+
 def flash_bwd_phase():
-    """The flash-attention backward kernel (``csrc/flash_attention_bwd.cu``)
-    against the plain version's autograd gradients on the card, the
-    forward kernel's O given it as ``FlashAttention`` saves it: both
-    dtypes x FLASH_BWD_CASES (causal, window, soft-cap, GQA 24/2,
-    non-causal Sq 224 x Sk 1500, ragged S) x every head dim, each
-    gradient's relative norm error within FLASH_BWD_REL.  Then timed at
-    FLASH_BWD_TIMED: device ms per launch, the plain version's backward
-    (autograd through ``attention_ref``, its forward outside the timing),
-    the bound (:func:`_flash_bwd_bounds`) and, for the uncapped,
-    unwindowed shapes, SDPA's backward.  Returns (max abs error, largest
-    relative norm error per dtype, StarCoder2-3B's bf16 timing tuple
-    (kernel, plain, bound, tensor-core ms, bytes ms), its SDPA ms)."""
-    e_max, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
+    """The flash-attention backward kernels against the plain version's
+    autograd gradients on the card, each reached by its dtype as
+    ``FlashAttention`` reaches it: float32 ``csrc/flash_attention_bwd.cu``
+    (given the forward kernel's O), bfloat16
+    ``csrc/flash_attention_bwd_wgmma.cu``; both dtypes x FLASH_BWD_CASES
+    (causal, window, soft-cap, GQA 24/2, non-causal Sq 224 x Sk 1500,
+    ragged S) x every head dim, each gradient's relative norm error within
+    FLASH_BWD_REL and a second launch bitwise equal to the first.  Then
+    timed at FLASH_BWD_TIMED, each shape's plan printed first: device ms
+    per launch, the plain version's backward (autograd through
+    ``attention_ref``, its forward outside the timing), the bound
+    (:func:`_flash_bwd_bounds`) and, for the uncapped, unwindowed shapes,
+    SDPA's backward.  Returns (max abs error per dtype, largest relative
+    norm error per dtype, StarCoder2-3B's timing tuple (kernel, plain,
+    bound, tensor-core ms, bytes ms) per dtype, its SDPA ms per
+    dtype)."""
+    dtypes = (torch.float32, torch.bfloat16)
+    e_max, worst = dict.fromkeys(dtypes, 0.0), dict.fromkeys(dtypes, 0.0)
+    for dtype in dtypes:
         for label, (B, Sq, Sk, H, KV), causal, window, cap in FLASH_BWD_CASES:
             for D in flash_kernel.WGMMA_HEAD_DIMS:
                 q, k, v, do = _flash_bwd_inputs(B, Sq, Sk, H, KV, D, dtype)
                 o = _bwd_o(q, k, v, causal, window, cap)
                 e, r = _held_bwd(q, k, v, o, do, causal, window, cap,
-                                 f"{label} D={D} {dtype}")
-                e_max, worst[dtype] = max(e_max, e), max(worst[dtype], r)
-    print("flash_attention_bwd: "
-          f"{2 * len(FLASH_BWD_CASES) * len(flash_kernel.WGMMA_HEAD_DIMS)} "
-          "cases (float32, bfloat16 x causal, window 64, soft-cap 50, GQA "
-          "24/2, non-causal Sq 224 x Sk 1500, ragged S 77 x D 16/64/112/"
-          "128/256) against the plain version's float32 autograd gradients:"
-          f" max_abs_err={e_max!r} rel_norm_err float32={worst[torch.float32]!r}"
-          f" (bound {FLASH_BWD_REL[torch.float32]}) bfloat16="
-          f"{worst[torch.bfloat16]!r} (bound {FLASH_BWD_REL[torch.bfloat16]})",
-          flush=True)
-    row = lib_row = None
-    for model, shape, causal, window, cap, dtypes in FLASH_BWD_TIMED:
+                                 f"{label} D={D} {dtype}", twice=True)
+                e_max[dtype] = max(e_max[dtype], e)
+                worst[dtype] = max(worst[dtype], r)
+    n_cases = len(FLASH_BWD_CASES) * len(flash_kernel.WGMMA_HEAD_DIMS)
+    print("flash_attention_bwd (float32) and flash_attention_bwd_wgmma "
+          f"(bfloat16): {n_cases} cases each (causal, window 64, soft-cap "
+          "50, GQA 24/2, non-causal Sq 224 x Sk 1500, ragged S 77 x D 16/64/"
+          "112/128/256) against the plain version's float32 autograd "
+          "gradients, each launched twice with the same bits: max_abs_err "
+          f"float32={e_max[torch.float32]!r} bfloat16="
+          f"{e_max[torch.bfloat16]!r}; rel_norm_err float32="
+          f"{worst[torch.float32]!r} (bound {FLASH_BWD_REL[torch.float32]}) "
+          f"bfloat16={worst[torch.bfloat16]!r} (bound "
+          f"{FLASH_BWD_REL[torch.bfloat16]})", flush=True)
+    rows, libs = {}, {}
+    for model, shape, causal, window, cap, dts in FLASH_BWD_TIMED:
         B, Sq, Sk, H, KV, D = shape
-        for dtype in dtypes:
+        for dtype in dts:
+            print(_bwd_plan_str(B, Sq, Sk, H, KV, D, dtype), flush=True)
             q, k, v, do = _flash_bwd_inputs(B, Sq, Sk, H, KV, D, dtype)
             o = _bwd_o(q, k, v, causal, window, cap)
             case = (f"{model} (B={B}, Sq={Sq}, Sk={Sk}, H={H}, KV={KV}, "
                     f"D={D}, {'causal' if causal else 'non-causal'}, "
                     f"window={window}, cap={cap}) "
                     f"{str(dtype).split('.')[-1]}")
-            e, r = _held_bwd(q, k, v, o, do, causal, window, cap, case)
-            e_max = max(e_max, e)
+            e, r = _held_bwd(q, k, v, o, do, causal, window, cap, case,
+                             twice=True)
+            e_max[dtype] = max(e_max[dtype], e)
             worst[dtype] = max(worst[dtype], r)
-            k_ms = _device_ms(lambda: flash_kernel.flash_attention_bwd_cuda(
-                q, k, v, o, do, causal=causal, window=window, softcap=cap),
-                3)
+            k_ms = _device_ms(lambda: _launch_bwd(q, k, v, o, do, causal,
+                                                  window, cap), 3)
             qf, kf, vf = (t.detach().float().requires_grad_()
                           for t in (q, k, v))
             of = attention_ref(qf, kf, vf, causal=causal, window=window,
@@ -4166,9 +4211,10 @@ def flash_bwd_phase():
             lib = (_sdpa_bwd_ms(q, k, v, do, causal, 3)
                    if not window and not cap else None)
             t = (k_ms, p_ms, max(tc_ms, byte_ms), tc_ms, byte_ms)
-            if model == "StarCoder2-3B" and dtype == torch.bfloat16:
-                row, lib_row = t, lib
-            print(f"flash_attention_bwd {case}: max_abs_err={e!r} "
+            if model == "StarCoder2-3B":
+                rows[dtype], libs[dtype] = t, lib
+            name = flash_kernel.backward_kernel(dtype).__name__
+            print(f"{name} {case}: max_abs_err={e!r} "
                   f"rel_norm_err={r!r} (bound {FLASH_BWD_REL[dtype]}) "
                   f"kernel_device_ms={k_ms!r} plain_ms={p_ms!r} (autograd "
                   f"through attention_ref, backward only) bound_ms="
@@ -4180,19 +4226,22 @@ def flash_bwd_phase():
                   f"backward)={lib!r}", flush=True)
             del q, k, v, o, do
             torch.cuda.empty_cache()
-    return e_max, worst, row, lib_row
+    return e_max, worst, rows, libs
 
 
 def _bwd_counts():
-    """(float32 flash, bfloat16 flash, flash backward) launches so far."""
+    """(float32 flash, bfloat16 flash, float32 flash backward, bfloat16
+    flash backward) launches so far."""
     return (flash_kernel.flash_attention_cuda.launches,
             flash_kernel.flash_attention_wgmma.launches,
-            flash_kernel.flash_attention_bwd_cuda.launches)
+            flash_kernel.flash_attention_bwd_cuda.launches,
+            flash_kernel.flash_attention_bwd_wgmma.launches)
 
 
 def _reset_bwd_counts():
     _reset_model_counts()
     flash_kernel.flash_attention_bwd_cuda.launches = 0
+    flash_kernel.flash_attention_bwd_wgmma.launches = 0
 
 
 def _grad_rel(got, want):
@@ -4271,9 +4320,9 @@ def train_tiny_phase():
         params, opt, m = step(params, opt, pipe.next_batch())
         ces.append(float(m["ce"]))
     wall = time.perf_counter() - t0
-    f32, bf16, bwd = _bwd_counts()
+    f32, bf16, bwd, bwd_bf16 = _bwd_counts()
     n = TINY_TRAIN["steps"] * TINY.n_layers
-    assert (f32, bf16, bwd) == (n, 0, n), (f32, bf16, bwd)
+    assert (f32, bf16, bwd, bwd_bf16) == (n, 0, n, 0), _bwd_counts()
     first5, last5 = float(np.mean(ces[:5])), float(np.mean(ces[-5:]))
     assert np.all(np.isfinite(ces)) and last5 < 0.8 * first5, (first5,
                                                                last5)
@@ -4293,7 +4342,8 @@ def train_phase(arch="starcoder2_3b", dims=STARCODER_TRAIN):
     parameters and moments, remat, AdamW, batches from the data
     pipeline), the counts set to 0 just before and read just after: per
     step one wgmma forward launch a layer, one more in its remat
-    recompute and one backward launch.  The first step's backward
+    recompute and one bfloat16 backward launch
+    (``flash_attention_bwd_wgmma``).  The first step's backward
     launches are recorded (inputs copied to the host) and each is held,
     after the run, to the plain version's float32 autograd gradients
     within FLASH_BWD_REL[bfloat16].  The loss is finite and falls from
@@ -4304,15 +4354,14 @@ def train_phase(arch="starcoder2_3b", dims=STARCODER_TRAIN):
     cfg = get_config(arch)
     L = cfg.n_layers
     B, S, n_steps = dims["batch"], dims["seq"], dims["steps"]
-    kernel, seen = flash_kernel.flash_attention_bwd_cuda, []
+    kernel, seen = flash_kernel.flash_attention_bwd_wgmma, []
 
-    def recorded(q, k, v, o, do, **kw):
+    def recorded(q, k, v, do, **kw):
         # stands in for the module's wrapper during the run: the wrapper
         # counts its launch on this function's ``launches``
-        out = kernel(q, k, v, o, do, **kw)
+        out = kernel(q, k, v, do, **kw)
         if len(seen) < L:
-            seen.append(tuple(None if t is None else t.detach().cpu()
-                              for t in (q, k, v, o, do))
+            seen.append(tuple(t.detach().cpu() for t in (q, k, v, do))
                         + (kw,))
         return out
 
@@ -4320,27 +4369,26 @@ def train_phase(arch="starcoder2_3b", dims=STARCODER_TRAIN):
     torch.cuda.reset_peak_memory_stats()
     _reset_bwd_counts()
     recorded.launches = 0
-    flash_kernel.flash_attention_bwd_cuda = recorded
+    flash_kernel.flash_attention_bwd_wgmma = recorded
     try:
         out = train_launch.train(arch, steps=n_steps, seq=S, batch=B,
                                  ckpt=os.path.join("chiprun_out",
                                                    "train_ckpt"))
         torch.cuda.synchronize()
     finally:
-        flash_kernel.flash_attention_bwd_cuda = kernel
+        flash_kernel.flash_attention_bwd_wgmma = kernel
     kernel.launches += recorded.launches
-    f32, bf16, bwd = _bwd_counts()
+    f32, bf16, bwd_f32, bwd = _bwd_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
     ces = out["ce"]
-    assert (f32, bf16, bwd) == (0, 2 * L * n_steps, L * n_steps), (
-        f32, bf16, bwd)
+    assert (f32, bf16, bwd_f32, bwd) == (0, 2 * L * n_steps, 0,
+                                         L * n_steps), _bwd_counts()
     assert np.all(np.isfinite(ces)) and ces[-1] < ces[0], ces
     assert len(seen) == L
     e_max = r_max = 0.0
-    for q, k, v, o, do, kw in seen:
-        e, r = _held_bwd(*(None if t is None else t.cuda()
-                           for t in (q, k, v, o, do)),
+    for q, k, v, do, kw in seen:
+        e, r = _held_bwd(q.cuda(), k.cuda(), v.cuda(), None, do.cuda(),
                          kw["causal"], kw["window"], kw["softcap"],
                          f"{arch} training step 1")
         e_max, r_max = max(e_max, e), max(r_max, r)
@@ -4358,7 +4406,8 @@ def train_phase(arch="starcoder2_3b", dims=STARCODER_TRAIN):
           f"{tokens / p50!r}; model_tflops={tflops!r} (6 N tokens + "
           f"attention {attn:.4g} flops a step); peak_gb={peak_gb!r}; "
           f"launches: wgmma forward {bf16} ({2 * L} a step with the remat "
-          f"recomputes), backward {bwd} ({L} a step); step 1's {L} backward "
+          f"recomputes), bfloat16 backward (flash_attention_bwd_wgmma) "
+          f"{bwd} ({L} a step); step 1's {L} backward "
           f"launches against the plain gradients: max_abs_err={e_max!r} "
           f"rel_norm_err={r_max!r} (bound "
           f"{FLASH_BWD_REL[torch.bfloat16]})", flush=True)
@@ -4491,8 +4540,8 @@ def main() -> int:
     _phase(mla_full_phase)
     _phase(deepseek_serve_phase)
     _phase(batcher_phase)
-    bwd_launches = _phase(train_tiny_phase)
-    bwd_launches += _phase(train_phase, "starcoder2_3b")
+    bwd_f32_launches = _phase(train_tiny_phase)
+    bwd_bf16_launches = _phase(train_phase, "starcoder2_3b")
     _phase(train_steps_phase, "starcoder2_3b")
     _phase(serve_profile_phase)
     _phase(serve_profile_phase, "gemma2_9b", GEMMA_SERVE)
@@ -4564,13 +4613,19 @@ def main() -> int:
               fa_ref, flash_launches, flash_err, flash_t, flash_t[5])]
     # the flash-attention backward: the counterpart of no Pallas kernel
     # (the reference differentiates its jnp attention with
-    # jax.value_and_grad); launches over the two training phases (TINY on
-    # the card, StarCoder2-3B at full width), times at StarCoder2-3B's
-    # training attention in bfloat16, beside SDPA's backward
-    rows.append(("flash_attention_bwd", fa_src + "flash_attention_bwd.cu",
-                 "jax.value_and_grad (src/repro/train/steps.py:152) through "
-                 "src/repro/models/attention.py::_sdpa_chunked (:66)",
-                 bwd_launches, bwd_err, bwd_t, bwd_lib))
+    # jax.value_and_grad); float32 on the CUDA cores, launches over TINY's
+    # training on the card, and bfloat16 on the tensor cores, launches
+    # over StarCoder2-3B's at full width; times at StarCoder2-3B's
+    # training attention in each dtype, beside SDPA's backward
+    f32, bf16 = torch.float32, torch.bfloat16
+    grad_ref = ("jax.value_and_grad (src/repro/train/steps.py:152) through "
+                "src/repro/models/attention.py::_sdpa_chunked (:66)")
+    rows += [("flash_attention_bwd", fa_src + "flash_attention_bwd.cu",
+              grad_ref, bwd_f32_launches, bwd_err[f32], bwd_t[f32],
+              bwd_lib[f32]),
+             ("flash_attention_bwd_wgmma",
+              fa_src + "flash_attention_bwd_wgmma.cu", grad_ref,
+              bwd_bf16_launches, bwd_err[bf16], bwd_t[bf16], bwd_lib[bf16])]
     print(f"chip_smoke phases: wall_s={time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,

@@ -1,6 +1,7 @@
 // Flash attention (backward) on Hopper (sm_90a), float32 on the CUDA
-// cores, for float32 and bfloat16 inputs: GQA, causal mask, sliding
-// window, tanh logit soft-cap, non-causal with Sq != Sk, ragged edges.
+// cores, for float32 inputs: GQA, causal mask, sliding window, tanh
+// logit soft-cap, non-causal with Sq != Sk, ragged edges.  bfloat16
+// inputs go to the tensor-core kernels of flash_attention_bwd_wgmma.cu.
 //
 // Replaces no TPU kernel: the JAX package has no backward kernel.  Its
 // training differentiates jnp code with jax.value_and_grad
@@ -9,7 +10,7 @@
 // _sdpa_chunked, the jnp form of the flash recurrence whose forward the
 // port runs as flash_attention_mma.cu / flash_attention_wgmma.cu.  Those
 // forward kernels write into a buffer torch.empty_like allocated, which
-// has no autograd graph; this kernel is the backward of the
+// has no autograd graph; this kernel is the float32 backward of the
 // torch.autograd.Function (kernel.py::FlashAttention) that wraps them.
 //
 // The function, for query row i of head h (KV head h / (H / KV)) and
@@ -25,24 +26,20 @@
 //     ds_ij   = p_ij (dp_ij - delta_i) (1 - tanh^2(x_ij / cap) if capped)
 //     dQ_i    = scale sum_j ds_ij k_j;   dK_j = scale sum_i ds_ij q_i
 //
-// For float32 inputs delta reads O, the forward kernel's output as the
-// autograd function saved it; for bfloat16 inputs the prep recomputes O
-// in float32 (the wgmma forward's O is rounded to bfloat16, and ds
-// cancels delta against dp: see bwd_prep_own_o_kernel).  Everything else
-// is recomputed here in float32 from q, k, v and dO.  A row that sees no
-// key (only possible with a window shorter than Sq - Sk) gets lse = +inf
-// and zero gradients.
+// delta reads O, the forward kernel's output as the autograd function
+// saved it; everything else is recomputed here in float32 from q, k, v
+// and dO.  A row that sees no key (only possible with a window shorter
+// than Sq - Sk) gets lse = +inf and zero gradients.
 //
 // Three kernels, one launch each, on the caller's stream:
 //
 // - prep: one block per (batch * head, block of BQ query rows) walks the
-//   key tiles its rows can see.  float32: it keeps, per row and thread, a
-//   running (max, sum) of exp over its columns, combined over the 16
-//   threads of a row at the end (lse), and sums dO O (delta).  bfloat16:
-//   the forward's online softmax and P V in float32, then lse and
-//   rowsum(dO O32).  Both go to float32 scratch (B, H, Sq).  Keeping this
-//   pass apart leaves the two measured forward sources untouched; having
-//   the forward write lse (and a float32 delta) is a later speed change.
+//   key tiles its rows can see.  It keeps, per row and thread, a running
+//   (max, sum) of exp over its columns, combined over the 16 threads of a
+//   row at the end (lse), and sums dO O (delta); both go to float32
+//   scratch (B, H, Sq).  Keeping this pass apart leaves the measured
+//   forward source untouched; having the forward write lse is a later
+//   speed change.
 // - dkdv: one block per (batch, KV head, block of BK keys) holds its K
 //   and V tiles and its dK, dV accumulators (registers) and walks the G
 //   query heads of its group and the query blocks that can see its keys,
@@ -52,32 +49,28 @@
 //   lse, delta and its dQ accumulator and walks the key tiles its rows
 //   can see, recomputing S and dP.
 //
-// What bounds it on this card: at StarCoder2-3B's training shape (B 2,
-// S 2048, 24 heads over 2 KV heads, D 128, causal) the visible pairs
-// need 8 products of 2 B H (S^2 / 2) D operations (one in prep, two for
-// bfloat16 inputs, four in dkdv, three in dq): ~206 G operations (232 G
-// for bfloat16) on ~100 MB, so operations bound
-// it.  This first design takes them on the CUDA cores in float32 (67
-// TFLOP/s at most; 3.1 ms at that peak, ~0.21 ms at bf16's 989 on the
-// tensor cores): 256 threads a block as 16 x 16, each computing a
-// (BQ / 16) x (BK / 16) micro-tile of a score tile (rows ty + 16 i,
-// columns tx + 16 j) and a (BK / 16) x (D / 16) micro-tile of the dK, dV
-// or dQ accumulators from shared tiles.  Shared rows are D + 1 floats
-// apart, so the 16 rows a half-warp reads at one column fall on 16
-// distinct banks (D + 1 is odd); the other half-warp reads the same
-// words (a broadcast).  BQ = BK = 64 up to D = 128 and 32 at D = 256,
-// which keeps the dkdv block's tiles (K, V, Q, dO, P, dS) under the 227
-// KB a block may use.  wgmma and TMA are a later PR's work.
+// What bounds it on this card: at StarCoder2-3B's training shape (B 2, S 2048,
+// 24 heads over 2 KV heads, D 128, causal) the visible pairs need 8 products of
+// 2 B H (S^2 / 2) D operations (one in prep, four in dkdv, three in dq): ~206 G
+// operations on ~218 MB, so operations bound it.  This first design takes them
+// on the CUDA cores in float32 (67 TFLOP/s at most; 3.1 ms at that peak): 256
+// threads a block as 16 x 16, each computing a (BQ / 16) x (BK / 16) micro-tile
+// of a score tile (rows ty + 16 i, columns tx + 16 j) and a (BK / 16) x (D /
+// 16) micro-tile of the dK, dV or dQ accumulators from shared tiles.  Shared
+// rows are D + 1 floats apart, so the 16 rows a half-warp reads at one column
+// fall on 16 distinct banks (D + 1 is odd); the other half-warp reads the same
+// words (a broadcast).  BQ = BK = 64 up to D = 128 and 32 at D = 256, which
+// keeps the dkdv block's tiles (K, V, Q, dO, P, dS) under the 227 KB a block
+// may use.  Moving float32 onto the tensor cores (TF32 in three passes, as the
+// forward) is a later PR's work.
 //
 // All kernels build with -fmad=false (kernels/build.py): every multiply
 // and add rounds on its own.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 #include <initializer_list>
-#include <type_traits>
 
 namespace {
 
@@ -100,28 +93,17 @@ struct Tile {
   static constexpr int TD = D / 16;              // accumulator columns
   // floats of shared memory of each kernel
   static constexpr int kPrep = (BQ + BK) * LD;
-  static constexpr int kPrepOwnO = (BQ + 2 * BK) * LD + BQ * LS;
   static constexpr int kDkdv = (2 * BK + 2 * BQ) * LD + 2 * BQ * LS + 2 * BQ;
   static constexpr int kDq = (2 * BQ + 2 * BK) * LD + BQ * LS + 2 * BQ;
   static_assert(D % 16 == 0, "head dim a multiple of 16");
-  static_assert(4 * kDkdv <= 227 * 1024 && 4 * kDq <= 227 * 1024 &&
-                    4 * kPrepOwnO <= 227 * 1024,
+  static_assert(4 * kDkdv <= 227 * 1024 && 4 * kDq <= 227 * 1024,
                 "a block's tiles must fit 227 KB");
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even
-}
-
 // Rows row0 .. row0 + ROWS - 1 of head h of a (B, S, NH, D) tensor into
 // a shared (ROWS, D + 1) float tile; rows past S are zero.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int b,
                                           int row0, int S, int NH, int h) {
   constexpr int LD = D + 1;
   for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
@@ -130,7 +112,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
     const int s = row0 + r;
     float x = 0.0f;
     if (s < S)
-      x = to_f(src[((static_cast<int64_t>(b) * S + s) * NH + h) * D + c]);
+      x = src[((static_cast<int64_t>(b) * S + s) * NH + h) * D + c];
     dst[r * LD + c] = x;
   }
 }
@@ -189,10 +171,10 @@ __device__ __forceinline__ void key_range(int q0, int Sq, int Sk, int causal,
   if (window > 0) *lo = max(0, q0 - window + 1) / BK;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_prep_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ o, const T* __restrict__ dO,
+    bwd_prep_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ o, const float* __restrict__ dO,
                     float* __restrict__ lse, float* __restrict__ delta,
                     int Sq, int Sk, int H, int KV, float scale, int causal,
                     int window, float cap) {
@@ -214,7 +196,7 @@ __global__ void __launch_bounds__(kThreads)
     if (qi < Sq) {
       const int64_t base = ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
       for (int c = tx; c < D; c += 16)
-        part += to_f(dO[base + c]) * to_f(o[base + c]);
+        part += dO[base + c] * o[base + c];
     }
 #pragma unroll
     for (int off = 1; off < 16; off <<= 1)
@@ -222,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
     if (tx == 0 && qi < Sq) delta[static_cast<int64_t>(bh) * Sq + qi] = part;
   }
 
-  load_tile<T, D, BQ>(Qs, q, b, q0, Sq, H, h);
+  load_tile<D, BQ>(Qs, q, b, q0, Sq, H, h);
   int kb_lo, kb_hi;
   key_range<BQ, BK>(q0, Sq, Sk, causal, window, &kb_lo, &kb_hi);
   float m[TM], l[TM];
@@ -233,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     __syncthreads();  // the previous K tile is read
-    load_tile<T, D, BK>(Ks, k, b, kb * BK, Sk, KV, kvh);
+    load_tile<D, BK>(Ks, k, b, kb * BK, Sk, KV, kvh);
     __syncthreads();
     float acc[TM][TN];
     tile_dot<D, TM, TN>(acc, Qs, Ks, ty, tx);
@@ -270,124 +252,6 @@ __global__ void __launch_bounds__(kThreads)
     if (tx == 0 && qi < Sq)
       lse[static_cast<int64_t>(bh) * Sq + qi] =
           sum > 0.0f ? mx + logf(sum) : INFINITY;
-  }
-}
-
-// The bfloat16 inputs' prep: O recomputed in float32 (the forward's
-// online softmax over the same key tiles, P V on the CUDA cores), then
-// lse = m + log l and delta = rowsum(dO O32).  The wgmma forward's O is
-// rounded to bfloat16 (8 bits) after P was rounded too, and
-// ds = p (dp - delta) cancels delta against dp: with that O, dQ on a
-// StarCoder2-3B layer's real activations missed the plain gradient by
-// 2.7e-2 of its norm.  Recomputed, delta is the float32 plain version's.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    bwd_prep_own_o_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dO,
-                          float* __restrict__ lse, float* __restrict__ delta,
-                          int Sq, int Sk, int H, int KV, float scale,
-                          int causal, int window, float cap) {
-  using Tl = Tile<D>;
-  constexpr int BQ = Tl::BQ, BK = Tl::BK, LD = Tl::LD, LS = Tl::LS;
-  constexpr int TM = Tl::TM, TN = Tl::TN, TD = Tl::TD;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* Ps = Vs + BK * LD;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh - b * H, kvh = h / (H / KV);
-  const int q0 = blockIdx.y * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_tile<T, D, BQ>(Qs, q, b, q0, Sq, H, h);
-  int kb_lo, kb_hi;
-  key_range<BQ, BK>(q0, Sq, Sk, causal, window, &kb_lo, &kb_hi);
-  // m, l: each row's running max and sum, the same in the 16 threads of
-  // the row; acc: this thread's columns tx + 16 c of its rows' O
-  float m[TM], l[TM], acc[TM][TD];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < TD; ++c) acc[i][c] = 0.0f;
-  }
-  for (int kb = kb_lo; kb < kb_hi; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous tiles are read
-    load_tile<T, D, BK>(Ks, k, b, k0, Sk, KV, kvh);
-    load_tile<T, D, BK>(Vs, v, b, k0, Sk, KV, kvh);
-    __syncthreads();
-    float s_acc[TM][TN];
-    tile_dot<D, TM, TN>(s_acc, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        float t;
-        const float sc = score(s_acc[i][j], scale, cap, &t);
-        const bool vis = visible(q0 + r, k0 + tx + 16 * j, Sq, Sk, causal,
-                                 window);
-        s_acc[i][j] = vis ? sc : -INFINITY;
-        mx = fmaxf(mx, s_acc[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha =
-          m_new == -INFINITY ? 1.0f : expf(m[i] - m_new);  // exp(-inf) = 0
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = s_acc[i][j] == -INFINITY ? 0.0f
-                                                 : expf(s_acc[i][j] - m_new);
-        Ps[r * LS + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < TD; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-    // acc[r][d] += sum_kk P[r][kk] V[kk][d]
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      float pr[TM], vr[TD];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) pr[i] = Ps[(ty + 16 * i) * LS + kk];
-#pragma unroll
-      for (int c = 0; c < TD; ++c) vr[c] = Vs[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int c = 0; c < TD; ++c) acc[i][c] += pr[i] * vr[c];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    float part = 0.0f;
-    if (qi < Sq && l[i] > 0.0f) {
-      const int64_t base = ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
-#pragma unroll
-      for (int c = 0; c < TD; ++c)
-        part += to_f(dO[base + tx + 16 * c]) * (acc[i][c] / l[i]);
-    }
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (tx == 0 && qi < Sq) {
-      delta[static_cast<int64_t>(bh) * Sq + qi] = part;
-      lse[static_cast<int64_t>(bh) * Sq + qi] =
-          l[i] > 0.0f ? m[i] + logf(l[i]) : INFINITY;
-    }
   }
 }
 
@@ -436,13 +300,13 @@ __device__ __forceinline__ void load_rows(float* Ls, float* Dl,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dO,
+    bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dO,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dk,
-                    T* __restrict__ dv, int Sq, int Sk, int H, int KV,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int Sq, int Sk, int H, int KV,
                     float scale, int causal, int window, float cap) {
   using Tl = Tile<D>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, LD = Tl::LD, LS = Tl::LS;
@@ -460,8 +324,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bkv / KV, kvh = bkv - b * KV, G = H / KV;
   const int k0 = blockIdx.y * BK;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_tile<T, D, BK>(Ks, k, b, k0, Sk, KV, kvh);
-  load_tile<T, D, BK>(Vs, v, b, k0, Sk, KV, kvh);
+  load_tile<D, BK>(Ks, k, b, k0, Sk, KV, kvh);
+  load_tile<D, BK>(Vs, v, b, k0, Sk, KV, kvh);
 
   float dk_acc[TN][TD], dv_acc[TN][TD];
 #pragma unroll
@@ -479,8 +343,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int qb = qb_lo; qb < qb_hi; ++qb) {
       const int q0 = qb * BQ;
       __syncthreads();  // the previous tiles are read
-      load_tile<T, D, BQ>(Qs, q, b, q0, Sq, H, h);
-      load_tile<T, D, BQ>(dOs, dO, b, q0, Sq, H, h);
+      load_tile<D, BQ>(Qs, q, b, q0, Sq, H, h);
+      load_tile<D, BQ>(dOs, dO, b, q0, Sq, H, h);
       load_rows<BQ>(Ls, Dl, lse, delta, rows, q0, Sq);
       __syncthreads();
       probs_and_dscores<D>(Qs, dOs, Ks, Vs, Ls, Dl, Ps, dSs, q0, k0, Sq, Sk,
@@ -517,18 +381,18 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t base = ((static_cast<int64_t>(b) * Sk + kj) * KV + kvh) * D;
 #pragma unroll
     for (int c = 0; c < TD; ++c) {
-      store(dk + base + tx + 16 * c, dk_acc[a][c] * scale);
-      store(dv + base + tx + 16 * c, dv_acc[a][c]);
+      dk[base + tx + 16 * c] = dk_acc[a][c] * scale;
+      dv[base + tx + 16 * c] = dv_acc[a][c];
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dO,
+    bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dO,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dq,
+                  const float* __restrict__ delta, float* __restrict__ dq,
                   int Sq, int Sk, int H, int KV, float scale, int causal,
                   int window, float cap) {
   using Tl = Tile<D>;
@@ -546,8 +410,8 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / H, h = bh - b * H, kvh = h / (H / KV);
   const int q0 = blockIdx.y * BQ;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_tile<T, D, BQ>(Qs, q, b, q0, Sq, H, h);
-  load_tile<T, D, BQ>(dOs, dO, b, q0, Sq, H, h);
+  load_tile<D, BQ>(Qs, q, b, q0, Sq, H, h);
+  load_tile<D, BQ>(dOs, dO, b, q0, Sq, H, h);
   load_rows<BQ>(Ls, Dl, lse, delta, static_cast<int64_t>(bh) * Sq, q0, Sq);
 
   float dq_acc[TM][TD];
@@ -561,8 +425,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // the previous tiles are read
-    load_tile<T, D, BK>(Ks, k, b, k0, Sk, KV, kvh);
-    load_tile<T, D, BK>(Vs, v, b, k0, Sk, KV, kvh);
+    load_tile<D, BK>(Ks, k, b, k0, Sk, KV, kvh);
+    load_tile<D, BK>(Vs, v, b, k0, Sk, KV, kvh);
     __syncthreads();
     probs_and_dscores<D>(Qs, dOs, Ks, Vs, Ls, Dl, nullptr, dSs, q0, k0, Sq,
                          Sk, scale, causal, window, cap, ty, tx);
@@ -588,7 +452,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t base = ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < TD; ++c)
-      store(dq + base + tx + 16 * c, dq_acc[i][c] * scale);
+      dq[base + tx + 16 * c] = dq_acc[i][c] * scale;
   }
 }
 
@@ -603,7 +467,7 @@ cudaError_t opt_in(Kernel kernel, int bytes) {
                               bytes);
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dO, void* dq, void* dk, void* dv, float* lse,
            float* delta, int B, int Sq, int Sk, int H, int KV, float scale,
@@ -618,58 +482,58 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int nkb = (Sk + Tl::BK - 1) / Tl::BK;
   if (nqb > 65535 || nkb > 65535 || static_cast<int64_t>(B) * H > 0x7fffffff)
     return kErrGrid;
-  constexpr bool kOwnO = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int kPrepBytes = 4 * (kOwnO ? Tl::kPrepOwnO : Tl::kPrep);
   static bool opted_in = false;  // one attribute set per instantiation
   if (!opted_in) {
-    cudaError_t err =
-        kOwnO ? opt_in(bwd_prep_own_o_kernel<T, D>, kPrepBytes)
-              : opt_in(bwd_prep_kernel<T, D>, kPrepBytes);
-    if (err == cudaSuccess)
-      err = opt_in(bwd_dkdv_kernel<T, D>, 4 * Tl::kDkdv);
-    if (err == cudaSuccess) err = opt_in(bwd_dq_kernel<T, D>, 4 * Tl::kDq);
+    cudaError_t err = opt_in(bwd_prep_kernel<D>, 4 * Tl::kPrep);
+    if (err == cudaSuccess) err = opt_in(bwd_dkdv_kernel<D>, 4 * Tl::kDkdv);
+    if (err == cudaSuccess) err = opt_in(bwd_dq_kernel<D>, 4 * Tl::kDq);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* ot = static_cast<const T*>(o);
-  const T* dot = static_cast<const T*>(dO);
-  if constexpr (kOwnO)
-    bwd_prep_own_o_kernel<T, D><<<dim3(B * H, nqb), kThreads, kPrepBytes,
-                                  st>>>(qt, kt, vt, dot, lse, delta, Sq, Sk,
-                                        H, KV, scale, causal, window, cap);
-  else
-    bwd_prep_kernel<T, D><<<dim3(B * H, nqb), kThreads, kPrepBytes, st>>>(
-        qt, kt, ot, dot, lse, delta, Sq, Sk, H, KV, scale, causal, window,
-        cap);
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* ot = static_cast<const float*>(o);
+  const float* dot = static_cast<const float*>(dO);
+  bwd_prep_kernel<D><<<dim3(B * H, nqb), kThreads, 4 * Tl::kPrep, st>>>(
+      qt, kt, ot, dot, lse, delta, Sq, Sk, H, KV, scale, causal, window, cap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkdv_kernel<T, D><<<dim3(B * KV, nkb), kThreads, 4 * Tl::kDkdv, st>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      Sq, Sk, H, KV, scale, causal, window, cap);
+  bwd_dkdv_kernel<D><<<dim3(B * KV, nkb), kThreads, 4 * Tl::kDkdv, st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), Sq, Sk, H, KV, scale, causal, window, cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dq_kernel<T, D><<<dim3(B * H, nqb), kThreads, 4 * Tl::kDq, st>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), Sq, Sk, H, KV, scale,
-      causal, window, cap);
+  bwd_dq_kernel<D><<<dim3(B * H, nqb), kThreads, 4 * Tl::kDq, st>>>(
+      qt, kt, vt, dot, lse, delta, static_cast<float*>(dq), Sq, Sk, H, KV,
+      scale, causal, window, cap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dO, void* dq, void* dk, void* dv, void* lse,
-             void* delta, int B, int Sq, int Sk, int H, int KV, int D,
-             float scale, int causal, int window, float cap, int smem,
-             void* stream) {
+}  // namespace
+
+extern "C" {
+
+// Contiguous float32 device buffers, 16-byte aligned: q, o, dO, dq
+// (B, Sq, H, D); k, v, dk, dv (B, Sk, KV, D); lse and delta scratch
+// (B, H, Sq).  H % KV == 0, D one of 16, 64, 112, 128, 256; smem (bytes)
+// as kernel.py::bwd_plan gives it for the dkdv kernel (the launch is
+// refused otherwise); scale = 1 / sqrt(D); window 0 = none; cap 0 = no
+// soft-cap.  Three launches on `stream`; returns 0 when all three
+// launched, else a cudaError_t or one of the kErr codes
+// (flash_bwd_error_string).
+int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                            const void* o, const void* dO, void* dq,
+                            void* dk, void* dv, void* lse, void* delta,
+                            int B, int Sq, int Sk, int H, int KV, int D,
+                            float scale, int causal, int window, float cap,
+                            int smem, void* stream) {
 #define FLASH_BWD_CASE(d)                                                    \
   case d:                                                                    \
-    return launch<T, d>(q, k, v, o, dO, dq, dk, dv,                          \
-                        static_cast<float*>(lse),                            \
-                        static_cast<float*>(delta), B, Sq, Sk, H, KV, scale, \
-                        causal, window, cap, smem, stream);
+    return launch<d>(q, k, v, o, dO, dq, dk, dv, static_cast<float*>(lse),   \
+                     static_cast<float*>(delta), B, Sq, Sk, H, KV, scale,    \
+                     causal, window, cap, smem, stream);
   switch (D) {
     FLASH_BWD_CASE(16)
     FLASH_BWD_CASE(64)
@@ -680,39 +544,6 @@ int dispatch(const void* q, const void* k, const void* v, const void* o,
       return kErrHeadDim;
   }
 #undef FLASH_BWD_CASE
-}
-
-}  // namespace
-
-extern "C" {
-
-// Contiguous device buffers of one type (float32 for _f32, bfloat16 for
-// _bf16), 16-byte aligned: q, o, dO, dq (B, Sq, H, D); k, v, dk, dv
-// (B, Sk, KV, D); lse and delta float32 scratch (B, H, Sq).  H % KV ==
-// 0, D one of 16, 64, 112, 128, 256; smem (bytes) as kernel.py::
-// bwd_plan gives it for the dkdv kernel (the launch is refused
-// otherwise); scale = 1 / sqrt(D); window 0 = none; cap 0 = no soft-cap.
-// Three launches on `stream`; returns 0 when all three launched, else a
-// cudaError_t or one of the kErr codes (flash_bwd_error_string).
-int flash_attention_bwd_f32(const void* q, const void* k, const void* v,
-                            const void* o, const void* dO, void* dq,
-                            void* dk, void* dv, void* lse, void* delta,
-                            int B, int Sq, int Sk, int H, int KV, int D,
-                            float scale, int causal, int window, float cap,
-                            int smem, void* stream) {
-  return dispatch<float>(q, k, v, o, dO, dq, dk, dv, lse, delta, B, Sq, Sk,
-                         H, KV, D, scale, causal, window, cap, smem, stream);
-}
-
-int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                             const void* o, const void* dO, void* dq,
-                             void* dk, void* dv, void* lse, void* delta,
-                             int B, int Sq, int Sk, int H, int KV, int D,
-                             float scale, int causal, int window, float cap,
-                             int smem, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, dO, dq, dk, dv, lse, delta, B,
-                                 Sq, Sk, H, KV, D, scale, causal, window, cap,
-                                 smem, stream);
 }
 
 const char* flash_bwd_error_string(int code) {

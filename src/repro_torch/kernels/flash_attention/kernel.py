@@ -1,7 +1,8 @@
 """CUDA flash attention: builds, ctypes bindings, launch plans and the
 checked wrappers of two forward kernels, one per input type, both on
-Hopper's tensor cores, and of the backward kernel with the autograd
-function over them (at the end of this module).  Both replace
+Hopper's tensor cores, and of two backward kernels, one per input type,
+with the autograd function over them (at the end of this module).  The
+forward kernels replace
 ``repro/kernels/flash_attention/kernel.py::flash_attention``: GQA with a
 causal mask, a sliding window and a tanh soft-cap, the online softmax in
 float32, one block per (batch * head, block of query rows) walking the
@@ -23,32 +24,39 @@ bfloat16: both products on wgmma (float32 accumulation), K and V brought
 by TMA into a two-stage ring, one block per (batch * head, 128 query
 rows).  :func:`wgmma_plan` is its plan, a function of D alone.
 
-:func:`flash_attention_bwd_cuda` (``csrc/flash_attention_bwd.cu``) is
-the backward for both input types, float32 on the CUDA cores (three
-launches: log-sum-exp and rowsum(dO o), dK and dV per key block with no
-atomics, dQ per query block); :class:`FlashAttention` runs a forward
-kernel and saves q, k, v (and o for float32) for it.  It replaces no
-Pallas kernel:
+:func:`flash_attention_bwd_wgmma` (``csrc/flash_attention_bwd_wgmma.cu``)
+is the backward for bfloat16: every product on wgmma, operands by TMA,
+three launches (log-sum-exp and delta = sum_j p_ij dP_ij, dK and dV per
+key block with a group's query heads split over blocks whose float32
+partials the third launch sums in a fixed order, dQ per query block), no
+atomics; :func:`bwd_wgmma_plan` and :func:`bwd_wgmma_split` are its
+plan.  :func:`flash_attention_bwd_cuda` (``csrc/flash_attention_bwd.cu``)
+is the backward for float32, on the CUDA cores (three launches:
+log-sum-exp and rowsum(dO o), dK and dV per key block, dQ per query
+block).  :class:`FlashAttention` runs a forward kernel and saves q, k, v
+(and o for float32) for the backward of the inputs' dtype
+(:func:`backward_kernel`).  Neither backward replaces a Pallas kernel:
 the reference differentiates its jnp attention with
 ``jax.value_and_grad``.  The forward wrappers refuse inputs that need a
 gradient under grad mode (:func:`refuse_grad`): their outputs have no
 autograd graph.
 
-All three sources are built for the head dims of :data:`WGMMA_HEAD_DIMS`.
+All four sources are built for the head dims of :data:`WGMMA_HEAD_DIMS`.
 The libraries are compiled from the sources at first use
 (:mod:`repro_torch.kernels.build`), never at import.  Each wrapper
 launches on the current stream without synchronising, raises on a bad
 device, dtype, shape, head dim or contiguity and on a failed launch, and
 counts its launches (``flash_attention_cuda.launches``,
-``flash_attention_wgmma.launches``, ``flash_attention_bwd_cuda.launches``:
-one a call, its three kernels together).
+``flash_attention_wgmma.launches``, ``flash_attention_bwd_cuda.launches``,
+``flash_attention_bwd_wgmma.launches``: one a call, a backward's three
+kernels together).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -57,7 +65,8 @@ from ..build import bind, build_libraries, launch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_mma": _CSRC / "flash_attention_mma.cu",
            "flash_wgmma": _CSRC / "flash_attention_wgmma.cu",
-           "flash_bwd": _CSRC / "flash_attention_bwd.cu"}
+           "flash_bwd": _CSRC / "flash_attention_bwd.cu",
+           "flash_bwd_wgmma": _CSRC / "flash_attention_bwd_wgmma.cu"}
 
 # shared memory one block may use on an H100 (232,448 bytes)
 SMEM_LIMIT = 227 * 1024
@@ -72,10 +81,12 @@ _ERROR = "flash_mma_error_string"
 _WGMMA_FUNCTIONS = {"flash_attention_wgmma_bf16": [_P] * 4 + [_I] * 6
                     + [_F, _I, _I, _F, _I, _P]}
 _WGMMA_ERROR = "flash_wgmma_error_string"
-_BWD_FUNCTIONS = {name: [_P] * 10 + [_I] * 6 + [_F, _I, _I, _F, _I, _P]
-                  for name in ("flash_attention_bwd_f32",
-                               "flash_attention_bwd_bf16")}
+_BWD_FUNCTIONS = {"flash_attention_bwd_f32": [_P] * 10 + [_I] * 6
+                  + [_F, _I, _I, _F, _I, _P]}
 _BWD_ERROR = "flash_bwd_error_string"
+_BWD_WGMMA_FUNCTIONS = {"flash_attention_bwd_wgmma_bf16": [_P] * 10
+                        + [_I] * 7 + [_F, _I, _I, _F, _I, _I, _P]}
+_BWD_WGMMA_ERROR = "flash_bwd_wgmma_error_string"
 _libs: dict = {}
 
 
@@ -99,9 +110,15 @@ def load_wgmma_library() -> ctypes.CDLL:
 
 
 def load_bwd_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the backward kernel's
-    library."""
+    """Build (once per source hash) and load the float32 backward
+    kernels' library."""
     return _load("flash_bwd", _BWD_FUNCTIONS, _BWD_ERROR)
+
+
+def load_bwd_wgmma_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the bfloat16 backward
+    kernels' library."""
+    return _load("flash_bwd_wgmma", _BWD_WGMMA_FUNCTIONS, _BWD_WGMMA_ERROR)
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
@@ -304,7 +321,8 @@ flash_attention_wgmma.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the backward, float32 on the CUDA cores, and the autograd function
+# the backward: float32 on the CUDA cores, bfloat16 on the tensor cores,
+# and the autograd function
 # ---------------------------------------------------------------------------
 
 class BwdPlan(NamedTuple):
@@ -314,8 +332,8 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(D: int) -> BwdPlan:
-    """The backward kernels' tiles for head dim D: 64 query rows and 64
-    keys a tile up to D = 128, 32 at D = 256.  Its bytes are the
+    """The float32 backward kernels' tiles for head dim D: 64 query rows
+    and 64 keys a tile up to D = 128, 32 at D = 256.  Its bytes are the
     source's ``Tile<D>::kDkdv``: K, V, Q and dO tiles of rows D + 1
     floats, P and dS tiles of rows BK + 1, and the rows' lse and delta;
     the launcher refuses any other count.  Pure: the CPU tests plan every
@@ -328,77 +346,210 @@ def bwd_plan(D: int) -> BwdPlan:
     return BwdPlan(bq, bk, 4 * floats)
 
 
+def _bwd_checks(name, plan_of, tensors, window):
+    """The backward wrappers' shared checks, in order: ranks, the head
+    dim (``plan_of(D)`` raises for one not built), shapes, window,
+    device, contiguity and alignment; ``tensors`` maps names to the
+    inputs, q, k and v among them.  Returns (plan, (B, Sq, Sk, H, KV,
+    D))."""
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+    for n, t in tensors.items():
+        require(t.ndim == 4, f"{n} must be 4-D, not {tuple(t.shape)}")
+    q, k, v = tensors["q"], tensors["k"], tensors["v"]
+    B, Sq, H, D = q.shape
+    plan = plan_of(D)
+    Sk, KV = k.shape[1], k.shape[2]
+    require(k.shape == (B, Sk, KV, D) and v.shape == k.shape,
+            f"k, v must be (B, Sk, KV, D) matching q, not {tuple(k.shape)} "
+            f"and {tuple(v.shape)}")
+    others = {n: t for n, t in tensors.items() if n not in "qkv"}
+    require(all(t.shape == q.shape for t in others.values()),
+            f"{', '.join(others)} must be q's shape {tuple(q.shape)}, not "
+            + " and ".join(str(tuple(t.shape)) for t in others.values()))
+    require(min(B, Sq, Sk, H, KV) > 0 and H % KV == 0,
+            f"empty shape or H={H} not a multiple of KV={KV}")
+    require(window >= 0, f"window must be >= 0, not {window}")
+    for n, t in tensors.items():
+        require(t.is_cuda, f"needs CUDA tensors ({n} is on {t.device})")
+        require(t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"{n} must be contiguous and 16-byte aligned")
+    require(len({t.device for t in tensors.values()}) == 1,
+            "tensors on several devices")
+    return plan, (B, Sq, Sk, H, KV, D)
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, o: Optional[torch.Tensor],
+                             v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, *, causal: bool = True,
                              window: int = 0, softcap: float = 0.0
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradients of attention (``ref.py::attention_ref``'s function,
-    the forward kernels' masks) with respect to q, k and v, from the
-    forward's output ``o`` and its incoming gradient ``do``, as three
-    launches of ``csrc/flash_attention_bwd.cu`` (log-sum-exp and
-    rowsum(dO o), then dK and dV, then dQ), float32 on the CUDA cores.
-    For bfloat16 inputs the first launch recomputes o in float32 rather
-    than read the forward's bfloat16 one, whose rounding the backward's
-    dp - rowsum(dO o) would amplify: there ``o`` must be None.
+    the forward kernels' masks) with respect to q, k and v in float32,
+    from the forward's output ``o`` and its incoming gradient ``do``, as
+    three launches of ``csrc/flash_attention_bwd.cu`` (log-sum-exp and
+    rowsum(dO o), then dK and dV, then dQ) on the CUDA cores.  bfloat16
+    goes to :func:`flash_attention_bwd_wgmma`.
 
-    q, o, do (B, Sq, H, D) and k, v (B, Sk, KV, D): all float32 or all
-    bfloat16, contiguous, 16-byte aligned, on one CUDA device, H % KV ==
-    0, D one of :data:`WGMMA_HEAD_DIMS`.  Returns (dq, dk, dv) in the
-    inputs' dtype and shapes; dk and dv summed over each KV head's query
-    heads, with no atomics.  Counts one launch a call
+    q, o, do (B, Sq, H, D) and k, v (B, Sk, KV, D): float32, contiguous,
+    16-byte aligned, on one CUDA device, H % KV == 0, D one of
+    :data:`WGMMA_HEAD_DIMS`.  Returns (dq, dk, dv) in float32 and the
+    inputs' shapes; dk and dv summed over each KV head's query heads, with
+    no atomics.  Counts one launch a call
     (``flash_attention_bwd_cuda.launches``)."""
     tensors = {"q": q, "k": k, "v": v, "o": o, "do": do}
-    if o is None:
-        del tensors["o"]
-    if q.dtype not in (torch.float32, torch.bfloat16) or any(
-            t.dtype != q.dtype for t in tensors.values()):
+    dtypes = [getattr(t, "dtype", None) for t in tensors.values()]
+    if any(dt != torch.float32 for dt in dtypes):
         raise TypeError("flash_attention_bwd_cuda: q, k, v, o, do must all "
-                        "be float32 or all bfloat16 (got "
-                        + ", ".join(str(t.dtype) for t in tensors.values())
-                        + ")")
-    own_o = q.dtype == torch.bfloat16
-    _require((o is None) == own_o,
-             "o is the float32 forward's output, and None for bfloat16 "
-             "(whose first launch recomputes it)")
-    for name, t in tensors.items():
-        _require(t.ndim == 4, f"{name} must be 4-D, not {tuple(t.shape)}")
-    B, Sq, H, D = q.shape
-    Sk, KV = k.shape[1], k.shape[2]
-    plan = bwd_plan(D)
-    _require(k.shape == (B, Sk, KV, D) and v.shape == k.shape,
-             f"k, v must be (B, Sk, KV, D) matching q, not "
-             f"{tuple(k.shape)} and {tuple(v.shape)}")
-    _require(all(t.shape == q.shape for t in (o, do) if t is not None),
-             f"o, do must be q's shape {tuple(q.shape)}, not "
-             f"{None if o is None else tuple(o.shape)} and "
-             f"{tuple(do.shape)}")
-    _require(min(B, Sq, Sk, H, KV) > 0 and H % KV == 0,
-             f"empty shape or H={H} not a multiple of KV={KV}")
-    _require(window >= 0, f"window must be >= 0, not {window}")
-    for name, t in tensors.items():
-        _require(t.is_cuda, f"needs CUDA tensors ({name} is on {t.device})")
-        _require(t.is_contiguous() and t.data_ptr() % 16 == 0,
-                 f"{name} must be contiguous and 16-byte aligned")
-    _require(len({t.device for t in tensors.values()}) == 1,
-             "tensors on several devices")
+                        "be float32 tensors (bfloat16 goes to "
+                        "flash_attention_bwd_wgmma; got "
+                        + ", ".join(map(str, dtypes)) + ")")
+    plan, (B, Sq, Sk, H, KV, D) = _bwd_checks(
+        "flash_attention_bwd_cuda", bwd_plan, tensors, window)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    name = ("flash_attention_bwd_f32" if q.dtype == torch.float32
-            else "flash_attention_bwd_bf16")
-    launch(load_bwd_library(), name, _BWD_ERROR, q.device, q.data_ptr(),
-           k.data_ptr(), v.data_ptr(), 0 if own_o else o.data_ptr(),
-           do.data_ptr(),
-           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-           delta.data_ptr(), B, Sq, Sk, H, KV, D, 1.0 / math.sqrt(D),
-           int(causal), int(window), float(softcap), plan.smem_bytes)
+    launch(load_bwd_library(), "flash_attention_bwd_f32", _BWD_ERROR,
+           q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+           do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, D,
+           1.0 / math.sqrt(D), int(causal), int(window), float(softcap),
+           plan.smem_bytes)
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
+
+
+BWD_WGMMA_BKV = 128     # keys a block of the dkdv launch: two warpgroups
+
+
+class BwdWgmmaPlan(NamedTuple):
+    bq: int                # query rows a prep or dq block (two warpgroups)
+    bk: int                # keys a K/V tile of the prep and dq launches
+    bkv: int               # keys a dkdv block (two warpgroups)
+    bqd: int               # query rows a Q/dO tile of the dkdv launch
+    stages: int            # tiles in each ring
+    d_split: int           # dkdv blocks over dK's and dV's D columns
+    smem_q: int            # bytes of a prep or dq block
+    smem_k: int            # bytes of a dkdv block
+
+
+def bwd_wgmma_plan(D: int) -> BwdWgmmaPlan:
+    """The bfloat16 backward's plan for head dim D.  Prep and dq: 128
+    query rows a block, K/V tiles of 64 keys (32 at D = 256, where Q and
+    dO alone take 128 KB) in two stages.  dkdv: 128 keys a block, Q/dO
+    tiles of 64 rows (32 at D = 256) with their rows' lse and delta in two
+    stages, and at D = 256 two blocks over dK's and dV's columns (both
+    accumulators of 64 keys would be 256 floats a thread).  Its bytes are
+    the source's ``QLayout<D>::kSmem`` and ``KLayout<D>::kSmem``: the
+    alignment slack, the held tiles and the ring as 64-column chunks of
+    128-byte rows, the ring's lse and delta (dkdv), and the mbarriers; the
+    launcher refuses any other count.  Pure: the CPU tests plan every D.
+    Raises ValueError for a D the kernel is not built for."""
+    if D not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_wgmma: head dim D={D} is "
+                         f"not built (one of {WGMMA_HEAD_DIMS})")
+    chunks, stages = -(-D // 64), 2
+    bk = bqd = 64 if D <= 128 else 32
+    bars = 8 * (1 + 2 * stages)
+    smem_q = (_ALIGN + 2 * chunks * WGMMA_BQ * _ROW_BYTES
+              + stages * 2 * chunks * bk * _ROW_BYTES + bars)
+    smem_k = (_ALIGN + 2 * chunks * BWD_WGMMA_BKV * _ROW_BYTES
+              + stages * (2 * chunks * bqd * _ROW_BYTES + 2 * bqd * 4)
+              + bars)
+    return BwdWgmmaPlan(WGMMA_BQ, bk, BWD_WGMMA_BKV, bqd, stages,
+                        2 if D > 128 else 1, smem_q, smem_k)
+
+
+def bwd_wgmma_split(B: int, KV: int, G: int, Sk: int, D: int,
+                    sms: int = H100_SMS) -> int:
+    """How many dkdv blocks share a group's G query heads: the fewest (a
+    divisor of G) that give the launch at least 1.5 blocks for each of
+    ``sms`` SMs, else G.  1 writes dK and dV straight; more write float32
+    partials that the dq launch sums in split order.  At StarCoder2-3B's
+    training shape (64 blocks unsplit) ``tools/flash_bwd_probe.py`` timed
+    the whole backward at 1.49 ms unsplit, 0.97 / 0.80 / 0.73 / 0.75 /
+    0.77 ms split over 2 / 3 / 4 / 6 / 12 (H100): 4 is the pick.  Pure."""
+    plan = bwd_wgmma_plan(D)
+    blocks = B * KV * -(-Sk // plan.bkv) * plan.d_split
+    return next((n for n in range(1, G + 1)
+                 if G % n == 0 and 2 * blocks * n >= 3 * sms), G)
+
+
+# threads of a block of the bfloat16 backward, and the groups of four
+# partial elements each of them sums in the dq launch's last blocks
+_BWD_WGMMA_THREADS, _BWD_WGMMA_SUM_GROUPS = 384, 8
+
+
+def bwd_wgmma_grids(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
+                    sms: int = H100_SMS) -> Tuple[int, int, int, int]:
+    """The bfloat16 backward's split (:func:`bwd_wgmma_split`) and its
+    three launches' blocks, as the source's launcher sizes them: prep
+    (one per batch * head and 128 query rows), dkdv (one per 128 keys,
+    batch, KV head, split and column half), dq (prep's, and with a split
+    the blocks that sum the partials, eight groups of four elements a
+    thread).  Pure."""
+    plan = bwd_wgmma_plan(D)
+    n_split = bwd_wgmma_split(B, KV, H // KV, Sk, D, sms)
+    prep = -(-Sq // plan.bq) * B * H
+    dkdv = -(-Sk // plan.bkv) * B * KV * n_split * plan.d_split
+    per_block = _BWD_WGMMA_THREADS * _BWD_WGMMA_SUM_GROUPS
+    sums = -(-(B * Sk * KV * D // 2) // per_block) if n_split > 1 else 0
+    return n_split, prep, dkdv, prep + sums
+
+
+def flash_attention_bwd_wgmma(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, do: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              softcap: float = 0.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """The gradients of attention (``ref.py::attention_ref``'s function,
+    the forward kernels' masks) with respect to q, k and v in bfloat16,
+    from the incoming gradient ``do``, as three launches of
+    ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores: log-sum-exp
+    and delta = sum_j p_ij dP_ij (rowsum(dO o O) without O), then dK and
+    dV, then dQ (and the sum of dK's and dV's partials when
+    :func:`bwd_wgmma_split` splits a group's heads).  P and dS are
+    rounded to bfloat16 as the products' operands; every sum is float32.
+
+    q, do (B, Sq, H, D) and k, v (B, Sk, KV, D): bfloat16, contiguous,
+    16-byte aligned, on one CUDA device, H % KV == 0, D one of
+    :data:`WGMMA_HEAD_DIMS`.  Returns (dq, dk, dv) in bfloat16 and the
+    inputs' shapes; dk and dv summed over each KV head's query heads in a
+    fixed order, with no atomics.  Counts one launch a call
+    (``flash_attention_bwd_wgmma.launches``)."""
+    tensors = {"q": q, "k": k, "v": v, "do": do}
+    if not all(t.dtype == torch.bfloat16 for t in tensors.values()):
+        raise TypeError("flash_attention_bwd_wgmma: q, k, v, do must all be "
+                        "bfloat16 (float32 goes to flash_attention_bwd_cuda;"
+                        " got " + ", ".join(str(t.dtype)
+                                            for t in tensors.values()) + ")")
+    plan, (B, Sq, Sk, H, KV, D) = _bwd_checks(
+        "flash_attention_bwd_wgmma", bwd_wgmma_plan, tensors, window)
+    n_split = bwd_wgmma_split(B, KV, H // KV, Sk, D, _sms(q.device))
+    sq_pad = -(-Sq // plan.bq) * plan.bq
+    lse = torch.empty((B * H, sq_pad), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    part = (torch.empty((2, n_split, B, Sk, KV, D), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    launch(load_bwd_wgmma_library(), "flash_attention_bwd_wgmma_bf16",
+           _BWD_WGMMA_ERROR, q.device, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+           0 if part is None else part.data_ptr(), B, Sq, Sk, H, KV, D,
+           n_split, 1.0 / math.sqrt(D), int(causal), int(window),
+           float(softcap), plan.smem_q, plan.smem_k)
+    flash_attention_bwd_wgmma.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_wgmma.launches = 0
 
 
 def forward_kernel(dtype: torch.dtype):
@@ -408,13 +559,21 @@ def forward_kernel(dtype: torch.dtype):
             else flash_attention_cuda)
 
 
+def backward_kernel(dtype: torch.dtype):
+    """The backward kernel a dtype goes to: bfloat16 to the wgmma kernel
+    (``f(q, k, v, do, ...)``), any other to the CUDA-core kernel
+    (``f(q, k, v, o, do, ...)``, which refuses all but float32)."""
+    return (flash_attention_bwd_wgmma if dtype == torch.bfloat16
+            else flash_attention_bwd_cuda)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with a gradient on the card: the forward kernel of the
-    inputs' dtype (:func:`forward_kernel`), then
-    :func:`flash_attention_bwd_cuda`.  Saves q, k, v, and the output o
-    for float32 only (the bfloat16 backward recomputes it); under
-    ``torch.utils.checkpoint`` the forward runs again in the backward
-    pass (one more forward launch)."""
+    inputs' dtype (:func:`forward_kernel`), then the backward kernel of
+    that dtype (:func:`backward_kernel`).  Saves q, k, v, and the output
+    o for float32 only (the bfloat16 backward takes delta from dP, with
+    no O); under ``torch.utils.checkpoint`` the forward runs again in the
+    backward pass (one more forward launch)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, softcap: float):
@@ -429,7 +588,9 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
         causal, window, softcap = ctx.mask
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, o, do.contiguous(), causal=causal, window=window,
-            softcap=softcap)
+        kernel = backward_kernel(q.dtype)
+        args = (q, k, v, do.contiguous()) if o is None else (
+            q, k, v, o, do.contiguous())
+        dq, dk, dv = kernel(*args, causal=causal, window=window,
+                            softcap=softcap)
         return dq, dk, dv, None, None, None

@@ -5,10 +5,11 @@ other to the TF32 kernel, which takes float32 and takes each product in
 three TF32 passes), a CPU tensor to the plain oracle.  When grad mode is
 on and q, k or v requires a gradient, a CUDA call goes through
 ``kernel.FlashAttention`` instead: the same forward kernel, and the
-hand-written backward kernel (``csrc/flash_attention_bwd.cu``) for the
-gradients; under ``torch.inference_mode()`` (the serve steps) and
-``no_grad`` nothing changes.  It is the
-kernels' one entry on the model path (``models/attention.py``'s chunked
+hand-written backward kernel of the dtype for the gradients (bfloat16
+``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores, float32
+``csrc/flash_attention_bwd.cu``); under ``torch.inference_mode()`` (the
+serve steps) and ``no_grad`` nothing changes.  It is the kernels' one
+entry on the model path (``models/attention.py``'s chunked
 branch on the card).  Nothing falls back: a CUDA tensor a kernel refuses
 raises; the plain versions (``ref.py::attention_ref``, the model's
 ``_sdpa_chunked``) are the CPU path and the oracles."""

@@ -1,8 +1,11 @@
-"""The flash-attention backward: the wrapper's refusals and launch plan,
-``attention_op``'s routes, and the ``refuse_grad`` guards of the forward
-and SSD kernels on the CPU; on the card (marker ``cuda``) the backward
-kernel against the plain version's autograd gradients in every mask case
-and head dim, the model's chunked branch through ``FlashAttention`` and
+"""The flash-attention backward: the wrappers' refusals and launch plans,
+``attention_op``'s and ``FlashAttention``'s routes, and the
+``refuse_grad`` guards of the forward and SSD kernels on the CPU; on the
+card (marker ``cuda``) both backward kernels (float32 on the CUDA cores,
+``flash_attention_bwd_cuda``; bfloat16 on the tensor cores,
+``flash_attention_bwd_wgmma``) against the plain version's autograd
+gradients in every mask case and head dim, two launches bitwise equal,
+the model's chunked branch through ``FlashAttention`` and
 ``ssd_chunked``'s refusal.  No JAX here, so the card's cases run on a
 machine that has the card but no JAX:
 
@@ -12,9 +15,9 @@ Tolerances, on the relative norm of each gradient's whole error against
 the plain version's float32 autograd gradient (``ref.py::attention_ref``
 on the inputs upcast to float32, dO too): float32 1e-5 (the kernel sums
 in float32 in another order, and its O is the TF32 x 3 forward's);
-bfloat16 5e-3 (the inputs are bfloat16 on both sides and the kernel
-recomputes O in float32, but its gradients are rounded to bfloat16:
-1.7e-3 seen on an H100)."""
+bfloat16 5e-3 (the inputs are bfloat16 on both sides; the kernel takes
+delta from dP in float32, rounds P and dS to bfloat16 as the products'
+operands and its gradients to bfloat16)."""
 import numpy as np
 import pytest
 import torch
@@ -35,6 +38,10 @@ CASES = [(True, 0, 0.0, (2, 128, 128, 4, 2)),
          (False, 0, 0.0, (2, 56, 150, 4, 4)),
          (True, 0, 0.0, (1, 77, 77, 2, 1))]
 HEAD_DIMS = list(fa.WGMMA_HEAD_DIMS)
+# the card's cases add GQA 24/2 over 1024 keys: the bfloat16 kernel's
+# dkdv launch splits each group's 12 heads over 12 blocks of 8 key tiles
+CARD_CASES = CASES + [(True, 0, 0.0, (1, 1024, 1024, 24, 2))]
+DTYPES = [torch.float32, torch.bfloat16]
 
 
 def inputs(B, Sq, Sk, H, KV, D, dtype, device, seed=0):
@@ -63,13 +70,54 @@ def rel_norm(got, want):
 # CPU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("D", HEAD_DIMS)
-def test_bwd_plan_fits_a_block(D):
-    plan = fa.bwd_plan(D)
-    assert plan.bq == plan.bk == (64 if D <= 128 else 32)
-    floats = (4 * plan.bq) * (D + 1) + 2 * plan.bq * (plan.bk + 1) \
-        + 2 * plan.bq
-    assert plan.smem_bytes == 4 * floats <= fa.SMEM_LIMIT
+@pytest.mark.parametrize(
+    "kind,D", [pytest.param("cuda", D, id=str(D)) for D in HEAD_DIMS]
+    + [pytest.param("wgmma", D, id=f"wgmma-{D}") for D in HEAD_DIMS])
+def test_bwd_plan_fits_a_block(kind, D):
+    """Each backward's plan fits one block's 227 KB and equals its
+    source's layout: ``flash_attention_bwd.cu``'s ``Tile<D>::kDkdv``;
+    ``flash_attention_bwd_wgmma.cu``'s ``QLayout<D>`` and ``KLayout<D>``
+    (1024 alignment bytes, 128-byte rows of 64-column chunks, the
+    mbarriers, and the dkdv ring's lse and delta)."""
+    if kind == "cuda":
+        plan = fa.bwd_plan(D)
+        assert plan.bq == plan.bk == (64 if D <= 128 else 32)
+        floats = (4 * plan.bq) * (D + 1) + 2 * plan.bq * (plan.bk + 1) \
+            + 2 * plan.bq
+        assert plan.smem_bytes == 4 * floats <= fa.SMEM_LIMIT
+        return
+    plan = fa.bwd_wgmma_plan(D)
+    tile = 64 if D <= 128 else 32
+    assert (plan.bq, plan.bk, plan.bkv, plan.bqd, plan.stages,
+            plan.d_split) == (128, tile, 128, tile, 2, 1 + (D > 128))
+    rows = 128 * ((D + 63) // 64)          # bytes of one row of chunks
+    bars = 8 * (1 + 2 * 2)
+    assert plan.smem_q == 1024 + 2 * 128 * rows + 2 * 2 * tile * rows + bars
+    assert plan.smem_k == (1024 + 2 * 128 * rows
+                           + 2 * (2 * tile * rows + 2 * tile * 4) + bars)
+    assert max(plan.smem_q, plan.smem_k) <= fa.SMEM_LIMIT
+    # dK and dV of 64 keys: at most 128 floats a thread
+    assert 2 * (D // plan.d_split) // 2 <= 128
+
+
+def test_bwd_wgmma_split_fills_the_card():
+    """The dkdv launch splits a group's heads over the fewest blocks (a
+    divisor of G) that give 1.5 blocks an SM: StarCoder2-3B's training
+    shape (B 2, KV 2, 16 key tiles, G 12) takes 4 (256 blocks); no GQA,
+    or a grid that fills the card already, takes 1; a small grid all of
+    G."""
+    assert fa.bwd_wgmma_split(2, 2, 12, 2048, 128) == 4
+    assert fa.bwd_wgmma_split(4, 32, 1, 2048, 112) == 1
+    assert fa.bwd_wgmma_split(2, 8, 2, 6144, 256) == 1
+    assert fa.bwd_wgmma_split(1, 2, 12, 1024, 64) == 12
+    assert fa.bwd_wgmma_split(2, 2, 2, 128, 64) == 2
+    assert fa.bwd_wgmma_split(2, 2, 12, 2048, 128, sms=16) == 1
+    # the launches' blocks at that shape: prep 16 x 48, dkdv 16 x 4 x 4,
+    # dq prep's and 171 that sum 2 x 2 x 2048 x 2 x 128 / 4 groups
+    assert fa.bwd_wgmma_grids(2, 2048, 2048, 24, 2, 128) == (4, 768, 256,
+                                                             939)
+    assert fa.bwd_wgmma_grids(2, 6144, 6144, 16, 8, 256) == (1, 1536, 1536,
+                                                             1536)
 
 
 def test_bwd_refuses_what_the_kernel_does_not_take():
@@ -78,9 +126,9 @@ def test_bwd_refuses_what_the_kernel_does_not_take():
         fa.flash_attention_bwd_cuda(q, k, v, q, do)
     with pytest.raises(ValueError, match="head dim"):
         fa.bwd_plan(32)
-    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+    with pytest.raises(TypeError, match="must all be float32"):
         fa.flash_attention_bwd_cuda(q, k, v, q.double(), do)
-    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+    with pytest.raises(TypeError, match="must all be float32"):
         fa.flash_attention_bwd_cuda(q.half(), k.half(), v.half(), q.half(),
                                     do.half())
     with pytest.raises(ValueError, match="multiple"):
@@ -90,12 +138,82 @@ def test_bwd_refuses_what_the_kernel_does_not_take():
         fa.flash_attention_bwd_cuda(q, k, v, q[:, :4], do)
     with pytest.raises(ValueError, match="window"):
         fa.flash_attention_bwd_cuda(q, k, v, q, do, window=-1)
-    with pytest.raises(ValueError, match="None for bfloat16"):
+    # o is the float32 forward's output, never None; bfloat16 goes to the
+    # tensor-core kernel
+    with pytest.raises(TypeError, match="must all be float32"):
         fa.flash_attention_bwd_cuda(q, k, v, None, do)
     qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
-    with pytest.raises(ValueError, match="None for bfloat16"):
+    with pytest.raises(TypeError, match="flash_attention_bwd_wgmma"):
         fa.flash_attention_bwd_cuda(qb, kb, vb, qb, dob)
     assert fa.flash_attention_bwd_cuda.launches == 0
+
+
+def test_bwd_wgmma_refuses_what_the_kernel_does_not_take():
+    """The bfloat16 wrapper refuses float32 (and any other dtype), CPU
+    tensors, a bad shape, a head dim not built and a negative window,
+    launching nothing."""
+    q, k, v, do = inputs(1, 8, 8, 2, 1, 16, torch.bfloat16, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd_wgmma(q, k, v, do)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_bwd_wgmma(q.float(), k.float(), v.float(),
+                                     do.float())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fa.flash_attention_bwd_wgmma(q, k, v, do.half())
+    with pytest.raises(ValueError, match="head dim"):
+        q32, k32, v32, do32 = inputs(1, 8, 8, 2, 1, 32, torch.bfloat16,
+                                     "cpu")
+        fa.flash_attention_bwd_wgmma(q32, k32, v32, do32)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.bwd_wgmma_plan(48)
+    with pytest.raises(ValueError, match="4-D"):
+        fa.flash_attention_bwd_wgmma(q[0], k, v, do)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention_bwd_wgmma(q, k, v, do[:, :4])
+    with pytest.raises(ValueError, match="multiple"):
+        q3, k3, v3, do3 = inputs(1, 8, 8, 3, 2, 16, torch.bfloat16, "cpu")
+        fa.flash_attention_bwd_wgmma(q3, k3, v3, do3)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention_bwd_wgmma(q, k, v, do, window=-1)
+    assert fa.flash_attention_bwd_wgmma.launches == 0
+
+
+def test_backward_kernel_routes_each_dtype():
+    assert fa.backward_kernel(torch.bfloat16) is fa.flash_attention_bwd_wgmma
+    assert fa.backward_kernel(torch.float32) is fa.flash_attention_bwd_cuda
+    # any other dtype goes to the float32 kernel, which refuses it
+    assert fa.backward_kernel(torch.float16) is fa.flash_attention_bwd_cuda
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+def test_flash_attention_calls_the_backward_of_its_dtype(monkeypatch, dtype):
+    """``FlashAttention`` with the kernels replaced by CPU stand-ins: the
+    bfloat16 backward gets (q, k, v, do) and the mask, the float32 one
+    (q, k, v, o, do) with the forward's o; the gradients are the
+    stand-in's."""
+    calls = []
+
+    def forward(q, k, v, **kw):
+        return attention_ref(q, k, v, **kw)
+
+    def backward(*args, **kw):
+        calls.append((len(args), kw))
+        return tuple(torch.full_like(t, i + 1.0)
+                     for i, t in enumerate(args[:3]))
+
+    monkeypatch.setattr(fa, "flash_attention_wgmma", forward)
+    monkeypatch.setattr(fa, "flash_attention_cuda", forward)
+    monkeypatch.setattr(fa, "flash_attention_bwd_wgmma", backward)
+    monkeypatch.setattr(fa, "flash_attention_bwd_cuda", backward)
+    q, k, v, do = inputs(1, 8, 8, 2, 1, 16, dtype, "cpu")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = fa.FlashAttention.apply(*leaves, True, 4, 30.0)
+    got = torch.autograd.grad(o, leaves, do)
+    n_args = 4 if dtype == torch.bfloat16 else 5
+    assert calls == [(n_args, {"causal": True, "window": 4,
+                               "softcap": 30.0})]
+    for i, g in enumerate(got):
+        assert torch.equal(g, torch.full_like(g, i + 1.0))
 
 
 def test_forward_kernels_refuse_inputs_that_need_a_gradient():
@@ -155,24 +273,32 @@ def card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _launch_bwd(q, k, v, do, causal, window, cap):
+    """One launch of the backward kernel of q's dtype; the float32 one
+    reads the float32 forward kernel's o, as ``FlashAttention`` saves
+    it."""
+    kernel = fa.backward_kernel(q.dtype)
+    if q.dtype == torch.bfloat16:
+        return kernel(q, k, v, do, causal=causal, window=window,
+                      softcap=cap)
+    o = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=cap)
+    return kernel(q, k, v, o, do, causal=causal, window=window, softcap=cap)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", HEAD_DIMS)
-@pytest.mark.parametrize("causal,window,cap,dims", CASES)
+@pytest.mark.parametrize("causal,window,cap,dims", CARD_CASES)
 def test_bwd_kernel_matches_plain_autograd(card, causal, window, cap, dims,
                                            D, dtype):
     B, Sq, Sk, H, KV = dims
     q, k, v, do = inputs(B, Sq, Sk, H, KV, D, dtype, "cuda")
-    # the float32 backward reads the forward's o; bfloat16's recomputes it
-    o = (fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                 softcap=cap)
-         if dtype == torch.float32 else None)
-    n = fa.flash_attention_bwd_cuda.launches
-    got = fa.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
-                                      window=window, softcap=cap)
+    kernel = fa.backward_kernel(dtype)
+    n = kernel.launches
+    got = _launch_bwd(q, k, v, do, causal, window, cap)
     torch.cuda.synchronize()
-    assert fa.flash_attention_bwd_cuda.launches == n + 1
+    assert kernel.launches == n + 1
     want = plain_grads(q, k, v, do, causal, window, cap)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == dtype and g.shape == w.shape
@@ -181,27 +307,44 @@ def test_bwd_kernel_matches_plain_autograd(card, causal, window, cap, dims,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,window,cap,dims",
+                         [CASES[3], CASES[4], CARD_CASES[-1]])
+def test_bwd_kernel_is_deterministic(card, causal, window, cap, dims,
+                                     dtype):
+    """Two launches on the same inputs give the same bits: every sum in
+    a fixed order, no atomics (GQA 24/2 at 160 and 1024 keys, where the
+    bfloat16 kernel sums split partials; the non-causal Sq != Sk case)."""
+    B, Sq, Sk, H, KV = dims
+    q, k, v, do = inputs(B, Sq, Sk, H, KV, 128, dtype, "cuda")
+    first = _launch_bwd(q, k, v, do, causal, window, cap)
+    second = _launch_bwd(q, k, v, do, causal, window, cap)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_attention_op_routes_a_gradient_through_the_kernels(card, dtype):
     """Grad mode on and inputs that require a gradient: one forward and
-    one backward launch through ``FlashAttention``; under inference mode
-    the forward kernel alone, as the serve steps run it."""
+    one backward launch through ``FlashAttention``, each the kernel of
+    the dtype; under inference mode the forward kernel alone, as the
+    serve steps run it."""
     q, k, v, do = inputs(2, 300, 300, 4, 2, 64, dtype, "cuda")
-    fwd = fa.forward_kernel(dtype)
+    fwd, bwd = fa.forward_kernel(dtype), fa.backward_kernel(dtype)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    n_f, n_b = fwd.launches, fa.flash_attention_bwd_cuda.launches
+    n_f, n_b = fwd.launches, bwd.launches
     o = attention_op(*leaves, causal=True)
     assert o.grad_fn is not None
     got = torch.autograd.grad(o, leaves, do)
     torch.cuda.synchronize()
-    assert (fwd.launches - n_f, fa.flash_attention_bwd_cuda.launches - n_b) \
-        == (1, 1)
+    assert (fwd.launches - n_f, bwd.launches - n_b) == (1, 1)
     for g, w in zip(got, plain_grads(q, k, v, do, True, 0, 0.0)):
         assert rel_norm(g, w) <= REL[dtype]
     with torch.inference_mode():
         o2 = attention_op(q, k, v, causal=True)
-    assert fa.flash_attention_bwd_cuda.launches - n_b == 1
+    assert bwd.launches - n_b == 1
     assert torch.equal(o2, o.detach())
 
 
