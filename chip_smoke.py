@@ -119,9 +119,11 @@ float32, 12 requests over 4 rows, each request held to its solo decode.
 Traced prefills and decode steps of Zamba2-7B, Gemma2-9B, OLMoE and
 Whisper-large-v3 show where the serving time goes, OLMoE's with its
 expert dispatch against its expert products.  The training slice
-follows: the flash-attention backward kernel
-(``csrc/flash_attention_bwd.cu``, reached on the model path through the
-autograd function ``kernel.FlashAttention``) against the plain
+follows: the flash-attention backward kernels
+(``csrc/flash_attention_bwd_mma.cu`` for float32 and
+``csrc/flash_attention_bwd_wgmma.cu`` for bfloat16, both on the tensor
+cores, reached on the model path through the autograd function
+``kernel.FlashAttention``) against the plain
 version's autograd gradients in both dtypes, every mask case and head
 dim, then timed at StarCoder2-3B's training attention, Zamba2-7B's,
 Gemma2-9B's local layer and Whisper's cross-attention beside the plain
@@ -2511,8 +2513,9 @@ PER_ROW = (("starcoder2_3b", {}, (3, 29, 11)),
 
 # the training slice: the flash-attention backward against the plain
 # version's autograd gradients, each gradient's relative norm error
-# bounded per dtype (float32: the kernel sums in float32 in another order
-# from the TF32 x 3 forward's O, 3.9e-6 seen; bfloat16: the gradients are
+# bounded per dtype (float32: the kernel takes every product as TF32 x 3
+# on the tensor cores, in another order, from the TF32 x 3 forward's O,
+# 5.3e-6 seen at D 256; bfloat16: the gradients are
 # rounded to bfloat16, 1.7e-3 seen on random inputs and on StarCoder2-3B's
 # activations, the bound tightened from 1e-2 after the first run);
 # (label, (B, Sq, Sk, H, KV), causal, window, cap), at every head dim
@@ -2524,18 +2527,18 @@ FLASH_BWD_CASES = [("causal", (2, 256, 256, 4, 2), True, 0, 0.0),
                    ("non-causal Sq 224 x Sk 1500", (1, 224, 1500, 4, 4),
                     False, 0, 0.0),
                    ("ragged S 77", (1, 77, 77, 2, 1), True, 0, 0.0)]
-# the backward timed at StarCoder2-3B's training attention (batch 2 of
-# 2048 tokens), Zamba2-7B's prefill shape (D 112), Gemma2-9B's local
-# layer (window 4096, cap 50, D 256) and Whisper-large-v3's
+# the backward timed in both dtypes at StarCoder2-3B's training attention
+# (batch 2 of 2048 tokens), Zamba2-7B's prefill shape (D 112), Gemma2-9B's
+# local layer (window 4096, cap 50, D 256) and Whisper-large-v3's
 # cross-attention: (model, shape, causal, window, cap, dtypes)
 FLASH_STARCODER_TRAIN = (2, 2048, 2048, 24, 2, 128)
+_BWD_DTYPES = (torch.bfloat16, torch.float32)
 FLASH_BWD_TIMED = [
-    ("StarCoder2-3B", FLASH_STARCODER_TRAIN, True, 0, 0.0,
-     (torch.bfloat16, torch.float32)),
-    ("Zamba2-7B", FLASH_ZAMBA, True, 0, 0.0, (torch.bfloat16,)),
-    ("Gemma2-9B local", FLASH_GEMMA, True, 4096, 50.0, (torch.bfloat16,)),
+    ("StarCoder2-3B", FLASH_STARCODER_TRAIN, True, 0, 0.0, _BWD_DTYPES),
+    ("Zamba2-7B", FLASH_ZAMBA, True, 0, 0.0, _BWD_DTYPES),
+    ("Gemma2-9B local", FLASH_GEMMA, True, 4096, 50.0, _BWD_DTYPES),
     ("Whisper-large-v3 cross", FLASH_WHISPER_CROSS, False, 0, 0.0,
-     (torch.bfloat16,))]
+     _BWD_DTYPES)]
 # the reference test's TINY (tests/test_train.py), float32, at 512 tokens
 # (512 * 512 > 256 * 256: flash forward and backward), batch 8, 40 steps
 # at the test's OptConfig; its CE over the last 5 steps under 0.8 x the
@@ -4124,17 +4127,21 @@ def _sdpa_bwd_ms(q, k, v, do, causal, reps):
 
 def _bwd_plan_str(B, Sq, Sk, H, KV, D, dtype):
     """The backward's plan at a shape: grids, shared bytes and blocks."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     if dtype == torch.float32:
         p = flash_kernel.bwd_plan(D)
-        nq, nk = -(-Sq // p.bq), -(-Sk // p.bk)
-        return (f"flash_attention_bwd plan: tiles {p.bq} x {p.bk}, prep and "
-                f"dq grid ({B * H}, {nq}) = {B * H * nq} blocks, dkdv grid "
-                f"({B * KV}, {nk}) = {B * KV * nk} blocks, 256 threads, "
-                f"dkdv shared bytes {p.smem_bytes}")
+        n_split, prep, dkdv, dq = flash_kernel.bwd_grids(B, Sq, Sk, H, KV, D,
+                                                         sms)
+        return (f"flash_attention_bwd_mma plan: prep and dq {p.bq} query rows "
+                f"a block ({p.bq // 16} warps), K/V tiles of {p.bk} keys; "
+                f"dkdv {p.bkv} keys a block (8 warps, {p.d_split} a key "
+                f"group's columns), Q/dO tiles of {p.bqd} rows, heads split "
+                f"over {n_split}; {p.stages} stages; grids prep {prep}, dkdv "
+                f"{dkdv}, dq {dq} blocks; shared bytes prep {p.smem_prep}, dq "
+                f"{p.smem_dq}, dkdv {p.smem_kv}")
     p = flash_kernel.bwd_wgmma_plan(D)
     n_split, prep, dkdv, dq = flash_kernel.bwd_wgmma_grids(
-        B, Sq, Sk, H, KV, D, torch.cuda.get_device_properties(0)
-        .multi_processor_count)
+        B, Sq, Sk, H, KV, D, sms)
     return (f"flash_attention_bwd_wgmma plan: prep and dq {p.bq} query rows "
             f"a block, K/V tiles of {p.bk} keys; dkdv {p.bkv} keys a block, "
             f"Q/dO tiles of {p.bqd} rows, {p.d_split} column block(s), "
@@ -4146,8 +4153,9 @@ def _bwd_plan_str(B, Sq, Sk, H, KV, D, dtype):
 def flash_bwd_phase():
     """The flash-attention backward kernels against the plain version's
     autograd gradients on the card, each reached by its dtype as
-    ``FlashAttention`` reaches it: float32 ``csrc/flash_attention_bwd.cu``
-    (given the forward kernel's O), bfloat16
+    ``FlashAttention`` reaches it: float32
+    ``csrc/flash_attention_bwd_mma.cu`` (given the forward kernel's O),
+    bfloat16
     ``csrc/flash_attention_bwd_wgmma.cu``; both dtypes x FLASH_BWD_CASES
     (causal, window, soft-cap, GQA 24/2, non-causal Sq 224 x Sk 1500,
     ragged S) x every head dim, each gradient's relative norm error within
@@ -4172,7 +4180,7 @@ def flash_bwd_phase():
                 e_max[dtype] = max(e_max[dtype], e)
                 worst[dtype] = max(worst[dtype], r)
     n_cases = len(FLASH_BWD_CASES) * len(flash_kernel.WGMMA_HEAD_DIMS)
-    print("flash_attention_bwd (float32) and flash_attention_bwd_wgmma "
+    print("flash_attention_bwd_mma (float32) and flash_attention_bwd_wgmma "
           f"(bfloat16): {n_cases} cases each (causal, window 64, soft-cap "
           "50, GQA 24/2, non-causal Sq 224 x Sk 1500, ragged S 77 x D 16/64/"
           "112/128/256) against the plain version's float32 autograd "
@@ -4613,16 +4621,17 @@ def main() -> int:
               fa_ref, flash_launches, flash_err, flash_t, flash_t[5])]
     # the flash-attention backward: the counterpart of no Pallas kernel
     # (the reference differentiates its jnp attention with
-    # jax.value_and_grad); float32 on the CUDA cores, launches over TINY's
-    # training on the card, and bfloat16 on the tensor cores, launches
-    # over StarCoder2-3B's at full width; times at StarCoder2-3B's
-    # training attention in each dtype, beside SDPA's backward
+    # jax.value_and_grad); both on the tensor cores, float32 (TF32 x 3
+    # mma.sync) with launches over TINY's training on the card, and
+    # bfloat16 (wgmma) with launches over StarCoder2-3B's at full width;
+    # times at StarCoder2-3B's training attention in each dtype, beside
+    # SDPA's backward
     f32, bf16 = torch.float32, torch.bfloat16
     grad_ref = ("jax.value_and_grad (src/repro/train/steps.py:152) through "
                 "src/repro/models/attention.py::_sdpa_chunked (:66)")
-    rows += [("flash_attention_bwd", fa_src + "flash_attention_bwd.cu",
-              grad_ref, bwd_f32_launches, bwd_err[f32], bwd_t[f32],
-              bwd_lib[f32]),
+    rows += [("flash_attention_bwd_mma",
+              fa_src + "flash_attention_bwd_mma.cu", grad_ref,
+              bwd_f32_launches, bwd_err[f32], bwd_t[f32], bwd_lib[f32]),
              ("flash_attention_bwd_wgmma",
               fa_src + "flash_attention_bwd_wgmma.cu", grad_ref,
               bwd_bf16_launches, bwd_err[bf16], bwd_t[bf16], bwd_lib[bf16])]

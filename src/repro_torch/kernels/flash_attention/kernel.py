@@ -30,10 +30,12 @@ three launches (log-sum-exp and delta = sum_j p_ij dP_ij, dK and dV per
 key block with a group's query heads split over blocks whose float32
 partials the third launch sums in a fixed order, dQ per query block), no
 atomics; :func:`bwd_wgmma_plan` and :func:`bwd_wgmma_split` are its
-plan.  :func:`flash_attention_bwd_cuda` (``csrc/flash_attention_bwd.cu``)
-is the backward for float32, on the CUDA cores (three launches:
-log-sum-exp and rowsum(dO o), dK and dV per key block, dQ per query
-block).  :class:`FlashAttention` runs a forward kernel and saves q, k, v
+plan.  :func:`flash_attention_bwd_cuda` (``csrc/flash_attention_bwd_mma.cu``)
+is the backward for float32: every product as TF32 ``mma.sync`` in three
+passes, three launches (log-sum-exp and rowsum(dO o), dK and dV per key
+block with a group's heads split as the bfloat16 kernel splits them, dQ
+per query block), no atomics; :func:`bwd_plan` and :func:`bwd_split` are
+its plan.  :class:`FlashAttention` runs a forward kernel and saves q, k, v
 (and o for float32) for the backward of the inputs' dtype
 (:func:`backward_kernel`).  Neither backward replaces a Pallas kernel:
 the reference differentiates its jnp attention with
@@ -65,7 +67,7 @@ from ..build import bind, build_libraries, launch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"flash_mma": _CSRC / "flash_attention_mma.cu",
            "flash_wgmma": _CSRC / "flash_attention_wgmma.cu",
-           "flash_bwd": _CSRC / "flash_attention_bwd.cu",
+           "flash_bwd": _CSRC / "flash_attention_bwd_mma.cu",
            "flash_bwd_wgmma": _CSRC / "flash_attention_bwd_wgmma.cu"}
 
 # shared memory one block may use on an H100 (232,448 bytes)
@@ -81,8 +83,8 @@ _ERROR = "flash_mma_error_string"
 _WGMMA_FUNCTIONS = {"flash_attention_wgmma_bf16": [_P] * 4 + [_I] * 6
                     + [_F, _I, _I, _F, _I, _P]}
 _WGMMA_ERROR = "flash_wgmma_error_string"
-_BWD_FUNCTIONS = {"flash_attention_bwd_f32": [_P] * 10 + [_I] * 6
-                  + [_F, _I, _I, _F, _I, _P]}
+_BWD_FUNCTIONS = {"flash_attention_bwd_f32": [_P] * 11 + [_I] * 7
+                  + [_F, _I, _I, _F, _I, _I, _I, _P]}
 _BWD_ERROR = "flash_bwd_error_string"
 _BWD_WGMMA_FUNCTIONS = {"flash_attention_bwd_wgmma_bf16": [_P] * 10
                         + [_I] * 7 + [_F, _I, _I, _F, _I, _I, _P]}
@@ -321,29 +323,88 @@ flash_attention_wgmma.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the backward: float32 on the CUDA cores, bfloat16 on the tensor cores,
-# and the autograd function
+# the backward: float32 and bfloat16 on the tensor cores, and the
+# autograd function
 # ---------------------------------------------------------------------------
 
+# the groups of four partial elements each thread of the float32
+# backward's summing blocks (the dq launch's last) adds up
+_BWD_SUM_GROUPS = 8
+
+
 class BwdPlan(NamedTuple):
-    bq: int                # query rows a tile
-    bk: int                # keys a tile
-    smem_bytes: int        # the dkdv kernel's, the largest of the three
+    bq: int                # query rows a prep or dq block (16 a warp)
+    bk: int                # keys a K/V tile of the prep and dq launches
+    bkv: int               # keys a dkdv block (16 a key group of warps)
+    bqd: int               # query rows a Q/dO tile of the dkdv launch
+    stages: int            # tiles in each ring
+    d_split: int           # dkdv warps sharing a key group's D columns
+    smem_prep: int         # bytes of a prep block
+    smem_dq: int           # bytes of a dq block
+    smem_kv: int           # bytes of a dkdv block
 
 
 def bwd_plan(D: int) -> BwdPlan:
-    """The float32 backward kernels' tiles for head dim D: 64 query rows
-    and 64 keys a tile up to D = 128, 32 at D = 256.  Its bytes are the
-    source's ``Tile<D>::kDkdv``: K, V, Q and dO tiles of rows D + 1
-    floats, P and dS tiles of rows BK + 1, and the rows' lse and delta;
-    the launcher refuses any other count.  Pure: the CPU tests plan every
-    D.  Raises ValueError for a D the kernel is not built for."""
+    """The float32 backward's plan for head dim D.  Prep and dq: 8 warps
+    of 16 query rows a block (4 at D = 256, whose Q and dO alone take
+    133 KB), K/V tiles of 32 keys (16 at D = 256) in two stages.  dkdv: 8
+    warps, 8 key groups of 16 keys (128 keys a block), or at D = 256 4
+    key groups times 2 column halves of dK and dV (64 keys; 16 keys' dK
+    and dV would be 256 floats a thread); Q/dO tiles of 32 rows (16 at
+    D = 256) with their rows' lse and delta in two stages.  Every shared
+    row is D + 4 floats.  Its bytes are the source's
+    ``Rows<D>::kSmemPrep`` (Q, the K ring), ``Rows<D>::kSmemDq`` (Q, dO,
+    the K and V ring) and ``Cols<D>::kSmem`` (K, V, the Q and dO ring,
+    the ring's lse and delta); the launcher refuses any other count.
+    Pure: the CPU tests plan every D.  Raises ValueError for a D the
+    kernel is not built for."""
     if D not in WGMMA_HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_cuda: head dim D={D} is not "
                          f"built (one of {WGMMA_HEAD_DIMS})")
-    bq = bk = 64 if D <= 128 else 32
-    floats = (2 * bk + 2 * bq) * (D + 1) + 2 * bq * (bk + 1) + 2 * bq
-    return BwdPlan(bq, bk, 4 * floats)
+    small = D <= 128
+    bq, bk, groups, bqd, stages = (128 if small else 64, 32 if small else 16,
+                                   8 if small else 4, 32 if small else 16, 2)
+    row = 4 * (D + 4)
+    return BwdPlan(bq, bk, 16 * groups, bqd, stages, 8 // groups,
+                   row * (bq + stages * bk), row * (2 * bq + 2 * stages * bk),
+                   row * (2 * 16 * groups + 2 * stages * bqd)
+                   + 4 * 2 * stages * bqd)
+
+
+def bwd_split(B: int, KV: int, G: int, Sk: int, D: int,
+              sms: int = H100_SMS) -> int:
+    """How many dkdv blocks of the float32 backward share a group's G
+    query heads: the fewest (a divisor of G) that give the launch at
+    least 1.5 blocks for each of ``sms`` SMs, else G, the rule of
+    :func:`bwd_wgmma_split` over this kernel's key blocks.  1 writes dK
+    and dV straight; more write float32 partials that the dq launch sums
+    in split order.  Pure."""
+    return _head_split(B * KV * -(-Sk // bwd_plan(D).bkv), G, sms)
+
+
+def _head_split(blocks: int, G: int, sms: int) -> int:
+    """The fewest of a group's G query heads' divisors that give a dkdv
+    launch of ``blocks`` blocks a split at least 1.5 blocks for each of
+    ``sms`` SMs, else G."""
+    return next((n for n in range(1, G + 1)
+                 if G % n == 0 and 2 * blocks * n >= 3 * sms), G)
+
+
+def bwd_grids(B: int, Sq: int, Sk: int, H: int, KV: int, D: int,
+              sms: int = H100_SMS) -> Tuple[int, int, int, int]:
+    """The float32 backward's split (:func:`bwd_split`) and its three
+    launches' blocks, as the source's launcher sizes them: prep (one per
+    batch * head and ``bq`` query rows), dkdv (one per ``bkv`` keys,
+    batch, KV head and split), dq (prep's, and with a split the blocks
+    that sum the partials, eight groups of four elements a thread).
+    Pure."""
+    plan = bwd_plan(D)
+    n_split = bwd_split(B, KV, H // KV, Sk, D, sms)
+    rows = -(-Sq // plan.bq) * B * H
+    keys = -(-Sk // plan.bkv) * B * KV * n_split
+    per_block = 32 * (plan.bq // 16) * _BWD_SUM_GROUPS
+    sums = -(-(B * Sk * KV * D // 2) // per_block) if n_split > 1 else 0
+    return n_split, rows, keys, rows + sums
 
 
 def _bwd_checks(name, plan_of, tensors, window):
@@ -389,15 +450,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     """The gradients of attention (``ref.py::attention_ref``'s function,
     the forward kernels' masks) with respect to q, k and v in float32,
     from the forward's output ``o`` and its incoming gradient ``do``, as
-    three launches of ``csrc/flash_attention_bwd.cu`` (log-sum-exp and
-    rowsum(dO o), then dK and dV, then dQ) on the CUDA cores.  bfloat16
-    goes to :func:`flash_attention_bwd_wgmma`.
+    three launches of ``csrc/flash_attention_bwd_mma.cu`` on the tensor
+    cores, every product TF32 ``mma.sync`` in three passes: log-sum-exp
+    and rowsum(dO o), then dK and dV, then dQ (and the sum of dK's and
+    dV's partials when :func:`bwd_split` splits a group's heads).
+    bfloat16 goes to :func:`flash_attention_bwd_wgmma`.
 
     q, o, do (B, Sq, H, D) and k, v (B, Sk, KV, D): float32, contiguous,
     16-byte aligned, on one CUDA device, H % KV == 0, D one of
     :data:`WGMMA_HEAD_DIMS`.  Returns (dq, dk, dv) in float32 and the
-    inputs' shapes; dk and dv summed over each KV head's query heads, with
-    no atomics.  Counts one launch a call
+    inputs' shapes; dk and dv summed over each KV head's query heads in a
+    fixed order, with no atomics.  Counts one launch a call
     (``flash_attention_bwd_cuda.launches``)."""
     tensors = {"q": q, "k": k, "v": v, "o": o, "do": do}
     dtypes = [getattr(t, "dtype", None) for t in tensors.values()]
@@ -408,15 +471,20 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                         + ", ".join(map(str, dtypes)) + ")")
     plan, (B, Sq, Sk, H, KV, D) = _bwd_checks(
         "flash_attention_bwd_cuda", bwd_plan, tensors, window)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    n_split = bwd_split(B, KV, H // KV, Sk, D, _sms(q.device))
+    sq_pad = -(-Sq // plan.bq) * plan.bq
+    lse = torch.empty((B * H, sq_pad), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
+    part = (torch.empty((2, n_split, B, Sk, KV, D), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     launch(load_bwd_library(), "flash_attention_bwd_f32", _BWD_ERROR,
            q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           lse.data_ptr(), delta.data_ptr(), B, Sq, Sk, H, KV, D,
-           1.0 / math.sqrt(D), int(causal), int(window), float(softcap),
-           plan.smem_bytes)
+           lse.data_ptr(), delta.data_ptr(),
+           0 if part is None else part.data_ptr(), B, Sq, Sk, H, KV, D,
+           n_split, 1.0 / math.sqrt(D), int(causal), int(window),
+           float(softcap), plan.smem_prep, plan.smem_dq, plan.smem_kv)
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
@@ -475,9 +543,7 @@ def bwd_wgmma_split(B: int, KV: int, G: int, Sk: int, D: int,
     the whole backward at 1.49 ms unsplit, 0.97 / 0.80 / 0.73 / 0.75 /
     0.77 ms split over 2 / 3 / 4 / 6 / 12 (H100): 4 is the pick.  Pure."""
     plan = bwd_wgmma_plan(D)
-    blocks = B * KV * -(-Sk // plan.bkv) * plan.d_split
-    return next((n for n in range(1, G + 1)
-                 if G % n == 0 and 2 * blocks * n >= 3 * sms), G)
+    return _head_split(B * KV * -(-Sk // plan.bkv) * plan.d_split, G, sms)
 
 
 # threads of a block of the bfloat16 backward, and the groups of four
@@ -561,7 +627,7 @@ def forward_kernel(dtype: torch.dtype):
 
 def backward_kernel(dtype: torch.dtype):
     """The backward kernel a dtype goes to: bfloat16 to the wgmma kernel
-    (``f(q, k, v, do, ...)``), any other to the CUDA-core kernel
+    (``f(q, k, v, do, ...)``), any other to the TF32 kernel
     (``f(q, k, v, o, do, ...)``, which refuses all but float32)."""
     return (flash_attention_bwd_wgmma if dtype == torch.bfloat16
             else flash_attention_bwd_cuda)

@@ -5,9 +5,9 @@ other to the TF32 kernel, which takes float32 and takes each product in
 three TF32 passes), a CPU tensor to the plain oracle.  When grad mode is
 on and q, k or v requires a gradient, a CUDA call goes through
 ``kernel.FlashAttention`` instead: the same forward kernel, and the
-hand-written backward kernel of the dtype for the gradients (bfloat16
-``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores, float32
-``csrc/flash_attention_bwd.cu``); under ``torch.inference_mode()`` (the
+hand-written backward kernel of the dtype for the gradients, both on
+the tensor cores (bfloat16 ``csrc/flash_attention_bwd_wgmma.cu``, float32
+``csrc/flash_attention_bwd_mma.cu``); under ``torch.inference_mode()`` (the
 serve steps) and ``no_grad`` nothing changes.  It is the kernels' one
 entry on the model path (``models/attention.py``'s chunked
 branch on the card).  Nothing falls back: a CUDA tensor a kernel refuses

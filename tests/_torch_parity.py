@@ -16,19 +16,22 @@ by side) a pool of threads mostly waits at each op's barrier.
 
 ``tf32``, ``mm_one_pass`` and ``mm_three_pass`` emulate on the CPU how
 the port's tensor-core kernels (the SSD scan and the float32 flash
-attention) take a float32 product in TF32: the precision argument both
-kernels rest on.
+attention, forward and backward) take a float32 product in TF32, and
+``round_to_zero`` how the tensor cores round each sum they write: the
+precision argument those kernels rest on.  JAX is imported inside
+``jax_shims`` only, so a file that takes just these helpers runs where
+JAX is not installed.
 """
-import jax
-import jax.experimental
-import jax.sharding
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
 
 
 @pytest.fixture
 def jax_shims(monkeypatch):
+    import jax
+    import jax.experimental
+    import jax.sharding
+    from jax.experimental.pallas import tpu as pltpu
     if not hasattr(jax.experimental, "enable_x64"):
         monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
                             raising=False)
@@ -74,3 +77,12 @@ def mm_three_pass(a, b):
     ah, bh = tf32(a), tf32(b)
     al, bl = tf32(a - ah), tf32(b - bh)
     return (al @ bh + ah @ bl) + ah @ bh
+
+
+def round_to_zero(a: torch.Tensor) -> torch.Tensor:
+    """float64 -> the float32 next toward zero, as the tensor cores round
+    each sum they write."""
+    f = a.float()
+    over = f.double().abs() > a.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
+                       f).double()

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import mm_one_pass, mm_three_pass, tf32
+from _torch_parity import mm_one_pass, mm_three_pass, round_to_zero, tf32
 from repro.kernels.flash_attention.kernel import flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -153,15 +153,6 @@ def test_tf32_three_pass_split_keeps_float32_tolerance():
     assert err["one_pass"] > 2e-5
 
 
-def _round_to_zero(a: torch.Tensor) -> torch.Tensor:
-    """float64 -> the float32 next toward zero, as the tensor cores round
-    each sum they write."""
-    f = a.float()
-    over = f.double().abs() > a.abs()
-    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
-                       f).double()
-
-
 def _pv_tensor_cores(p, v, partial):
     """P V as the float32 kernel's mma.sync takes it: 8 keys a step, three
     TF32 passes a step, each sum rounded toward zero; ``partial``: each
@@ -175,7 +166,7 @@ def _pv_tensor_cores(p, v, partial):
         s = slice(k0, k0 + 8)
         part = torch.zeros_like(acc) if partial else acc
         for a, b in ((pl, vh), (ph, vl), (ph, vh)):
-            part = _round_to_zero(part + a[:, s] @ b[s])
+            part = round_to_zero(part + a[:, s] @ b[s])
         acc = (acc + part).float().double() if partial else part
     return acc
 

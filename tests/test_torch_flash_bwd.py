@@ -1,9 +1,9 @@
 """The flash-attention backward: the wrappers' refusals and launch plans,
 ``attention_op``'s and ``FlashAttention``'s routes, and the
 ``refuse_grad`` guards of the forward and SSD kernels on the CPU; on the
-card (marker ``cuda``) both backward kernels (float32 on the CUDA cores,
-``flash_attention_bwd_cuda``; bfloat16 on the tensor cores,
-``flash_attention_bwd_wgmma``) against the plain version's autograd
+card (marker ``cuda``) both backward kernels, both on the tensor cores
+(float32 as TF32 ``mma.sync`` in three passes, ``flash_attention_bwd_cuda``;
+bfloat16 on wgmma, ``flash_attention_bwd_wgmma``) against the plain version's autograd
 gradients in every mask case and head dim, two launches bitwise equal,
 the model's chunked branch through ``FlashAttention`` and
 ``ssd_chunked``'s refusal.  No JAX here, so the card's cases run on a
@@ -14,7 +14,9 @@ machine that has the card but no JAX:
 Tolerances, on the relative norm of each gradient's whole error against
 the plain version's float32 autograd gradient (``ref.py::attention_ref``
 on the inputs upcast to float32, dO too): float32 1e-5 (the kernel sums
-in float32 in another order, and its O is the TF32 x 3 forward's);
+TF32 x 3 in another order, and its O is the TF32 x 3 forward's;
+``test_tf32_accumulation_per_tile_keeps_dv_within_float32_tolerance``
+emulates its longest sums);
 bfloat16 5e-3 (the inputs are bfloat16 on both sides; the kernel takes
 delta from dP in float32, rounds P and dS to bfloat16 as the products'
 operands and its gradients to bfloat16)."""
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import round_to_zero, tf32
 from repro_torch.kernels.flash_attention import kernel as fa
 from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -75,16 +78,32 @@ def rel_norm(got, want):
     + [pytest.param("wgmma", D, id=f"wgmma-{D}") for D in HEAD_DIMS])
 def test_bwd_plan_fits_a_block(kind, D):
     """Each backward's plan fits one block's 227 KB and equals its
-    source's layout: ``flash_attention_bwd.cu``'s ``Tile<D>::kDkdv``;
-    ``flash_attention_bwd_wgmma.cu``'s ``QLayout<D>`` and ``KLayout<D>``
-    (1024 alignment bytes, 128-byte rows of 64-column chunks, the
-    mbarriers, and the dkdv ring's lse and delta)."""
+    source's layout: ``flash_attention_bwd_mma.cu``'s ``Rows<D>`` (prep:
+    Q and the K ring; dq: Q, dO and the K and V ring) and ``Cols<D>``
+    (K, V, the Q and dO ring and the ring's lse and delta), every row
+    D + 4 floats; ``flash_attention_bwd_wgmma.cu``'s ``QLayout<D>`` and
+    ``KLayout<D>`` (1024 alignment bytes, 128-byte rows of 64-column
+    chunks, the mbarriers, and the dkdv ring's lse and delta).  The
+    accumulators a thread holds through a walk stay within 128 floats:
+    the float32 kernel's dQ of 16 rows, or dK and dV of 16 keys over a
+    warp's share of D; the bfloat16 kernel's dK and dV of 64 keys."""
     if kind == "cuda":
         plan = fa.bwd_plan(D)
-        assert plan.bq == plan.bk == (64 if D <= 128 else 32)
-        floats = (4 * plan.bq) * (D + 1) + 2 * plan.bq * (plan.bk + 1) \
-            + 2 * plan.bq
-        assert plan.smem_bytes == 4 * floats <= fa.SMEM_LIMIT
+        small = D <= 128
+        assert (plan.bq, plan.bk, plan.bkv, plan.bqd, plan.stages,
+                plan.d_split) == ((128, 32, 128, 32, 2, 1) if small
+                                  else (64, 16, 64, 16, 2, 2))
+        row = 4 * (D + 4)
+        assert plan.smem_prep == row * (plan.bq + 2 * plan.bk)
+        assert plan.smem_dq == row * 2 * (plan.bq + 2 * plan.bk)
+        assert plan.smem_kv == (row * 2 * (plan.bkv + 2 * plan.bqd)
+                                + 4 * 2 * 2 * plan.bqd)
+        assert max(plan.smem_prep, plan.smem_dq,
+                   plan.smem_kv) <= fa.SMEM_LIMIT
+        # 16 rows x D of dQ; 16 keys x D / d_split of dK and of dV, over
+        # a warp's 32 threads
+        assert 16 * D // 32 <= 128
+        assert 2 * 16 * (D // plan.d_split) // 32 <= 128
         return
     plan = fa.bwd_wgmma_plan(D)
     tile = 64 if D <= 128 else 32
@@ -118,6 +137,85 @@ def test_bwd_wgmma_split_fills_the_card():
                                                              939)
     assert fa.bwd_wgmma_grids(2, 6144, 6144, 16, 8, 256) == (1, 1536, 1536,
                                                              1536)
+
+
+def test_bwd_split_fills_the_card():
+    """The float32 dkdv launch splits a group's heads by the bfloat16
+    kernel's rule over its own key blocks (128 keys up to D = 128, 64 at
+    D = 256): StarCoder2-3B's training shape (B 2, KV 2, 16 key blocks,
+    G 12) takes 4 (256 blocks); no GQA, or a grid that fills the card
+    already (Zamba2-7B, Gemma2-9B's local layer), takes 1; a small grid
+    all of G."""
+    assert fa.bwd_split(2, 2, 12, 2048, 128) == 4
+    assert fa.bwd_split(4, 32, 1, 2048, 112) == 1
+    assert fa.bwd_split(2, 8, 2, 6144, 256) == 1
+    assert fa.bwd_split(1, 2, 12, 1024, 64) == 12
+    assert fa.bwd_split(2, 2, 12, 2048, 128, sms=16) == 1
+    # the launches' blocks there: prep 16 x 48 (128 rows), dkdv 16 x 4 x
+    # 4, dq prep's and 256 that sum 2 x 2 x 2048 x 2 x 128 / 4 groups of
+    # four, 8 a thread of 256
+    assert fa.bwd_grids(2, 2048, 2048, 24, 2, 128) == (4, 768, 256, 1024)
+    # Gemma2-9B local, D 256: 64-row and 64-key blocks, no split
+    assert fa.bwd_grids(2, 6144, 6144, 16, 8, 256) == (1, 3072, 1536, 3072)
+    assert fa.bwd_grids(8, 224, 1500, 20, 20, 64) == (1, 320, 1920, 320)
+
+
+def _dv_tensor_cores(pt, do, rows):
+    """dV = P^T dO as the float32 backward's mma.sync takes it: 8 query
+    rows a step, three TF32 passes a step, each sum rounded toward zero;
+    ``rows``: each tile of that many rows into a zeroed partial (8: each
+    step's, the forward's form), the partials added to dV in round to
+    nearest in row order; None: every step straight into dV."""
+    ph, dh = tf32(pt), tf32(do)
+    pl, dl = tf32(pt - ph).double(), tf32(do - dh).double()
+    ph, dh = ph.double(), dh.double()
+    passes = ((pl, dh), (ph, dl), (ph, dh))
+    acc = torch.zeros(pt.shape[0], do.shape[1], dtype=torch.float64)
+    if rows is None:
+        for r0 in range(0, pt.shape[1], 8):
+            s = slice(r0, r0 + 8)
+            for a, b in passes:
+                acc = round_to_zero(acc + a[:, s] @ b[s])
+        return acc
+    # every tile's partial at once: (tiles, keys, rows) @ (tiles, rows, D)
+    n = pt.shape[1] // rows
+    tiles = [(a.reshape(a.shape[0], n, rows).transpose(0, 1),
+              b.reshape(n, rows, b.shape[1])) for a, b in passes]
+    part = torch.zeros(n, pt.shape[0], do.shape[1], dtype=torch.float64)
+    for r0 in range(0, rows, 8):
+        s = slice(r0, r0 + 8)
+        for a, b in tiles:
+            part = round_to_zero(part + a[:, :, s] @ b[:, s])
+    for t in range(n):
+        acc = (acc + part[t]).float().double()
+    return acc
+
+
+def test_tf32_accumulation_per_tile_keeps_dv_within_float32_tolerance():
+    """The float32 backward's longest sum: dV of one warp's 16 keys over
+    a KV head's G 12 x 2048 query rows (StarCoder2-3B's training shape),
+    P^T >= 0 and dO coherent along the rows (mean 2).  The tensor cores
+    round each sum toward zero, so taken straight into dV (9,216
+    truncations) the result drifts low; each 32-row tile's passes into a
+    zeroed partial (the kernel's dkdv tile; dQ's 32-key tiles alike) keep
+    the relative norm error under a tenth of the float32 tolerance
+    (1e-5), as low as per 8-row partials, and the straight form is at
+    least ten times worse.  The errors are printed (pytest -s)."""
+    rng = np.random.default_rng(5)
+    rows = 12 * 2048
+    pt = torch.from_numpy(np.exp(rng.standard_normal((16, rows)) - 3.0)
+                          .astype(np.float32))
+    do = torch.from_numpy((2.0 + 0.5 * rng.standard_normal((rows, 64)))
+                          .astype(np.float32))
+    want = pt.double() @ do.double()
+    err = {name: float((_dv_tensor_cores(pt, do, n) - want).norm()
+                       / want.norm())
+           for name, n in (("tile", 32), ("step", 8), ("straight", None))}
+    print(f"dV relative norm error: per 32-row tile {err['tile']:.3g}, per "
+          f"8-row step {err['step']:.3g}, straight {err['straight']:.3g}")
+    assert err["tile"] < 0.1 * 1e-5
+    assert err["tile"] < 2 * err["step"]
+    assert err["straight"] > 10 * err["tile"]
 
 
 def test_bwd_refuses_what_the_kernel_does_not_take():
